@@ -1,0 +1,26 @@
+"""IF-Defense in PyTorch and CUDA, for one NVIDIA H100.
+
+A port of `if_defense_tpu` (the JAX package, which stays the reference).
+It mirrors the JAX package's layout so that each module's counterpart is
+easy to find, keeps the JAX layouts at public function boundaries (points
+`[B, N, 3]`, planes channel-last `[B, R, R, C]`, the repulsion mask int8
+`[B, N, N]`) and never imports JAX.
+
+Each Pallas kernel of the JAX package becomes a CUDA C++ kernel for
+`sm_90a` under `csrc/`, built on first use by `ops/_build.py`. Every
+kernel wrapper keeps a plain PyTorch version beside it: the wrapper takes
+the plain version for tensors on the CPU and launches the kernel (or
+raises) for tensors on a CUDA device.
+
+Subpackages
+-----------
+- ``ops``       normalisation, point ops, scatter, plane sampling and the
+                CUDA kernel wrappers
+- ``data``      the npz interchange schema
+- ``implicit``  ConvONet (encoder, UNet, decoder)
+- ``defense``   SOR, repulsion and the ConvONet-Opt restoration loop
+- ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense`
+- ``utils``     flat-npz params, the flax-to-torch layout map, seeded init
+"""
+
+__version__ = "0.1.0"

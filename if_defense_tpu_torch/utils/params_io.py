@@ -1,0 +1,147 @@
+"""Flat-npz params, the flax-to-PyTorch layout map, and seeded weights.
+
+The npz format is the JAX package's (`if_defense_tpu/utils/params_io.py`):
+a nested flax param tree flattened with '/'-joined keys. `params_from_jax`
+turns such a tree into a PyTorch state dict for the port's modules, whose
+submodule names follow the flax names. It inverts
+`if_defense_tpu/convert/implicit_weights.py`:
+- Dense kernel `[in, out]` -> `Linear.weight = kernel.T`;
+- Conv kernel HWIO -> OIHW;
+- ConvTranspose kernel `[kh, kw, in, out]` -> `[in, out, kh, kw]`, with the
+  spatial flip that the converter applies undone.
+
+`init_params(seed)` writes, with numpy alone, a flax-layout ConvONet tree
+with the keys and shapes that `ConvOccupancyNetwork().init` gives and every
+tensor nonzero (flax zero-initialises each block's `fc_1`, which would hide
+half of every ResNet block from a test).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def flatten_params(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_params(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def unflatten_params(flat: dict) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def save_params_npz(path: str, tree: dict) -> str:
+    np.savez_compressed(path, **flatten_params(tree))
+    return path
+
+
+def load_params_npz(path: str) -> dict:
+    with np.load(path) as npz:
+        return unflatten_params({k: npz[k] for k in npz.files})
+
+
+def _to_torch_layout(path: list[str], value: np.ndarray) -> np.ndarray:
+    value = np.asarray(value, dtype=np.float32)
+    if path[-1] != "kernel":
+        return value
+    if value.ndim == 2:                                   # Dense
+        return value.T
+    if value.ndim == 4 and path[-2] == "upconv":          # ConvTranspose
+        return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if value.ndim == 4:                                   # Conv HWIO
+        return value.transpose(3, 2, 0, 1)
+    raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
+
+
+def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Flax param tree (with or without the top 'params' level) -> PyTorch
+    state dict of the port's modules."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for key, value in flatten_params(tree).items():
+        path = key.split("/")
+        name = ".".join(path[:-1] + ["weight" if path[-1] == "kernel"
+                                     else path[-1]])
+        out[name] = torch.from_numpy(
+            np.array(_to_torch_layout(path, value), order="C"))
+    return out
+
+
+def convonet_param_shapes(c_dim: int = 32,
+                          hidden_dim: int = 32) -> dict[str, tuple]:
+    """Flat '/'-keyed shapes of the flax ConvOccupancyNetwork's params
+    (plane type, 5 ResNet blocks each side, UNet of depth 4 with
+    start_filts = c_dim)."""
+    h, c = hidden_dim, c_dim
+    n_blocks, unet_depth = 5, 4
+    shapes = {}
+
+    def dense(key, fan_in, fan_out, bias=True):
+        shapes[f"{key}/kernel"] = (fan_in, fan_out)
+        if bias:
+            shapes[f"{key}/bias"] = (fan_out,)
+
+    def conv(key, k, cin, cout):
+        shapes[f"{key}/kernel"] = (k, k, cin, cout)
+        shapes[f"{key}/bias"] = (cout,)
+
+    dense("encoder/fc_pos", 3, 2 * h)
+    for i in range(n_blocks):
+        dense(f"encoder/blocks_{i}/fc_0", 2 * h, h)
+        dense(f"encoder/blocks_{i}/fc_1", h, h)
+        dense(f"encoder/blocks_{i}/shortcut", 2 * h, h, bias=False)
+    dense("encoder/fc_c", h, c)
+    cin = c
+    for i in range(unet_depth):
+        f = c * 2**i
+        conv(f"encoder/unet/down_{i}/conv1", 3, cin, f)
+        conv(f"encoder/unet/down_{i}/conv2", 3, f, f)
+        cin = f
+    for i in range(unet_depth - 1):
+        f = c * 2 ** (unet_depth - 2 - i)
+        conv(f"encoder/unet/up_{i}/upconv", 2, cin, f)
+        conv(f"encoder/unet/up_{i}/conv1", 3, 2 * f, f)
+        conv(f"encoder/unet/up_{i}/conv2", 3, f, f)
+        cin = f
+    conv("encoder/unet/conv_final", 1, cin, c)
+    dense("decoder/fc_p", 3, h)
+    for i in range(n_blocks):
+        dense(f"decoder/fc_c_{i}", c, h)
+        dense(f"decoder/blocks_{i}/fc_0", h, h)
+        dense(f"decoder/blocks_{i}/fc_1", h, h)
+    dense("decoder/fc_out", h, 1)
+    return shapes
+
+
+def init_params(seed: int, **config) -> dict:
+    """Seeded flax-layout ConvONet params `{"params": {...}}`, numpy only.
+
+    Kernels are normal with variance 1/fan_in (lecun normal, as flax), and
+    biases normal with std 0.1, so no tensor is zero. `config` takes the
+    arguments of `convonet_param_shapes`.
+    """
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, shape in convonet_param_shapes(**config).items():
+        if key.endswith("kernel"):
+            fan_in = int(np.prod(shape[:-1]))
+            v = rng.normal(size=shape) / np.sqrt(fan_in)
+        else:
+            v = rng.normal(size=shape) * 0.1
+        flat[f"params/{key}"] = v.astype(np.float32)
+    return unflatten_params(flat)
