@@ -14,12 +14,14 @@ raises) for tensors on a CUDA device.
 
 Subpackages
 -----------
-- ``ops``       normalisation, point ops, scatter, plane sampling and the
-                CUDA kernel wrappers
+- ``ops``       normalisation, point ops (kNN, FPS, ball query), scatter,
+                plane sampling and the CUDA kernel wrappers
 - ``data``      the npz interchange schema
 - ``implicit``  ConvONet (encoder, UNet, decoder)
-- ``defense``   SOR, repulsion and the ConvONet-Opt restoration loop
-- ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense`
+- ``defense``   SRS, SOR, DUP-Net (PU-Net), repulsion and the ConvONet-Opt
+                restoration loop
+- ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense` and
+                `python -m if_defense_tpu_torch.cli.defend_npz`
 - ``utils``     flat-npz params, the flax-to-torch layout map, seeded init
 """
 

@@ -4,8 +4,9 @@
 Reads npz, restores every test (and optionally train) cloud by
 implicit-surface optimisation, writes `convonet_opt-<file>.npz` into a
 `ConvONet-Opt/` subfolder beside the input, with a `.metrics.jsonl`
-sidecar. One device, eager; the tail batch is padded to the full batch
-size, because the loss (and so Adam's step near its eps) depends on B.
+sidecar. One device, eager (CUDA unless `--device cpu`); the tail batch
+is padded to the full batch size, because the loss (and so Adam's step
+near its eps) depends on B.
 f32 modes run with TF32 off for matmuls and cuDNN convolutions.
 
 Usage:
@@ -23,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from if_defense_tpu_torch.cli import device_of
 from if_defense_tpu_torch.data import load_npz, save_npz
 from if_defense_tpu_torch.defense.ifdefense import convonet_opt_defense
 from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
@@ -71,8 +73,8 @@ def parse_args(argv=None):
                    help="freeze the repulsion neighbour graph per "
                         "corner-cache window (requires --interp_refresh > 1)")
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda if available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; without a card pass --device cpu")
     return p.parse_args(argv)
 
 
@@ -173,8 +175,7 @@ def defend_file(path: str, defend, args, device: torch.device) -> str:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = device_of(args.device)
     if device.type == "cuda" and args.compute_dtype is None:
         # f32 reference numerics: no TF32 in matmuls or cuDNN convolutions
         torch.backends.cuda.matmul.allow_tf32 = False

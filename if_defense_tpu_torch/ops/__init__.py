@@ -1,8 +1,8 @@
 """Point-cloud ops and the CUDA kernel wrappers.
 
-The kernel wrappers (`cuda_interp`, `cuda_repulsion`) are imported where
-they are used: their libraries build on first use, on a machine with
-`nvcc` and a card.
+The kernel wrappers (`cuda_interp`, `cuda_repulsion`, `cuda_fps`,
+`cuda_ballquery`) are imported where they are used: their libraries build
+on first use, on a machine with `nvcc` and a card.
 """
 
 from if_defense_tpu_torch.ops.interp import (
@@ -16,10 +16,14 @@ from if_defense_tpu_torch.ops.normalize import (
     normalize_unit_sphere,
 )
 from if_defense_tpu_torch.ops.pointops import (
+    farthest_point_sample,
+    farthest_point_sample_plain,
     gather_neighbors,
     index_points,
     knn_points,
     knn_self,
+    query_ball_point,
+    query_ball_point_plain,
     square_distance,
 )
 from if_defense_tpu_torch.ops.scatter import pooled_max_by_cell, scatter_mean_2d
@@ -31,10 +35,14 @@ __all__ = [
     "plane_sample",
     "normalize_unit_cube",
     "normalize_unit_sphere",
+    "farthest_point_sample",
+    "farthest_point_sample_plain",
     "gather_neighbors",
     "index_points",
     "knn_points",
     "knn_self",
+    "query_ball_point",
+    "query_ball_point_plain",
     "square_distance",
     "pooled_max_by_cell",
     "scatter_mean_2d",

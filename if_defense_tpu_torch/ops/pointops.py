@@ -1,9 +1,13 @@
-"""Point ops: pairwise distance, gather, exact kNN (port of the
-`square_distance` / `index_points` / `knn_points` / `knn_self` /
-`gather_neighbors` part of `if_defense_tpu/ops/pointops.py`).
+"""Point ops: pairwise distance, gather, exact kNN, farthest point sampling
+and ball query (port of `if_defense_tpu/ops/pointops.py`).
 
-FPS and ball query (Pallas kernels B5/B6 in the JAX package) are off the
-ConvONet-Opt path and not ported yet.
+FPS and ball query are kernels B5 and B6 (`ops/cuda_fps.py`,
+`ops/cuda_ballquery.py`). `farthest_point_sample` / `query_ball_point`
+launch them for CUDA tensors and take the plain versions here for CPU
+tensors. The plain versions compute their distances elementwise in a fixed
+order (no `bmm`, whose summation order the library picks), the order the
+kernels use with no fused multiply-add, so kernel and plain version select
+the same indices bit for bit.
 """
 
 from __future__ import annotations
@@ -73,3 +77,108 @@ def knn_points(k: int, xyz: torch.Tensor, query: torch.Tensor | None = None,
 def knn_self(k: int, xyz: torch.Tensor, return_dist: bool = False):
     """kNN within a cloud excluding self (reference `pn_utils.knn_point`)."""
     return knn_points(k, xyz, exclude_self=True, return_dist=return_dist)
+
+
+def farthest_point_sample_plain(xyz: torch.Tensor, npoint: int,
+                                start_idx: torch.Tensor | None = None,
+                                mask: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Iterative farthest point sampling, plain version of kernel B5.
+
+    Keeps a running min of squared distances to the selected set and
+    takes the first maximum (the lowest index). Starts at `start_idx`, or
+    at index 0, or, under a mask, at the first valid point. Invalid points
+    sit at -inf and are never selected while a valid point remains.
+    Distances are the difference form ((dx dx + dy dy) + dz dz).
+
+    Args:
+        xyz: [B, N, 3]; npoint: points to select.
+        start_idx: optional [B] integer start per cloud.
+        mask: optional [B, N] validity mask (> 0 is valid).
+    Returns:
+        [B, npoint] int32 indices.
+    """
+    xyz = xyz.detach()
+    B, N, _ = xyz.shape
+    if mask is None:
+        valid = torch.ones((B, N), dtype=torch.bool, device=xyz.device)
+    else:
+        valid = mask > 0
+    if start_idx is None:
+        far = valid.to(torch.int32).argmax(dim=1)          # first valid (or 0)
+    else:
+        far = start_idx.to(device=xyz.device, dtype=torch.long)
+    dist = torch.where(valid, torch.inf, -torch.inf).to(xyz.dtype)
+    rows = torch.arange(B, device=xyz.device)
+    x, y, z = xyz.unbind(-1)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    for i in range(npoint):
+        out[:, i] = far
+        c = xyz[rows, far]                                  # [B, 3]
+        dx = x - c[:, 0:1]
+        dy = y - c[:, 1:2]
+        dz = z - c[:, 2:3]
+        dist = torch.minimum(dist, (dx * dx + dy * dy) + dz * dz)
+        far = dist.argmax(dim=1)
+    return out
+
+
+def query_ball_point_plain(radius: float, nsample: int, xyz: torch.Tensor,
+                           new_xyz: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Radius grouping with a fixed group size, plain version of kernel B6.
+
+    Slot j of a centre holds the (j+1)-th point in index order with
+    d2 <= radius**2; slots past the hit count repeat the first hit; a
+    centre with no hit gets 0. Masked points are out of radius. d2 is the
+    expansion (|q|^2 - 2 q.x) + |x|^2 with q.x = (qx xx + qy xy) + qz xz.
+    Selection is a cumsum of hits and a search for each slot's rank, so no
+    [B, S, N, nsample] indicator is built.
+
+    Args:
+        xyz: [B, N, 3] points; new_xyz: [B, S, 3] centres.
+        mask: optional [B, N] validity mask (> 0 is valid).
+    Returns:
+        [B, S, nsample] int32 indices into N.
+    """
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()
+    N = xyz.shape[1]
+    xx, xy, xz = (v[:, None, :] for v in xyz.unbind(-1))     # [B, 1, N]
+    qx, qy, qz = (v[..., None] for v in new_xyz.unbind(-1))  # [B, S, 1]
+    x2 = (xx * xx + xy * xy) + xz * xz
+    q2 = (qx * qx + qy * qy) + qz * qz
+    cross = (qx * xx + qy * xy) + qz * xz                    # [B, S, N]
+    hit = (q2 - 2.0 * cross) + x2 <= radius ** 2
+    if mask is not None:
+        hit &= (mask > 0)[:, None, :]
+    rank = hit.cumsum(dim=-1, dtype=torch.int32)             # [B, S, N]
+    slots = torch.arange(1, nsample + 1, dtype=torch.int32,
+                         device=xyz.device).expand(*rank.shape[:2], nsample)
+    # position of the (j+1)-th hit; N when the centre has <= j hits
+    idx = torch.searchsorted(rank, slots.contiguous(), out_int32=True)
+    idx = torch.where(idx == N, idx[..., :1], idx)
+    return torch.where(idx == N, 0, idx)
+
+
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          start_idx: torch.Tensor | None = None,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Farthest point sampling: kernel B5 for CUDA tensors, the plain
+    version for CPU tensors. [B, N, 3] -> [B, npoint] int32."""
+    if xyz.is_cuda:
+        from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
+
+        return fps_cuda(xyz, npoint, start_idx, mask)
+    return farthest_point_sample_plain(xyz, npoint, start_idx, mask)
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Ball query: kernel B6 for CUDA tensors, the plain version for CPU
+    tensors. -> [B, S, nsample] int32."""
+    if xyz.is_cuda:
+        from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+
+        return ballquery_cuda(radius, nsample, xyz, new_xyz, mask)
+    return query_ball_point_plain(radius, nsample, xyz, new_xyz, mask)
