@@ -30,7 +30,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      1024 x 4 with `weights/punet_1024_up4.npz`): DUP-Net alone with the
      B5/B6 launch counters set to 0 just before and read just after (first
      run), then all three defenses, then DUP-Net again (warm run); then
-     profiles one batch of DUP-Net with torch.profiler.
+     profiles one batch of DUP-Net with torch.profiler;
+  8. holds B4 with its plane gradient against the plain version at the
+     training shapes (B=32, Q=2048, 64x64x32 planes, uv from [-0.1, 1.1] so
+     the clamp is exercised): forward, plane gradient alone (the training
+     call), plane and uv gradient together, in f32, and forward + plane
+     gradient with bf16 planes; times the training call, its plain version
+     and `F.grid_sample` with the gradient to its input;
+  9. trains a small ConvONet (c_dim 8, 16x16 planes) and a narrow ONet (c_dim
+     32, decoder 16) for 3 steps on the card and on the CPU from the same
+     perturbed `flax_init_params` and sampler batches, and compares losses
+     and step 1's gradients;
+ 10. writes a synthetic occupancy npz (64 union-of-spheres shapes, 3000
+     surface points and 10000 labelled queries each, by
+     `tools/build_occupancy_dataset.py --synthetic`) and runs
+     `if_defense_tpu_torch.cli.train_implicit` at full width for 100 steps
+     at lr 1e-3, ConvONet at the CLI's defaults (batch 32, 600 input points,
+     2048 queries, 64x64 planes, c_dim 32) and ONet at c_dim 512, hidden
+     512, decoder 256, each twice (first and warm run), with B4's launch
+     counters set to 0 just before the ConvONet runs and read just after;
+     then profiles 10 ConvONet steps with torch.profiler;
+ 11. checks a small ONet-Opt on the card against the port's CPU run, then
+     runs `if_defense_tpu_torch.cli.opt_defense --variant onet` on phase 4's
+     clouds (48 x 1024) with the ONet weights phase 10 trained, 201 steps in
+     the reference mode, with B1's launch counter set to 0 just before and
+     read just after (first run), then again (warm run).
 The last lines are DUP-Net's clouds/s, the card's name and power limit, one
 JSON line of the kernels, and `{"ok": true, "device": {...}}`.
 
@@ -41,9 +65,11 @@ output written once) over 3.35 TB/s, the H100 SXM's published peaks.
 Operations counted: 8 flops for a pair's squared distance (3 sub, 3 mul,
 2 add) and 1 for its selection compare; 50 for a weighted repulsion pair's
 term and gradient; 9 per channel for a bilinear sample and 12 for its uv
-gradient; FPS 10 per point and step (distance, min, compare); ball query 9
-per (centre, point) pair scanned up to the centre's nsample-th hit and 5
-per |v|^2.
+gradient; 8 per channel for a query's share of the plane gradient (4
+multiplies and 4 adds into the corners), whose bytes are uv and the output
+gradient read once and the plane gradient written once; FPS 10 per point
+and step (distance, min, compare); ball query 9 per (centre, point) pair
+scanned up to the centre's nsample-th hit and 5 per |v|^2.
 
 f32 phases run with TF32 off for matmuls and cuDNN convolutions.
 """
@@ -66,6 +92,9 @@ DUP_B, DUP_CLOUDS = 128, 256             # defend_npz's batch; clouds in its fil
 SA_LEVELS = ((1024, 0.05), (512, 0.1), (256, 0.2), (128, 0.3))
 NEAR_FACTOR = 1.5
 PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
+TB, TQ = 32, 2048                        # train_implicit's batch and queries
+TRAIN_STEPS, TRAIN_LR = 100, 1e-3
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str):
@@ -330,13 +359,15 @@ def check_small_path(dev) -> None:
             fail(f"small whole-path run ({name}) disagrees with the CPU run")
 
 
-def run_cli(tmp: str, name: str, extra: list[str]) -> dict:
+def run_cli(tmp: str, name: str, extra: list[str],
+            weights: str | None = None) -> dict:
     from if_defense_tpu_torch.cli import opt_defense
     from if_defense_tpu_torch.data import load_npz
 
     data = os.path.join(tmp, f"{name}.npz")
     out_path, = opt_defense.main([
-        "--data_root", data, "--weights", os.path.join(tmp, "weights.npz"),
+        "--data_root", data,
+        "--weights", weights or os.path.join(tmp, "weights.npz"),
         "--batch_size", str(B), "--iterations", "200",
         "--sample_npoint", "1024", "--seed", "1", "--device", "cuda",
         *extra])
@@ -584,6 +615,316 @@ def profile_dupnet(dev, clouds: np.ndarray) -> None:
               f"{e.key[:90]}")
 
 
+def check_plane_gradient(dev) -> dict:
+    """B4 with its plane gradient at the training shapes, against the plain
+    version: forward, plane gradient alone, plane and uv gradient, in f32
+    (atol 1e-5 of the largest reference entry), and forward + plane
+    gradient with bf16 planes. Times the training call (forward + plane
+    gradient), its plain version and `F.grid_sample` with the gradient to
+    its input (median of 20)."""
+    from if_defense_tpu_torch.ops import cuda_interp, interp
+
+    gen = np.random.default_rng(8)
+    plane = torch.from_numpy(
+        gen.normal(size=(TB, R, R, C)).astype(np.float32)).to(dev)
+    uv = torch.from_numpy(
+        gen.uniform(-0.1, 1.1, (TB, TQ, 2)).astype(np.float32)).to(dev)
+    g_out = torch.from_numpy(
+        gen.normal(size=(TB, TQ, C)).astype(np.float32)).to(dev)
+
+    def run(fn, pl, with_uv=False):
+        p = pl.detach().requires_grad_(True)
+        u = uv.detach().requires_grad_(with_uv)
+        out = fn(p, u)
+        grads = torch.autograd.grad((out.float() * g_out).sum(),
+                                    (p, u) if with_uv else (p,))
+        return (out.detach(), *grads)
+
+    def plain(pl, u):        # the kernel's semantics: f32 math, plane's type out
+        return interp.bilinear_plane_sample(pl.float(), u).to(pl.dtype)
+
+    def rel(ref):
+        return 1e-5 * float(ref.detach().float().abs().max())
+
+    errs = []
+    ok_, dk = run(cuda_interp.plane_sample_cuda, plane)
+    op, dp = run(plain, plane)
+    errs += [compare("out f32", ok_, op, rel(op), 0.0),
+             compare("dplane f32", dk, dp, rel(dp), 0.0)]
+    _, dk, duk = run(cuda_interp.plane_sample_cuda, plane, True)
+    _, dp, dup = run(plain, plane, True)
+    errs.append(compare("dplane f32 (with uv grad)", dk, dp, rel(dp), 0.0))
+    compare("uv grad f32 (with dplane)", duk, dup, rel(dup), 1e-5)
+    pl16 = plane.to(torch.bfloat16)
+    ok_, dk = run(cuda_interp.plane_sample_cuda, pl16)
+    op, dp = run(plain, pl16)
+    compare("out bf16", ok_, op, 1e-3, 2.0**-7)
+    compare("dplane bf16", dk, dp, rel(dp), 2.0**-7)
+    print(f"  {int(((uv < 0) | (uv > 1)).any(-1).sum())} of "
+          f"{TB * TQ} queries clamped; border cells' gradient "
+          f"{float(dp[:, 0, 0].float().abs().sum()):.3f} (nonzero)")
+
+    plane_nchw = plane.permute(0, 3, 1, 2)
+    g_nchw = g_out.permute(0, 2, 1)[:, :, None, :]
+    grid = (2 * uv[:, None] - 1)
+
+    def library():
+        x = plane_nchw.detach().requires_grad_(True)
+        out = torch.nn.functional.grid_sample(
+            x, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+        return torch.autograd.grad((out * g_nchw).sum(), x)
+
+    lib_grad = library()[0].permute(0, 2, 3, 1)
+    diff = float((lib_grad - run(interp.bilinear_plane_sample, plane)[1])
+                 .abs().max())
+    print(f"  grid_sample input gradient vs plain: max abs diff {diff:.3e}")
+    ms = median_ms(lambda: run(cuda_interp.plane_sample_cuda, plane))
+    plain_ms = median_ms(lambda: run(interp.bilinear_plane_sample, plane))
+    library_ms = median_ms(library)
+    plane_bytes, q = 4 * TB * R * R * C, TB * TQ
+    row = dict(name="plane_sample_dplane", id="B4",
+               source="if_defense_tpu_torch/csrc/interp.cu",
+               replaces="if_defense_tpu/ops/pallas_interp.py:74",
+               max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               bound=bound((9 + 8) * q * C,
+                           2 * plane_bytes + 2 * 8 * q + 2 * 4 * q * C))
+    print(f"  B4 training call (fwd + plane grad): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound "
+          f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) (median of 20)")
+    return row
+
+
+def perturbed(tree: dict, seed: int) -> dict:
+    """Every tensor moved off its init (flax zero-initialises each block's
+    fc_1 and the CBN kernels): kernels by 0.3/sqrt(fan_in), other tensors
+    by 0.05, running variances scaled by exp(0.2 N(0, 1))."""
+    from if_defense_tpu_torch.utils.params_io import (
+        flatten_params,
+        unflatten_params,
+    )
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in flatten_params(tree).items():
+        n = rng.normal(size=v.shape)
+        if k.endswith("/var"):
+            v = v * np.exp(0.2 * n)
+        else:
+            v = v + (0.3 / np.sqrt(np.prod(v.shape[:-1])) if v.ndim > 1
+                     else 0.05) * n
+        out[k] = v.astype(np.float32)
+    return unflatten_params(out)
+
+
+def small_models():
+    from if_defense_tpu_torch.implicit import (
+        ConvOccupancyNetwork,
+        OccupancyNetwork,
+    )
+
+    return {"convonet c8 16x16": lambda: ConvOccupancyNetwork(8, 8, 16),
+            "onet c32 h32 d16": lambda: OccupancyNetwork(32, 32, 16)}
+
+
+def check_small_training(dev, occ_npz: str) -> None:
+    """3 training steps on the card and on the CPU from the same
+    `perturbed(flax_init_params)` and sampler batches (B=4, 256 input
+    points, 512 queries, lr 1e-4): step 1's loss within rtol 1e-5, its
+    gradients within rtol 1e-4 and atol 1e-4 of each tensor's largest entry
+    (a tensor whose gradient is 0 up to rounding, as a bias before a batch
+    norm, stays so), the 3 losses within rtol 1e-4.
+
+    The weights are perturbed because flax's zero biases put the UNet's
+    pre-activations over every empty plane cell exactly at ReLU's kink,
+    where the last bit of rounding decides whether a gradient passes, and
+    the card and the CPU then route a whole region's gradient differently."""
+    from if_defense_tpu_torch.implicit.training import (
+        OccupancyBatchSampler,
+        init_occupancy_model,
+        make_occupancy_train_step,
+    )
+    from if_defense_tpu_torch.utils.params_io import params_from_jax
+
+    with np.load(occ_npz) as z:
+        arrays = (z["pointcloud"][:8], z["points"][:8], z["points_occ"][:8])
+    for name, make in small_models().items():
+        sampler = OccupancyBatchSampler(*arrays, pointcloud_n=256,
+                                        points_subsample=512, seed=0)
+        batches = [sampler.sample(4) for _ in range(3)]
+        runs = []
+        for d in ("cpu", dev):
+            model = make()
+            model.load_state_dict(params_from_jax(
+                perturbed(init_occupancy_model(model, 0), 1)))
+            model.to(d)
+            _, step = make_occupancy_train_step(model, 1e-4)
+            losses = []
+            for i, b in enumerate(batches):
+                losses.append(float(step(*(torch.from_numpy(a).to(d)
+                                           for a in b))["loss"]))
+                if i == 0:
+                    grads = {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()}
+            runs.append((losses, grads))
+        (lc, gc), (lg, gg) = runs
+        zero = 1e-6 * max(float(g.abs().max()) for g in gc.values())
+        worst = 0.0
+        for n, ref in gc.items():
+            top = float(ref.abs().max())
+            if top < zero:
+                if float(gg[n].abs().max()) >= zero:
+                    fail(f"{name}: gradient of {n} is 0 on the CPU only")
+                continue
+            err = (gg[n] - ref).abs() / (1e-4 * top + 1e-4 * ref.abs())
+            worst = max(worst, float(err.max()))
+        print(f"  {name}: losses CPU {lc}, card {lg}; step-1 gradients of "
+              f"{len(gc)} tensors, worst error / bound {worst:.3f}")
+        if abs(lg[0] - lc[0]) > 1e-5 * abs(lc[0]) or worst > 1 or any(
+                abs(a - b) > 1e-4 * abs(a) for a, b in zip(lc, lg)):
+            fail(f"{name}: training on the card disagrees with the CPU run")
+
+
+def build_occupancy_npz(tmp: str) -> str:
+    path = os.path.join(tmp, "occ.npz")
+    subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "build_occupancy_dataset.py"),
+         "--synthetic", "64", "--surface_n", "3000", "--query_n", "10000",
+         "--out", path], check=True, timeout=300, stdout=subprocess.DEVNULL)
+    return path
+
+
+def run_train_cli(tmp: str, occ_npz: str, variant: str, tag: str) -> dict:
+    """One `train_implicit` run at full width: losses finite, the last
+    logged loss below the first, the npz loads strictly."""
+    from if_defense_tpu_torch.cli import train_implicit
+    from if_defense_tpu_torch.implicit import (
+        ConvOccupancyNetwork,
+        OccupancyNetwork,
+    )
+    from if_defense_tpu_torch.utils.params_io import (
+        load_params_npz,
+        params_from_jax,
+    )
+
+    out = os.path.join(tmp, f"{variant}_{tag}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = train_implicit.main([
+        "--variant", variant, "--data", occ_npz, "--steps", str(TRAIN_STEPS),
+        "--lr", str(TRAIN_LR), "--log_every", "10", "--output", out,
+        "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    with open(out + ".metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records]
+    model = ConvOccupancyNetwork() if variant == "convonet" else OccupancyNetwork()
+    model.load_state_dict(params_from_jax(load_params_npz(path)), strict=True)
+    rate = records[-1]["steps_per_sec"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {variant} {tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(acc {records[0]['acc']:.3f} -> {records[-1]['acc']:.3f}), "
+          f"{rate:.2f} steps/s (metrics), {seconds:.2f} s around main(), "
+          f"peak device memory {peak:.2f} GiB")
+    if len(records) != TRAIN_STEPS // 10 or not np.isfinite(losses).all():
+        fail(f"{variant} {tag}: {len(records)} metrics lines or non-finite")
+    if not losses[-1] < losses[0]:
+        fail(f"{variant} {tag}: training loss did not fall")
+    return dict(path=path, steps_per_sec=rate)
+
+
+def profile_training(dev, occ_npz: str) -> None:
+    """torch.profiler over 10 warm ConvONet training steps at the CLI's
+    defaults: wall time, device kernel time and busy share, B4's share, and
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+    from if_defense_tpu_torch.implicit.training import (
+        OccupancyBatchSampler,
+        init_occupancy_model,
+        make_occupancy_train_step,
+    )
+
+    with np.load(occ_npz) as z:
+        sampler = OccupancyBatchSampler(z["pointcloud"], z["points"],
+                                        z["points_occ"], pointcloud_n=600,
+                                        points_subsample=TQ, seed=1)
+    model = ConvOccupancyNetwork()
+    init_occupancy_model(model, 1)
+    model.to(dev)
+    _, step = make_occupancy_train_step(model, TRAIN_LR)
+    batches = [[torch.from_numpy(a).to(dev) for a in sampler.sample(TB)]
+               for _ in range(13)]
+    for b in batches[:3]:
+        step(*b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            step(*b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # a user annotation's device-side range (Adam's step) spans kernels
+    # that are counted on their own; it also has a host-side event of its
+    # name, which no kernel has
+    stats = prof.key_averages()
+    host = {e.key for e in stats
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = [e for e in stats
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key not in host]
+    if not events:
+        print(f"  profile, 10 steps: wall {wall:.3f} ms; device time not "
+              "measured (the profiler saw no CUDA kernel)")
+        return
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    ours = sum(e.self_device_time_total for e in events
+               if "sample_fwd" in e.key or "sample_bwd" in e.key) / 1e3
+    print(f"  profile, 10 ConvONet steps (batch {TB}): wall {wall:.3f} ms, "
+          f"device kernels {busy:.3f} ms (busy share {busy / wall:.3f}), "
+          f"B4 fwd + plane grad {ours:.3f} ms ({ours / busy:.3f} of device "
+          "time)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
+def check_small_onet_opt(dev) -> None:
+    """ONet-Opt on a small input, CUDA (kernels) vs CPU (plain versions),
+    same perturbed weights and draws; the bound of phase 3."""
+    from if_defense_tpu_torch.defense.ifdefense import onet_opt_defense
+    from if_defense_tpu_torch.implicit import OccupancyNetwork
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    sd = params_from_jax(perturbed(flax_init_params(
+        3, "onet", c_dim=32, hidden_dim=32, decoder_hidden=16), 4))
+    gen = np.random.default_rng(5)
+    pc = gen.normal(size=(2, 512, 3)).astype(np.float32) * 0.3
+    sel = gen.uniform(-0.4, 0.4, (2, 128, 3)).astype(np.float32)
+    init = gen.uniform(-0.4, 0.4, (2, 256, 3)).astype(np.float32)
+    outs = []
+    for d in ("cpu", dev):
+        model = OccupancyNetwork(32, 32, 16)
+        model.load_state_dict(sd)
+        defend = onet_opt_defense(model.to(d), iterations=SMALL_ITERS,
+                                  input_npoint=128, sample_npoint=256)
+        draws = tuple(torch.from_numpy(a).to(d) for a in (sel, init))
+        outs.append(defend(torch.from_numpy(pc).to(d), draws=draws).cpu())
+    err = (outs[0] - outs[1]).abs()
+    share = float((err <= 1e-4).float().mean())
+    print(f"  onet reference: {share:.5f} of coordinates within 1e-4, "
+          f"max {float(err.max()):.3e} (bound {2 * LR * (SMALL_ITERS + 1):g})")
+    if share < 0.999 or float(err.max()) > 2 * LR * (SMALL_ITERS + 1):
+        fail("small ONet-Opt run disagrees with the CPU run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -661,15 +1002,68 @@ def main() -> int:
         launches["dup"], dup_rates = run_defend_npz(dev, tmp, dup_clouds)
     profile_dupnet(dev, dup_clouds[:DUP_B])
 
+    print(f"phase 8: B4 with the plane gradient at the training shapes "
+          f"(B={TB}, Q={TQ}, {R}x{R}x{C})")
+    rows.append(check_plane_gradient(dev))
+
+    train_rates, onet_rates = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        occ_npz = build_occupancy_npz(tmp)
+        print("phase 9: small training, CUDA vs CPU, same init and batches")
+        check_small_training(dev, occ_npz)
+
+        print(f"phase 10: train_implicit, full width, {TRAIN_STEPS} steps "
+              f"at lr {TRAIN_LR:g}")
+        for k in cuda_interp.launches:
+            cuda_interp.launches[k] = 0
+        runs = {}
+        for variant in ("convonet", "onet"):
+            for tag in ("first", "warm"):
+                runs[variant, tag] = run_train_cli(tmp, occ_npz, variant, tag)
+            if variant == "convonet":
+                launches["train"] = dict(cuda_interp.launches)
+                print(f"  convonet, both runs: launches {launches['train']}")
+                want = 2 * 3 * TRAIN_STEPS     # 3 planes a step, 2 runs
+                if launches["train"] != {"plane_sample": want,
+                                         "plane_sample_dplane": want}:
+                    fail(f"B4 launches {launches['train']} in ConvONet "
+                         f"training, not {want} forward and {want} plane "
+                         "gradient (and no uv gradient)")
+        train_rates = {f"{v} {t}": r["steps_per_sec"]
+                       for (v, t), r in runs.items()}
+        profile_training(dev, occ_npz)
+
+        print("phase 11: ONet-Opt, small CUDA vs CPU, then opt_defense "
+              "--variant onet at full width, 201 steps")
+        check_small_onet_opt(dev)
+        save_npz(os.path.join(tmp, "onet.npz"),
+                 {"test_pc": ellipsoids(np.random.default_rng(0), B),
+                  "test_label": np.arange(B) % 40})
+        weights = runs["onet", "warm"]["path"]
+        for k in cuda_repulsion.launches:
+            cuda_repulsion.launches[k] = 0
+        onet_rates["first"] = run_cli(tmp, "onet", ["--variant", "onet"],
+                                      weights)["clouds_per_sec"]
+        launches["onet"] = dict(cuda_repulsion.launches)
+        print(f"  onet: launches {launches['onet']}")
+        if launches["onet"]["repulsion_loss"] != 2 * 201:
+            fail(f"B1 launched {launches['onet']['repulsion_loss']} times "
+                 "in ONet-Opt, not 402")
+        onet_rates["warm"] = run_cli(tmp, "onet", ["--variant", "onet"],
+                                     weights)["clouds_per_sec"]
+
     used_in = {"repulsion_loss": "reference", "plane_sample": "reference",
                "repulsion_mask": "fast", "repulsion_loss_masked": "fast",
-               "fps": "dup", "ballquery": "dup"}
+               "fps": "dup", "ballquery": "dup",
+               "plane_sample_dplane": "train"}
     for row in rows:
         mode = used_in[row["name"]]
         row["launches"] = launches[mode][row["name"]]
         if row["launches"] <= 0:
             fail(f"{row['name']} was not launched in the {mode} mode")
     print("clouds/s: " + json.dumps(rates))
+    print("ONet-Opt clouds/s: " + json.dumps(onet_rates) + f" on {card}")
+    print("train_implicit steps/s: " + json.dumps(train_rates) + f" on {card}")
     print("DUP-Net clouds/s (defend_npz, host clock around main()): "
           + json.dumps(dup_rates) + f" on {card}")
     print(card)

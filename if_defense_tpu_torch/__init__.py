@@ -17,12 +17,15 @@ Subpackages
 - ``ops``       normalisation, point ops (kNN, FPS, ball query), scatter,
                 plane sampling and the CUDA kernel wrappers
 - ``data``      the npz interchange schema
-- ``implicit``  ConvONet (encoder, UNet, decoder)
+- ``implicit``  ConvONet (encoder, UNet, decoder), ONet (encoder, CBN
+                decoder) and occupancy training
 - ``defense``   SRS, SOR, DUP-Net (PU-Net), repulsion and the ConvONet-Opt
-                restoration loop
-- ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense` and
-                `python -m if_defense_tpu_torch.cli.defend_npz`
-- ``utils``     flat-npz params, the flax-to-torch layout map, seeded init
+                and ONet-Opt restoration loop
+- ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense`,
+                `python -m if_defense_tpu_torch.cli.defend_npz` and
+                `python -m if_defense_tpu_torch.cli.train_implicit`
+- ``utils``     flat-npz params, the flax-to-torch layout map both ways,
+                seeded init, the metrics sink
 """
 
 __version__ = "0.1.0"

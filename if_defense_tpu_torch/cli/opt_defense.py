@@ -1,9 +1,11 @@
-"""IF-Defense optimisation CLI, ConvONet-Opt (port of
+"""IF-Defense optimisation CLI, ConvONet-Opt and ONet-Opt (port of
 `if_defense_tpu/cli/opt_defense.py`).
 
 Reads npz, restores every test (and optionally train) cloud by
 implicit-surface optimisation, writes `convonet_opt-<file>.npz` into a
-`ConvONet-Opt/` subfolder beside the input, with a `.metrics.jsonl`
+`ConvONet-Opt/` subfolder beside the input (`onet_opt-<file>.npz` into
+`ONet-Opt/` for `--variant onet`, whose weights npz holds `params` and
+`batch_stats`), with a `.metrics.jsonl`
 sidecar. One device, eager (CUDA unless `--device cpu`); the tail batch
 is padded to the full batch size, because the loss (and so Adam's step
 near its eps) depends on B.
@@ -26,8 +28,11 @@ import torch
 
 from if_defense_tpu_torch.cli import device_of
 from if_defense_tpu_torch.data import load_npz, save_npz
-from if_defense_tpu_torch.defense.ifdefense import convonet_opt_defense
-from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+from if_defense_tpu_torch.defense.ifdefense import (
+    convonet_opt_defense,
+    onet_opt_defense,
+)
+from if_defense_tpu_torch.implicit import ConvOccupancyNetwork, OccupancyNetwork
 from if_defense_tpu_torch.utils.params_io import (
     load_params_npz,
     params_from_jax,
@@ -79,14 +84,18 @@ def parse_args(argv=None):
 
 
 def build_defend_fn(args, device: torch.device):
-    """The ConvONet-Opt defense over the weights file, on `device`."""
-    if args.variant != "convonet":
-        raise NotImplementedError(
-            "--variant onet is not ported yet; use --variant convonet")
-    model = ConvOccupancyNetwork()
+    """The ConvONet-Opt or ONet-Opt defense over the weights file, on
+    `device`. As in the JAX CLI, `--interp_refresh` and
+    `--rep_graph_cache` apply to ConvONet only."""
+    if args.variant == "convonet":
+        model, make = ConvOccupancyNetwork(), convonet_opt_defense
+        extra = dict(interp_refresh=args.interp_refresh,
+                     rep_graph_cache=args.rep_graph_cache)
+    else:
+        model, make, extra = OccupancyNetwork(), onet_opt_defense, {}
     model.load_state_dict(params_from_jax(load_params_npz(args.weights)))
     model.to(device).eval()
-    return convonet_opt_defense(
+    return make(
         model,
         sample_npoint=args.sample_npoint,
         padding_scale=args.padding_scale,
@@ -101,8 +110,7 @@ def build_defend_fn(args, device: torch.device):
         knn_refresh=args.knn_refresh,
         exact_knn=args.exact_knn,
         compute_dtype=args.compute_dtype,
-        interp_refresh=args.interp_refresh,
-        rep_graph_cache=args.rep_graph_cache,
+        **extra,
     )
 
 

@@ -17,14 +17,30 @@
 // speak of. The design keeps the TPU path's [B, Q, W, C] intermediate out
 // of existence altogether.
 //
-// Backward gives the gradient to uv only:
+// The backward is two kernels, launched only for what autograd asks for
+// (the defense needs duv, implicit-network training dplane):
+//
+// duv, one warp per query:
 //   du = (W-1) sum_c g [(1-wy)(f01-f00) + wy(f11-f10)],
 //   dv = (H-1) sum_c g [(1-wx)(f10-f00) + wx(f11-f01)],
 // zero outside [0, 1] (the clamp). When x0 clips onto x1 at the border,
-// f01 == f00 and the x term is 0, as in JAX. The plane gradient (only
-// implicit-network training needs it) is not implemented: the Python
-// wrapper raises if the plane requires grad. Deterministic: each output
+// f01 == f00 and the x term is 0, as in JAX. Deterministic: each output
 // is written by one warp, with a fixed shuffle-reduction order.
+//
+// dplane[b, y, x, c] = sum_q w_q(y, x) g[b, q, c] over each query's four
+// corners, weights (1-wy)(1-wx), (1-wy)wx, wy(1-wx), wy wx from the same
+// cell_of as the forward. Same layout as the forward (warp per query,
+// lanes over channels); each lane atomically adds its four weighted values
+// into a zero-filled f32 [B, H, W, C] buffer, so a warp's corner update is
+// one coalesced 128-byte reduction (C=32) resolved in L2 (a 64x64x32 f32
+// plane is 512 KB). Where a corner clips onto its neighbour at the border
+// the two weights land on one cell and add, as the one-hot sums of JAX's
+// selectors do; a query clamped from outside [0, 1] still adds to its
+// border cells. bf16 planes accumulate in f32; the wrapper casts once.
+// NOT deterministic: f32 atomics add in no fixed order, so the last bits
+// vary from run to run (as the plain version's on the card: gather's CUDA
+// backward is an atomic scatter_add). Bound: memory, g read once and the
+// plane gradient written once; the atomics' L2 traffic is 4x the g reads.
 
 #include <stdint.h>
 
@@ -103,6 +119,26 @@ __global__ void sample_bwd(const T* __restrict__ plane,
   }
 }
 
+template <typename T>
+__global__ void sample_bwd_plane(const float* __restrict__ uv,
+                                 const T* __restrict__ g, int B, int H, int W,
+                                 int C, int Q, float* __restrict__ dplane) {
+  int lane = threadIdx.x & 31;
+  long q = (long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (q >= (long)B * Q) return;
+  long b = q / Q;
+  Cell k = cell_of(uv[2 * q], uv[2 * q + 1], H, W, b * H * W * C, C);
+  float w00 = (1.f - k.wy) * (1.f - k.wx), w01 = (1.f - k.wy) * k.wx;
+  float w10 = k.wy * (1.f - k.wx), w11 = k.wy * k.wx;
+  for (int ch = lane; ch < C; ch += 32) {
+    float gc = ifdef::load_f(g, q * C + ch);
+    atomicAdd(dplane + k.i00 + ch, w00 * gc);
+    atomicAdd(dplane + k.i01 + ch, w01 * gc);
+    atomicAdd(dplane + k.i10 + ch, w10 * gc);
+    atomicAdd(dplane + k.i11 + ch, w11 * gc);
+  }
+}
+
 inline dim3 grid_for(long queries) {
   return dim3((unsigned)((queries + kWarps - 1) / kWarps));
 }
@@ -146,6 +182,22 @@ int ifdef_plane_sample_bwd(const void* plane, int is_bf16, const float* uv,
     sample_bwd<float><<<grid, kWarps * 32, 0, s>>>(
         static_cast<const float*>(plane), uv, static_cast<const float*>(g), B,
         H, W, C, Q, duv);
+  return ifdef::last_error();
+}
+
+// g [B,Q,C] in the plane's type -> dplane [B,H,W,C] f32, which the caller
+// zero-fills (the kernel adds into it)
+int ifdef_plane_sample_bwd_plane(const float* uv, const void* g, int is_bf16,
+                                 int B, int H, int W, int C, int Q,
+                                 float* dplane, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid = grid_for((long)B * Q);
+  if (is_bf16)
+    sample_bwd_plane<__nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
+        uv, static_cast<const __nv_bfloat16*>(g), B, H, W, C, Q, dplane);
+  else
+    sample_bwd_plane<float><<<grid, kWarps * 32, 0, s>>>(
+        uv, static_cast<const float*>(g), B, H, W, C, Q, dplane);
   return ifdef::last_error();
 }
 

@@ -1,9 +1,9 @@
-"""IF-Defense optimisation-based restoration, ConvONet-Opt (port of
-`if_defense_tpu/defense/ifdefense.py`).
+"""IF-Defense optimisation-based restoration, ConvONet-Opt and ONet-Opt
+(port of `if_defense_tpu/defense/ifdefense.py`).
 
   1. optional SOR (k=2, alpha=1.1) -> validity mask
   2. per-cloud centre + scale into the padded unit cube (padding_scale 0.9)
-  3. encode a fixed-size subset (600 points) once -> c
+  3. encode a fixed-size subset (600 ConvONet / 300 ONet points) once -> c
   4. init 1024 optimisation points = resample of the (masked) input +
      N(0, 0.01) noise, clamped to +-0.45
   5. 201 Adam(lr 1e-3) steps minimising
@@ -168,7 +168,8 @@ def make_opt_defense(
         else:
             sel, pts = draws
 
-        loop_model = copy.deepcopy(model).requires_grad_(False)
+        # frozen, and in eval mode: ONet's batch norms use running stats
+        loop_model = copy.deepcopy(model).requires_grad_(False).eval()
         with torch.no_grad():
             c = encode_fn(loop_model, sel)
         if cd is not None:
@@ -266,6 +267,18 @@ def convonet_opt_defense(model, **kwargs):
         kwargs.setdefault("corner_cache_fn", cache_fn)
         kwargs.setdefault("decode_cached_fn", cached_fn)
     kwargs.setdefault("input_npoint", 600)
+    return _model_opt_defense(model, **kwargs)
+
+
+def onet_opt_defense(model, **kwargs):
+    """ONet-Opt (z_dim 0): (pc, generator=None, draws=None, stats=None) ->
+    restored clouds; 300 encoder points unless `input_npoint` says
+    otherwise."""
+    kwargs.setdefault("input_npoint", 300)
+    return _model_opt_defense(model, **kwargs)
+
+
+def _model_opt_defense(model, **kwargs):
     defend = make_opt_defense(
         lambda m, p, c: m.decode(p, c),
         lambda m, pc: m.encode_inputs(pc),

@@ -8,7 +8,9 @@ JAX, so it also runs on a machine without it:
 Tolerances: losses rtol 1e-5 (atol 1e-9); gradients rtol 1e-4 in f32 and
 2^-7 (one bf16 rounding) in bf16, with atol 1e-5 of the largest entry
 (pair terms summed in other orders); the B2 mask bit-equal; B4 output atol
-1e-5 and uv gradient rtol 1e-5 in f32; B5 (FPS) and B6 (ball query)
+1e-5 and uv gradient rtol 1e-5 in f32, its plane gradient atol 1e-5 of the
+largest entry (f32 atomics add in no fixed order) and rtol 2^-7 for bf16
+planes; B5 (FPS) and B6 (ball query)
 indices bit-equal at PU-Net's four set-abstraction shapes, masked and not.
 """
 
@@ -102,6 +104,46 @@ def test_cuda_plane_sample_matches_plain(cuda):
     _grad_close(outs[0][1], outs[1][1], 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_plane_gradient_matches_plain(cuda, dtype):
+    """The plane gradient alone (training) and with the uv gradient, uv
+    from [-0.1, 1.1] so that clamped queries add to the border cells."""
+    from if_defense_tpu_torch.ops.cuda_interp import launches, plane_sample_cuda
+
+    rng = np.random.default_rng(8)
+    plane = torch.from_numpy(rng.normal(size=(2, 64, 64, 32)).astype(
+        np.float32)).to(cuda, dtype)
+    uv = torch.from_numpy(rng.uniform(-0.1, 1.1, (2, 1024, 2)).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(2, 1024, 32)).astype(
+        np.float32)).to(cuda)
+
+    def plain(pl, u):        # the kernel's semantics: f32 math, plane's type out
+        return bilinear_plane_sample(pl.float(), u).to(pl.dtype)
+
+    rtol = 0.0 if dtype == torch.float32 else 2.0**-7
+    for with_uv in (False, True):
+        grads = []
+        for fn in (plane_sample_cuda, plain):
+            pl = plane.clone().requires_grad_(True)
+            u = uv.clone().requires_grad_(with_uv)
+            before = dict(launches)
+            out = fn(pl, u)
+            wrt = (pl, u) if with_uv else (pl,)
+            grads.append(torch.autograd.grad((out.float() * g).sum(), wrt))
+            if fn is plane_sample_cuda:     # forward, plus uv grad if asked
+                assert launches["plane_sample"] - before["plane_sample"] \
+                    == 1 + with_uv
+                assert launches["plane_sample_dplane"] \
+                    - before["plane_sample_dplane"] == 1
+        (dk, *duk), (dp, *dup) = grads
+        assert dk.dtype == dtype
+        _grad_close(dk.cpu(), dp.cpu(), rtol)
+        assert float(dp[:, 0, 0].abs().sum()) > 0       # border cells hit
+        if with_uv:
+            _grad_close(duk[0].cpu(), dup[0].cpu(), 1e-5)
+
+
 def _sa_inputs(cuda, seed, n, masked):
     """4 clouds of n points; cloud 0 is duplicated (FPS to n points ends in
     0s); under a mask ~80 % valid and cloud 3 all invalid."""
@@ -152,9 +194,10 @@ def test_cuda_wrappers_refuse(cuda):
 
     with pytest.raises(ValueError, match="4096"):
         repulsion_loss_cuda(torch.zeros(1, 4097, 3, device=cuda))
-    plane = torch.zeros(1, 8, 8, 4, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="plane gradient"):
-        plane_sample_cuda(plane, torch.zeros(1, 3, 2, device=cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        plane_sample_cuda(torch.zeros(1, 8, 8, 4, device=cuda,
+                                      dtype=torch.float64),
+                          torch.zeros(1, 3, 2, device=cuda))
     with pytest.raises(ValueError, match="16384"):
         fps_cuda(torch.zeros(1, 16385, 3, device=cuda), 8)
     with pytest.raises(ValueError, match="12288"):

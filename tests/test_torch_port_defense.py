@@ -1,8 +1,11 @@
-"""The whole ConvONet-Opt restoration, PyTorch port vs JAX package.
+"""The whole ConvONet-Opt and ONet-Opt restorations, PyTorch port vs JAX
+package.
 
-Both run `make_opt_defense` (through `convonet_opt_defense`) for 5 steps
-on the same clouds and perturbed flax weights (c_dim/hidden 8, 16x16
-planes, B=2, 256 optimised points). `jax.random` cannot be reproduced in
+Both run `make_opt_defense` (through `convonet_opt_defense`, or
+`onet_opt_defense`) for 5 steps on the same clouds and perturbed flax
+weights (ConvONet c_dim/hidden 8, 16x16 planes; ONet c_dim/hidden 32,
+decoder 16, its batch norms on running statistics; B=2, 256 optimised
+points). `jax.random` cannot be reproduced in
 torch, so the encoder subset and the initial points are drawn the JAX way
 (`ifdefense.py:144-171`) and handed to the port through its `draws` seam.
 JAX runs its Pallas repulsion kernels in interpret mode
@@ -28,12 +31,17 @@ import pytest
 import torch
 
 from if_defense_tpu.defense.ifdefense import convonet_opt_defense as jax_defense
+from if_defense_tpu.defense.ifdefense import onet_opt_defense as jax_onet_defense
 from if_defense_tpu.defense.ifdefense import sample_valid as jax_sample_valid
 from if_defense_tpu.defense.sor import sor_defense as jax_sor
 from if_defense_tpu.implicit import ConvOccupancyNetwork as JaxConvONet
+from if_defense_tpu.implicit import OccupancyNetwork as JaxONet
 from if_defense_tpu.ops import normalize_unit_cube as jax_cube
-from if_defense_tpu_torch.defense.ifdefense import convonet_opt_defense
-from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+from if_defense_tpu_torch.defense.ifdefense import (
+    convonet_opt_defense,
+    onet_opt_defense,
+)
+from if_defense_tpu_torch.implicit import ConvOccupancyNetwork, OccupancyNetwork
 from if_defense_tpu_torch.utils.params_io import (
     flatten_params,
     params_from_jax,
@@ -55,17 +63,20 @@ def _one_cpu_thread():
     torch.set_num_threads(n)
 
 
-@functools.lru_cache(maxsize=1)
-def _setup():
+@functools.lru_cache(maxsize=2)
+def _setup(model=None):
     rng = np.random.default_rng(0)
     pc = (rng.normal(size=(B, K, 3)) * 0.3).astype(np.float32)
     pc[:, :3] *= 4.0                                   # outliers for SOR
-    model = JaxConvONet(C, C, RES)
+    model = model or JaxConvONet(C, C, RES)
     x = jnp.zeros((1, 32, 3))
     flat = flatten_params(jax.tree_util.tree_map(
         np.asarray, model.init(jax.random.key(0), x, x)))
-    flat = {k: (v + (0.3 / np.sqrt(np.prod(v.shape[:-1])) if v.ndim > 1
-                     else 0.05) * rng.normal(size=v.shape)).astype(np.float32)
+    # running variances are scaled, so that they stay positive
+    flat = {k: (v * np.exp(0.2 * rng.normal(size=v.shape)) if k.endswith("/var")
+                else v + (0.3 / np.sqrt(np.prod(v.shape[:-1])) if v.ndim > 1
+                          else 0.05) * rng.normal(size=v.shape)
+                ).astype(np.float32)
             for k, v in flat.items()}
     return pc, unflatten_params(flat)
 
@@ -117,6 +128,33 @@ def test_opt_defense_matches_jax(mode, monkeypatch):
         near, share, bound = 1e-4, 0.999, 2 * LR * (ITERS + 1)
     assert (err <= near).mean() >= share, (err.max(), (err <= near).mean())
     assert err.max() <= bound, err.max()
+    assert float(stats["occ_loss_last"]) < float(stats["occ_loss_first"])
+
+
+def test_onet_opt_defense_matches_jax(monkeypatch):
+    """ONet-Opt in the reference mode; the decoder's batch norms use the
+    running statistics (the port's loop model is in eval mode)."""
+    monkeypatch.setenv("IFDEF_FORCE_FUSED_REPULSION", "1")
+    pc, variables = _setup(JaxONet(32, 32, 16))
+    kwargs = dict(iterations=ITERS, input_npoint=INP, sample_npoint=SAMP,
+                  lr=LR)
+    key = jax.random.key(2)
+    want = np.asarray(jax_onet_defense(JaxONet(32, 32, 16), variables,
+                                       **kwargs)(jnp.asarray(pc), key))
+    draws = tuple(torch.from_numpy(np.array(a))
+                  for a in _jax_draws(jnp.asarray(pc), key))
+    model = OccupancyNetwork(32, 32, 16)
+    model.load_state_dict(params_from_jax(variables))
+    stats = {}
+    got = onet_opt_defense(model.train(), **kwargs)(
+        torch.from_numpy(pc), draws=draws, stats=stats).numpy()
+
+    assert got.shape == want.shape == (B, SAMP, 3)
+    assert np.isfinite(got).all()
+    err = np.abs(got - want)
+    assert (err <= 1e-4).mean() >= 0.999, (err.max(), (err <= 1e-4).mean())
+    assert err.max() <= 2 * LR * (ITERS + 1), err.max()
+    assert model.training            # the caller's model is left as it was
     assert float(stats["occ_loss_last"]) < float(stats["occ_loss_first"])
 
 

@@ -277,18 +277,23 @@ def test_defend_npz_cli_on_cpu(tmp_path):
         np.testing.assert_array_equal(got.target_label, [5, 9, 2])
 
 
-@pytest.mark.parametrize("cli", ["defend_npz", "opt_defense"])
+@pytest.mark.parametrize("cli", ["defend_npz", "opt_defense",
+                                 "train_implicit"])
 def test_clis_refuse_to_fall_back_to_the_cpu(cli, monkeypatch, tmp_path):
     """Without a card and without `--device cpu`, a CLI exits non-zero
     with a message instead of running on the CPU."""
-    from if_defense_tpu_torch.cli import opt_defense
+    from if_defense_tpu_torch.cli import opt_defense, train_implicit
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["--data_root", str(tmp_path / "x.npz")]
-    if cli == "opt_defense":
-        argv += ["--weights", str(tmp_path / "w.npz")]
+    argv = {"defend_npz": ["--data_root", str(tmp_path / "x.npz")],
+            "opt_defense": ["--data_root", str(tmp_path / "x.npz"),
+                            "--weights", str(tmp_path / "w.npz")],
+            "train_implicit": ["--data", str(tmp_path / "occ.npz"),
+                               "--output", str(tmp_path / "w")]}[cli]
+    modules = {"defend_npz": defend_npz, "opt_defense": opt_defense,
+               "train_implicit": train_implicit}
     with pytest.raises(SystemExit) as exc:
-        {"defend_npz": defend_npz, "opt_defense": opt_defense}[cli].main(argv)
+        modules[cli].main(argv)
     assert exc.value.code not in (0, None)
     assert "--device cpu" in str(exc.value.code)
 

@@ -11,7 +11,8 @@ The CUDA kernels are held to these plain versions on the card by
 
 Tolerances: losses rtol 1e-5 (atol 1e-9); gradients rtol 1e-4 with atol
 1e-5 of the largest entry (pair terms summed in other orders); the B2 mask
-bit-equal; B4 output and uv gradient atol 1e-5 in f32.
+bit-equal; B4 output and uv gradient atol 1e-5 in f32, its plane gradient
+atol 1e-5 of the largest entry.
 """
 
 import jax
@@ -131,18 +132,25 @@ def test_exact_knn_repulsion_matches_jax():
 
 @pytest.mark.parametrize("reference", ["xla", "pallas"])
 def test_b4_plain_matches_jax(reference):
+    """Output, uv gradient and plane gradient; uv from [-0.1, 1.1], so that
+    clamped queries (uv gradient 0) still add to the border cells."""
     rng = np.random.default_rng(5)
     plane = rng.normal(size=(2, 16, 16, 8)).astype(np.float32)
-    uv = rng.uniform(0.01, 0.99, (2, 256, 2)).astype(np.float32)
+    uv = rng.uniform(-0.1, 1.1, (2, 256, 2)).astype(np.float32)
     g = rng.normal(size=(2, 256, 8)).astype(np.float32)
     fn = jax_sample if reference == "xla" else fused_bilinear_plane_sample
     want = fn(jnp.asarray(plane), jnp.asarray(uv))
-    want_du = jax.grad(lambda u: jnp.sum(
-        fn(jnp.asarray(plane), u) * jnp.asarray(g)))(jnp.asarray(uv))
+    want_dp, want_du = jax.grad(
+        lambda p, u: jnp.sum(fn(p, u) * jnp.asarray(g)), argnums=(0, 1))(
+            jnp.asarray(plane), jnp.asarray(uv))
+    p = torch.from_numpy(plane).requires_grad_(True)
     u = torch.from_numpy(uv).requires_grad_(True)
-    got = bilinear_plane_sample(torch.from_numpy(plane), u)
+    got = bilinear_plane_sample(p, u)
     (got * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(u.grad.numpy(), np.asarray(want_du),
                                rtol=0, atol=1e-5 * np.abs(want_du).max())
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_dp),
+                               rtol=0, atol=1e-5 * np.abs(want_dp).max())
+    assert np.abs(np.asarray(want_dp)[:, 0, 0]).sum() > 0   # border cells hit
