@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. holds each kernel (B1 repulsion loss, B2 repulsion mask, B3 masked
      repulsion loss, B4 plane sampling) against its plain PyTorch version
      at the ConvONet-Opt shapes (B=48, N=Q=1024, 64x64x32 planes), forward
-     and backward, in f32 and bf16, and times both with CUDA events, and
-     B4's one-call PyTorch yardstick (`F.grid_sample`, forward + grid
-     gradient);
+     and backward, in f32 and bf16, B1-B3 on random points with duplicates
+     and on a lattice whose rows tie at their thresholds; times each kernel,
+     its plain version and B4's one-call PyTorch yardstick (`F.grid_sample`,
+     forward + grid gradient) as set out below;
   3. checks the ConvONet-Opt path on a small input against the port's own
      CPU run (the plain versions) with the same draws;
   4. writes a synthetic npz (48 clouds x 1024 points) and seeded weights,
@@ -22,7 +23,7 @@ Phases, in order; any failure exits non-zero and prints no result:
   5. holds B5 (FPS) and B6 (ball query) against their plain versions at
      PU-Net's four set-abstraction levels, on the level inputs of one batch
      (128) of phase 7's clouds, unmasked and masked: indices bit-equal;
-     times both with CUDA events (median of 20);
+     times both;
   6. checks DUP-Net on a small input (B=2, N=1024, the repository's PU-Net
      weights, the same resampling draws) against the port's CPU run;
   7. writes a synthetic npz (256 clouds x 1024 points) and runs
@@ -58,6 +59,23 @@ Phases, in order; any failure exits non-zero and prints no result:
 The last lines are DUP-Net's clouds/s, the card's name and power limit, one
 JSON line of the kernels, and `{"ok": true, "device": {...}}`.
 
+Each kernel row carries three times, all in f32 at the path's shapes:
+- `device_ms` (also `ms`): the device time of what the wrapper launches per
+  call (its kernels, and any fill or cast it does around them), from
+  torch.profiler over 20 calls of the wrapper alone, forward and backward
+  (the backward fed the gradient, so no harness loss runs): the self
+  device time of the kernels named, summed, over 20. The printed graph
+  replay (one call captured in a CUDA graph, CUDA events around 50
+  replays) cross-checks it and stands in for it if the profiler ever sees
+  no kernel;
+- `call_ms`: the median of 20 CUDA-event timings of one whole eager call
+  with a harness loss, `(out * w).sum()`, and its backward: what an eager
+  step pays, host work included wherever the device waits for it;
+- `plain_ms`: the same whole-call timing of the plain version.
+B4's rows add `library_device_ms` (also `library_ms`: every kernel of
+`F.grid_sample`'s forward and backward, its gradient's fill included) and
+`library_call_ms`. `bound_share` is `bound_ms / device_ms`.
+
 Each kernel's `bound_ms` is the least time the card could take for its
 work on this run's inputs: the larger of its operations over 67 TFLOP/s
 (f32, outside the tensor cores) and its bytes (each input read once, each
@@ -78,6 +96,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,6 +113,7 @@ NEAR_FACTOR = 1.5
 PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
 TB, TQ = 32, 2048                        # train_implicit's batch and queries
 TRAIN_STEPS, TRAIN_LR = 100, 1e-3
+DEVICE_REPS, GRAPH_REPS = 20, 50          # calls per device-time reading
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -111,6 +131,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps: int = 20) -> float:
+    """Median of `reps` CUDA-event timings of one whole call of `fn`: what
+    an eager step pays per call, host work (autograd, allocation, binding)
+    included wherever the device waits for it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -124,6 +147,128 @@ def median_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _label(key: str, names) -> str | None:
+    """The name in `names` that a profiler kernel name is (a function name
+    followed by its template arguments or parameters), else None; with
+    `names` None, the kernel's own function name."""
+    if names is None:
+        key = key.replace("(anonymous namespace)::", "")
+        found = re.search(r"(\w+)\s*[<(]", key.removeprefix("void "))
+        return found.group(1) if found else key[:40]
+    return next((n for n in names if re.search(rf"\b{re.escape(n)}[<(]", key)),
+                None)
+
+
+def device_ms(fn, names=None, reps: int = DEVICE_REPS):
+    """Device time of what `fn` launches per call: torch.profiler over
+    `reps` calls, for each kernel named in `names` (every kernel if None)
+    its self device time per launch times its launches per call, summed
+    (the profiler has been seen to drop a kernel's first launch of the
+    window, so a total over `reps` would undercount). -> (ms,
+    {kernel: its ms per call}, {kernel seen but not counted: launches}), or
+    None where the profiler saw no kernel of `names`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    stats = prof.key_averages()
+    host = {e.key for e in stats
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    total, ours, others = 0.0, {}, {}
+    for e in stats:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0 or e.key in host):
+            continue
+        label = _label(e.key, names)
+        if label is None:
+            label = _label(e.key, None)
+            others[label] = others.get(label, 0) + e.count
+            continue
+        ms = e.self_device_time_total / 1e3 / e.count * max(
+            1, round(e.count / reps))
+        total += ms
+        ours[label] = ours.get(label, 0.0) + ms
+    if not ours:
+        return None
+    return total, ours, others
+
+
+def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
+    """Device time per call of `fn` with no host work between kernels: one
+    call captured in a CUDA graph (its buffers allocated at capture), then
+    CUDA events around `reps` back-to-back replays, over `reps`. Includes
+    the gaps between the graph's kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_times(call, plain, bare, names, library=None) -> dict:
+    """The timings of one kernel row. `call` and `plain` are the harness
+    calls (forward, harness loss, backward) of the wrapper and of the plain
+    version, timed whole (`call_ms`, `plain_ms`). `bare` runs only the
+    wrapper (its backward fed the gradient, no harness loss); the kernels
+    it launches, `names`, are read by the profiler (`device_ms`) and, as a
+    cross-check, by graph replay (`graph_ms`). The fallback where the
+    profiler sees no kernel is the graph replay, never the whole call.
+    `library` = (harness call, bare call) of the one PyTorch call computing
+    the same function: `library_call_ms`, and `library_device_ms` over
+    every kernel its bare call launches."""
+    got = device_ms(bare, names)
+    graph = graph_ms(bare)
+    if got is None:
+        print(f"  the profiler saw no kernel of {names}: device_ms from "
+              "graph replay")
+        got = (graph, {}, {})
+    dev_ms, ours, others = got
+    row = dict(call_ms=median_ms(call), plain_ms=median_ms(plain),
+               device_ms=dev_ms, graph_ms=graph,
+               library_call_ms=None, library_device_ms=None)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in ours.items())
+    print(f"  device {dev_ms:.4f} ms per call (profiler, {DEVICE_REPS} calls:"
+          f" {split}{f'; not counted: {others}' if others else ''}), graph "
+          f"replay {graph:.4f} ms, whole call {row['call_ms']:.4f} ms")
+    if library is not None:
+        lib = device_ms(library[1])
+        row["library_call_ms"] = median_ms(library[0])
+        row["library_device_ms"] = (lib[0] if lib is not None
+                                    else graph_ms(library[1]))
+        split = (", ".join(f"{k} {v:.4f}" for k, v in lib[1].items())
+                 if lib else "graph replay")
+        print(f"  library device {row['library_device_ms']:.4f} ms "
+              f"({split}), whole call {row['library_call_ms']:.4f} ms")
+    return row
+
+
+def bare_grad(fn, x: torch.Tensor, g: torch.Tensor, *args):
+    """fn(x, *args) and its backward to x alone, fed the gradient `g`: only
+    what the wrapper launches (no harness loss and no backward of it)."""
+    x = x.detach().requires_grad_(True)
+    return torch.autograd.grad(fn(x, *args), x, g)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -173,6 +318,53 @@ def value_and_grad(fn, x: torch.Tensor, w: torch.Tensor):
     return out.detach(), g
 
 
+def lattice(gen, b: int, shape: tuple[int, int, int]) -> np.ndarray:
+    """b clouds of the nodes of a shape[0] x shape[1] x shape[2] grid at
+    spacing 1/16, each in its own random order: every squared distance is
+    exact in f32 (and bf16), so ties at a row's k-th smallest are real."""
+    axes = [np.arange(s) - s // 2 for s in shape]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3) / 16
+    return np.stack([grid[gen.permutation(len(grid))]
+                     for _ in range(b)]).astype(np.float32)
+
+
+def check_repulsion(what: str, pts, moved, w) -> tuple[list, list, torch.Tensor]:
+    """B1, B2 and B3 against their plain versions on one input, f32 and
+    bf16: losses rtol 1e-5, gradients atol 1e-5 of the largest entry and
+    rtol 1e-4 (f32) or 2^-7 (bf16), masks bit-equal. B3 takes the f32 mask
+    of `pts` at the points `moved`. -> (B1 f32 errors, B3 f32 errors, the
+    f32 mask)."""
+    from if_defense_tpu_torch.defense import repulsion as rep
+    from if_defense_tpu_torch.ops import cuda_repulsion
+
+    tols = ((torch.float32, 1e-4), (torch.bfloat16, 2.0**-7))
+    errs = {"B1": [], "B3": []}
+    masks = {}
+    for dt, _ in tols:
+        mk = cuda_repulsion.repulsion_mask_cuda(pts.to(dt))
+        diff = int((mk != rep.repulsion_mask(pts.to(dt))).sum())
+        print(f"  {what} B2 mask {str(dt).split('.')[-1]}: {diff} entries "
+              f"differ (bit-equal required), {int(mk.sum())} ones")
+        if diff:
+            fail(f"B2 mask disagrees with its plain version ({what})")
+        masks[dt] = mk
+    mask = masks[torch.float32]
+    pairs = {"B1": (cuda_repulsion.repulsion_loss_cuda,
+                    rep.repulsion_loss_threshold, pts),
+             "B3": (lambda x: cuda_repulsion.repulsion_loss_masked_cuda(x, mask),
+                    lambda x: rep.repulsion_loss_masked(x, mask), moved)}
+    for kid, (kern, plain, x) in pairs.items():
+        for dt, gr in tols:
+            lk, gk = value_and_grad(kern, x.to(dt), w)
+            lp, gp = value_and_grad(plain, x.to(dt), w)
+            tag = f"{what} {kid} {str(dt).split('.')[-1]}"
+            e = [compare(f"{tag} loss", lk, lp, 1e-9, 1e-5),
+                 compare(f"{tag} grad", gk, gp, grad_atol(gp), gr)]
+            if dt == torch.float32:
+                errs[kid] += e
+    return errs["B1"], errs["B3"], mask
+
+
 def check_kernels(dev) -> list[dict]:
     from if_defense_tpu_torch.defense import repulsion as rep
     from if_defense_tpu_torch.ops import cuda_interp, cuda_repulsion, interp
@@ -185,75 +377,61 @@ def check_kernels(dev) -> list[dict]:
     bf16_tol = 2.0**-7                     # one bf16 rounding of the result
     rows = []
 
-    print("B1 repulsion_loss (fwd + bwd):")
-    errs = []
-    for dt, gr in ((torch.float32, 1e-4), (torch.bfloat16, bf16_tol)):
-        p = pts.to(dt)
-        lk, gk = value_and_grad(cuda_repulsion.repulsion_loss_cuda, p, w)
-        lp, gp = value_and_grad(rep.repulsion_loss_threshold, p, w)
-        tag = str(dt).split(".")[-1]
-        e = [compare(f"loss {tag}", lk, lp, 1e-9, 1e-5),
-             compare(f"grad {tag}", gk, gp, grad_atol(gp), gr)]
-        if dt == torch.float32:
-            errs += e
-    ms = median_ms(lambda: value_and_grad(cuda_repulsion.repulsion_loss_cuda,
-                                          pts, w))
-    plain_ms = median_ms(lambda: value_and_grad(rep.repulsion_loss_threshold,
-                                                pts, w))
-    pts_bytes = 4 * B * N * 3
-    rows.append(dict(name="repulsion_loss", id="B1",
-                     source="if_defense_tpu_torch/csrc/repulsion.cu",
-                     replaces="if_defense_tpu/ops/pallas_repulsion.py:196",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                     bound=bound(9 * B * N * N + 50 * B * N * 5,
-                                 2 * pts_bytes + 8 * B)))
-
-    print("B2 repulsion_mask:")
-    masks = {}
-    for dt in (torch.float32, torch.bfloat16):
-        mk = cuda_repulsion.repulsion_mask_cuda(pts.to(dt))
-        mp = rep.repulsion_mask(pts.to(dt))
-        diff = int((mk != mp).sum())
-        print(f"  mask {str(dt).split('.')[-1]}: {diff} entries differ "
-              f"(bit-equal required), {int(mk.sum())} ones")
-        if diff:
-            fail("B2 mask disagrees with its plain version")
-        masks[dt] = mk
-    ms = median_ms(lambda: cuda_repulsion.repulsion_mask_cuda(pts))
-    plain_ms = median_ms(lambda: rep.repulsion_mask(pts))
-    rows.append(dict(name="repulsion_mask", id="B2",
-                     source="if_defense_tpu_torch/csrc/repulsion.cu",
-                     replaces="if_defense_tpu/ops/pallas_repulsion.py:267",
-                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                     bound=bound(9 * B * N * N, pts_bytes + B * N * N)))
-
-    print("B3 repulsion_loss_masked (fwd + bwd):")
-    errs = []
-    # the mask is built from the f32 points and then held while they move
+    print("B1-B3 on random points with duplicates (B3's mask built from the "
+          "points, then held while they move by ~1e-3):")
     moved = pts + 1e-3 * torch.randn(pts.shape, device=dev,
                                      generator=torch.Generator(device=dev).manual_seed(1))
-    mask = masks[torch.float32]
-    for dt, gr in ((torch.float32, 1e-4), (torch.bfloat16, bf16_tol)):
-        p = moved.to(dt)
-        lk, gk = value_and_grad(
-            lambda x: cuda_repulsion.repulsion_loss_masked_cuda(x, mask), p, w)
-        lp, gp = value_and_grad(
-            lambda x: rep.repulsion_loss_masked(x, mask), p, w)
-        tag = str(dt).split(".")[-1]
-        e = [compare(f"loss {tag}", lk, lp, 1e-9, 1e-5),
-             compare(f"grad {tag}", gk, gp, grad_atol(gp), gr)]
-        if dt == torch.float32:
-            errs += e
-    ms = median_ms(lambda: value_and_grad(
-        lambda x: cuda_repulsion.repulsion_loss_masked_cuda(x, mask), moved, w))
-    plain_ms = median_ms(lambda: value_and_grad(
-        lambda x: rep.repulsion_loss_masked(x, mask), moved, w))
-    rows.append(dict(name="repulsion_loss_masked", id="B3",
-                     source="if_defense_tpu_torch/csrc/repulsion.cu",
-                     replaces="if_defense_tpu/ops/pallas_repulsion.py:390",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                     bound=bound(50 * float(mask.sum()),
-                                 2 * pts_bytes + 8 * B + B * N * N)))
+    b1_errs, b3_errs, mask = check_repulsion("random", pts, moved, w)
+    print(f"B1-B3 on a 16x8x8 lattice at spacing 1/16 (ties at every "
+          f"threshold), {B} clouds in random orders:")
+    lat = torch.from_numpy(lattice(gen, B, (16, 8, 8))).to(dev)
+    e1, e3, _ = check_repulsion("lattice", lat, lat, w)
+    b1_errs += e1
+    b3_errs += e3
+
+    pts_bytes = 4 * B * N * 3
+    print("B1 repulsion_loss (fwd + bwd), random points, f32:")
+    rows.append(dict(
+        name="repulsion_loss", id="B1",
+        source="if_defense_tpu_torch/csrc/repulsion.cu",
+        replaces="if_defense_tpu/ops/pallas_repulsion.py:196",
+        max_abs_err=max(b1_errs),
+        bound=bound(9 * B * N * N + 50 * B * N * 5, 2 * pts_bytes + 8 * B),
+        **kernel_times(
+            lambda: value_and_grad(cuda_repulsion.repulsion_loss_cuda, pts, w),
+            lambda: value_and_grad(rep.repulsion_loss_threshold, pts, w),
+            lambda: bare_grad(cuda_repulsion.repulsion_loss_cuda, pts, w),
+            ("rep_fwd", "rows_to_loss", "rep_bwd"))))
+
+    print("B2 repulsion_mask, random points, f32:")
+    rows.append(dict(
+        name="repulsion_mask", id="B2",
+        source="if_defense_tpu_torch/csrc/repulsion.cu",
+        replaces="if_defense_tpu/ops/pallas_repulsion.py:267",
+        max_abs_err=0.0, bound=bound(9 * B * N * N, pts_bytes + B * N * N),
+        **kernel_times(
+            lambda: cuda_repulsion.repulsion_mask_cuda(pts),
+            lambda: rep.repulsion_mask(pts),
+            lambda: cuda_repulsion.repulsion_mask_cuda(pts), ("rep_mask",))))
+
+    print("B3 repulsion_loss_masked (fwd + bwd), moved points, f32:")
+
+    def masked(x):
+        return cuda_repulsion.repulsion_loss_masked_cuda(x, mask)
+
+    rows.append(dict(
+        name="repulsion_loss_masked", id="B3",
+        source="if_defense_tpu_torch/csrc/repulsion.cu",
+        replaces="if_defense_tpu/ops/pallas_repulsion.py:390",
+        max_abs_err=max(b3_errs),
+        bound=bound(50 * float(mask.sum()),
+                    2 * pts_bytes + 8 * B + B * N * N),
+        **kernel_times(
+            lambda: value_and_grad(masked, moved, w),
+            lambda: value_and_grad(
+                lambda x: rep.repulsion_loss_masked(x, mask), moved, w),
+            lambda: bare_grad(masked, moved, w),
+            ("rep_masked_fwd", "rows_to_loss", "rep_masked_bwd"))))
 
     print("B4 plane_sample (fwd + uv grad):")
     plane = torch.from_numpy(gen.normal(size=(B, R, R, C)).astype(np.float32)).to(dev)
@@ -285,38 +463,50 @@ def check_kernels(dev) -> list[dict]:
     # the port never calls it): NCHW planes, grid in [-1, 1]
     plane_nchw = plane.permute(0, 3, 1, 2)
     g_nchw = g_out.permute(0, 2, 1)[:, :, None, :]
+    grid = 2 * uv[:, None] - 1
+
+    def sample(g):
+        return torch.nn.functional.grid_sample(
+            plane_nchw, g, mode="bilinear", padding_mode="border",
+            align_corners=True)
 
     def library():
-        grid = (2 * uv[:, None] - 1).detach().requires_grad_(True)
-        out = torch.nn.functional.grid_sample(
-            plane_nchw, grid, mode="bilinear", padding_mode="border",
-            align_corners=True)
-        (dg,) = torch.autograd.grad((out * g_nchw).sum(), grid)
+        g = (2 * uv[:, None] - 1).detach().requires_grad_(True)
+        out = sample(g)
+        (dg,) = torch.autograd.grad((out * g_nchw).sum(), g)
         return out, dg
 
     lib_out = library()[0].detach()[:, :, 0].transpose(1, 2)
     diff = float((lib_out - run(interp.bilinear_plane_sample, plane)[0])
                  .abs().max())
     print(f"  grid_sample vs plain: max abs diff {diff:.3e}")
-    ms = median_ms(lambda: run(cuda_interp.plane_sample_cuda, plane))
-    plain_ms = median_ms(lambda: run(interp.bilinear_plane_sample, plane))
-    library_ms = median_ms(library)
-    rows.append(dict(name="plane_sample", id="B4",
-                     source="if_defense_tpu_torch/csrc/interp.cu",
-                     replaces="if_defense_tpu/ops/pallas_interp.py:233",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                     library_ms=library_ms,
-                     bound=bound(21 * B * N * C,
-                                 4 * (B * R * R * C + 2 * B * N * 2
-                                      + 2 * B * N * C))))
+    rows.append(dict(
+        name="plane_sample", id="B4",
+        source="if_defense_tpu_torch/csrc/interp.cu",
+        replaces="if_defense_tpu/ops/pallas_interp.py:233",
+        max_abs_err=max(errs),
+        bound=bound(21 * B * N * C,
+                    4 * (B * R * R * C + 2 * B * N * 2 + 2 * B * N * C)),
+        **kernel_times(
+            lambda: run(cuda_interp.plane_sample_cuda, plane),
+            lambda: run(interp.bilinear_plane_sample, plane),
+            lambda: bare_grad(lambda u: cuda_interp.plane_sample_cuda(
+                plane, u), uv, g_out),
+            ("sample_fwd", "sample_bwd"),
+            library=(library, lambda: bare_grad(sample, grid, g_nchw)))))
     for r in rows:
-        print(f"  {r['id']} {r['name']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]})"
-              + (f", grid_sample {r['library_ms']:.4f} ms"
-                 if r.get("library_ms") else "")
-              + " (median of 20, fwd+bwd where the path takes a gradient)")
+        print_row(r)
     return rows
+
+
+def print_row(r: dict) -> None:
+    lib = r.get("library_device_ms")
+    print(f"  {r['id']} {r['name']}: device {r['device_ms']:.4f} ms "
+          f"(whole call {r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, share "
+          f"{r['bound'][0] / r['device_ms']:.3f})"
+          + (f", library device {lib:.4f} ms (whole call "
+             f"{r['library_call_ms']:.4f})" if lib is not None else ""))
 
 
 def check_small_path(dev) -> None:
@@ -412,8 +602,8 @@ def sa_level_inputs(dev, clouds: np.ndarray):
 def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
     """B5 and B6 against their plain versions at each SA level, unmasked
     and masked (~90 % valid, the last cloud with none): indices bit-equal.
-    Times are medians of 20 unmasked calls; a row's numbers are sums over
-    the four levels (one batch of the path)."""
+    Times are of unmasked calls (`kernel_times`); a row's numbers are sums
+    over the four levels (one batch of the path)."""
     from if_defense_tpu_torch.ops import (
         farthest_point_sample_plain,
         query_ball_point_plain,
@@ -422,8 +612,10 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
     from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    # per kernel: ms, plain ms, flops, bytes, summed over the levels
-    tot = {k: [0.0, 0.0, 0.0, 0.0] for k in ("fps", "ballquery")}
+    # per kernel: times, flops and bytes, summed over the levels
+    tot = {k: dict.fromkeys(("call_ms", "plain_ms", "device_ms", "graph_ms",
+                             "flops", "bytes"), 0.0)
+           for k in ("fps", "ballquery")}
     for level, (xyz, new, radius) in enumerate(sa_level_inputs(dev, clouds)):
         b, n, _ = xyz.shape
         s = new.shape[1]
@@ -447,33 +639,40 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
         work = {"fps": (10 * b * n * s, 12 * b * n + 4 * b * s),
                 "ballquery": (9 * float(scanned.sum()) + 5 * b * (n + s),
                               12 * b * (n + s) + 4 * b * s * 32)}
-        times = {
-            "fps": (median_ms(lambda: fps_cuda(xyz, s)),
-                    median_ms(lambda: farthest_point_sample_plain(xyz, s))),
-            "ballquery": (
-                median_ms(lambda: ballquery_cuda(radius, 32, xyz, new)),
-                median_ms(lambda: query_ball_point_plain(radius, 32, xyz,
-                                                         new)))}
-        for k, (ms, plain_ms) in times.items():
+        calls = {
+            "fps": (lambda: fps_cuda(xyz, s),
+                    lambda: farthest_point_sample_plain(xyz, s),
+                    ("fps_kernel",)),
+            "ballquery": (lambda: ballquery_cuda(radius, 32, xyz, new),
+                          lambda: query_ball_point_plain(radius, 32, xyz, new),
+                          ("ballquery_kernel",))}
+        for k, (kern, plain, names) in calls.items():
+            print(f"  level {level} {k}:")
+            t = kernel_times(kern, plain, kern, names)
             bound_ms, by = bound(*work[k])
-            print(f"  level {level} {k}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-            for i, v in enumerate((ms, plain_ms, *work[k])):
-                tot[k][i] += v
+            print(f"  level {level} {k}: device {t['device_ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({by})")
+            for key in ("call_ms", "plain_ms", "device_ms", "graph_ms"):
+                tot[k][key] += t[key]
+            tot[k]["flops"] += work[k][0]
+            tot[k]["bytes"] += work[k][1]
         print(f"  level {level}: a centre scans "
               f"{float(scanned.float().mean()):.1f} of {n} points on average")
     rows = []
     for k, rid, src, rep_ in (
             ("fps", "B5", "fps.cu", "pallas_fps.py:82"),
             ("ballquery", "B6", "ballquery.cu", "pallas_ballquery.py:71")):
-        ms, plain_ms, flops, nbytes = tot[k]
+        t = tot[k]
         rows.append(dict(
             name=k, id=rid, source=f"if_defense_tpu_torch/csrc/{src}",
-            replaces=f"if_defense_tpu/ops/{rep_}", max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms, bound=bound(flops, nbytes)))
-        print(f"  {rid} {k}, 4 levels: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {rows[-1]['bound'][0]:.4f} ms "
-              f"({rows[-1]['bound'][1]})")
+            replaces=f"if_defense_tpu/ops/{rep_}", max_abs_err=0.0,
+            call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+            device_ms=t["device_ms"], graph_ms=t["graph_ms"],
+            library_call_ms=None, library_device_ms=None,
+            bound=bound(t["flops"], t["bytes"])))
+        print(f"  {rid}, summed over the 4 levels:")
+        print_row(rows[-1])
     return rows
 
 
@@ -621,7 +820,7 @@ def check_plane_gradient(dev) -> dict:
     (atol 1e-5 of the largest reference entry), and forward + plane
     gradient with bf16 planes. Times the training call (forward + plane
     gradient), its plain version and `F.grid_sample` with the gradient to
-    its input (median of 20)."""
+    its input (`kernel_times`)."""
     from if_defense_tpu_torch.ops import cuda_interp, interp
 
     gen = np.random.default_rng(8)
@@ -668,31 +867,38 @@ def check_plane_gradient(dev) -> dict:
     g_nchw = g_out.permute(0, 2, 1)[:, :, None, :]
     grid = (2 * uv[:, None] - 1)
 
-    def library():
-        x = plane_nchw.detach().requires_grad_(True)
-        out = torch.nn.functional.grid_sample(
+    def sample(x):
+        return torch.nn.functional.grid_sample(
             x, grid, mode="bilinear", padding_mode="border",
             align_corners=True)
-        return torch.autograd.grad((out * g_nchw).sum(), x)
+
+    def library():
+        x = plane_nchw.detach().requires_grad_(True)
+        return torch.autograd.grad((sample(x) * g_nchw).sum(), x)
 
     lib_grad = library()[0].permute(0, 2, 3, 1)
     diff = float((lib_grad - run(interp.bilinear_plane_sample, plane)[1])
                  .abs().max())
     print(f"  grid_sample input gradient vs plain: max abs diff {diff:.3e}")
-    ms = median_ms(lambda: run(cuda_interp.plane_sample_cuda, plane))
-    plain_ms = median_ms(lambda: run(interp.bilinear_plane_sample, plane))
-    library_ms = median_ms(library)
     plane_bytes, q = 4 * TB * R * R * C, TB * TQ
-    row = dict(name="plane_sample_dplane", id="B4",
-               source="if_defense_tpu_torch/csrc/interp.cu",
-               replaces="if_defense_tpu/ops/pallas_interp.py:74",
-               max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
-               bound=bound((9 + 8) * q * C,
-                           2 * plane_bytes + 2 * 8 * q + 2 * 4 * q * C))
-    print(f"  B4 training call (fwd + plane grad): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound "
-          f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) (median of 20)")
+    print("  B4 training call (fwd + plane grad), f32:")
+    row = dict(
+        name="plane_sample_dplane", id="B4",
+        source="if_defense_tpu_torch/csrc/interp.cu",
+        replaces="if_defense_tpu/ops/pallas_interp.py:74",
+        max_abs_err=max(errs),
+        bound=bound((9 + 8) * q * C,
+                    2 * plane_bytes + 2 * 8 * q + 2 * 4 * q * C),
+        # the wrapper's fill of its f32 accumulator counts; a bf16 plane's
+        # cast would too (not timed: f32 here)
+        **kernel_times(
+            lambda: run(cuda_interp.plane_sample_cuda, plane),
+            lambda: run(interp.bilinear_plane_sample, plane),
+            lambda: bare_grad(cuda_interp.plane_sample_cuda, plane, g_out, uv),
+            ("sample_fwd", "sample_bwd_plane", "FillFunctor",
+             "direct_copy_kernel_cuda"),
+            library=(library, lambda: bare_grad(sample, plane_nchw, g_nchw))))
+    print_row(row)
     return row
 
 
@@ -1069,9 +1275,12 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")}
-        | {"route": "cuda", "bound_ms": r["bound"][0],
-           "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
+                           "max_abs_err", "plain_ms", "call_ms", "device_ms",
+                           "library_call_ms", "library_device_ms")}
+        | {"route": "cuda", "ms": r["device_ms"], "bound_ms": r["bound"][0],
+           "bound_by": r["bound"][1],
+           "bound_share": r["bound"][0] / r["device_ms"],
+           "library_ms": r["library_device_ms"]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ JAX, so it also runs on a machine without it:
 
 Tolerances: losses rtol 1e-5 (atol 1e-9); gradients rtol 1e-4 in f32 and
 2^-7 (one bf16 rounding) in bf16, with atol 1e-5 of the largest entry
-(pair terms summed in other orders); the B2 mask bit-equal; B4 output atol
+(pair terms summed in other orders); the B2 mask bit-equal; B1 and B3 also
+bit-identical from one launch to the next; B4 output atol
 1e-5 and uv gradient rtol 1e-5 in f32, its plane gradient atol 1e-5 of the
 largest entry (f32 atomics add in no fixed order) and rtol 2^-7 for bf16
 planes; B5 (FPS) and B6 (ball query)
@@ -50,6 +51,18 @@ def _points(seed, n=256):
     return pc
 
 
+def _lattice(n, seed):
+    """2 clouds of the first n nodes of a 16 x 16 x 16 grid at spacing 1/16
+    (every d2 exact, so rows tie at their k-th smallest), each in its own
+    random order."""
+    rng = np.random.default_rng(seed)
+    axes = np.arange(16) - 8
+    grid = np.stack(np.meshgrid(axes, axes, axes, indexing="ij"),
+                    -1).reshape(-1, 3)[:n] / 16
+    return np.stack([grid[rng.permutation(n)] for _ in range(2)]).astype(
+        np.float32)
+
+
 def _value_grad(fn, x, w):
     x = x.detach().requires_grad_(True)
     out = fn(x)
@@ -81,6 +94,45 @@ def test_cuda_repulsion_kernels_match_plain(cuda, dtype):
     lp, gp = _value_grad(lambda x: repulsion_loss_masked(x, mask), pc, w)
     torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-9)
     _grad_close(gk, gp, rtol)
+
+
+@pytest.mark.parametrize("n", [300, 1000, 1024, 4096])
+@pytest.mark.parametrize("cloud", ["lattice", "duplicates", "cluster"])
+def test_cuda_repulsion_kernels_on_ties(cuda, cloud, n):
+    """B1, B2 and B3 against their plain versions where rows tie at their
+    threshold, for k in {1, 5, 8}, f32 and bf16; N not a multiple of 32 or
+    of B3's 16-byte words (300, 1000), and 4096 = MAX_N, where B1's forward
+    computes its distances twice and B3's backward stages j in chunks. In
+    "cluster" 100 points coincide: their rows tie 99 ways at 0, more than a
+    warp's list of weighted pairs holds. Two launches on one input give
+    bit-identical losses and gradients."""
+    from if_defense_tpu_torch.ops import cuda_repulsion as cr
+
+    if cloud == "lattice":
+        pts = _lattice(n, n)
+    else:
+        pts = _points(n, n)
+        if cloud == "cluster":
+            pts[:, 100:200] = pts[:, :1]
+    pts = torch.from_numpy(pts).to(cuda)
+    w = torch.tensor([1.0, 2.0], device=cuda)
+    for k in (1, 5, 8):
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0**-7)):
+            pc = pts.to(dtype)
+            mask = cr.repulsion_mask_cuda(pc, k)
+            assert torch.equal(mask, repulsion_mask(pc, k))
+            pairs = (
+                (lambda x: cr.repulsion_loss_cuda(x, k),
+                 lambda x: repulsion_loss_threshold(x, k)),
+                (lambda x: cr.repulsion_loss_masked_cuda(x, mask, k),
+                 lambda x: repulsion_loss_masked(x, mask, k)))
+            for kern, plain in pairs:
+                lk, gk = _value_grad(kern, pc, w)
+                lk2, gk2 = _value_grad(kern, pc, w)
+                assert torch.equal(lk, lk2) and torch.equal(gk, gk2)
+                lp, gp = _value_grad(plain, pc, w)
+                torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-9)
+                _grad_close(gk, gp, rtol)
 
 
 def test_cuda_plane_sample_matches_plain(cuda):

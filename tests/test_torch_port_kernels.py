@@ -9,6 +9,11 @@ sampling) is held to `bilinear_plane_sample` and to the interpret-mode
 The CUDA kernels are held to these plain versions on the card by
 `tests/test_torch_port_cuda.py` and `chip_smoke.py`.
 
+B1-B3 are also held to them on a lattice whose rows tie at their k-th
+smallest distance (every d2 exact), for k in {1, 5, 8}: the case the
+kernels' selection (a per-lane top-k merged across a warp) must count with
+multiplicity.
+
 Tolerances: losses rtol 1e-5 (atol 1e-9); gradients rtol 1e-4 with atol
 1e-5 of the largest entry (pair terms summed in other orders); the B2 mask
 bit-equal; B4 output and uv gradient atol 1e-5 in f32, its plane gradient
@@ -60,6 +65,26 @@ def _points(seed, duplicates=False):
     if duplicates:                      # resampling repeats points
         pc[:, N // 2:] = pc[:, : N // 2]
     return pc
+
+
+def _lattice(seed):
+    """2 clouds of the 256 nodes of an 8 x 8 x 4 grid at spacing 1/16 (a
+    power of two, so every d2 is exact in f32 and ties are real), each in
+    its own random order."""
+    rng = np.random.default_rng(seed)
+    axes = [np.arange(s) - s // 2 for s in (8, 8, 4)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3) / 16
+    assert len(grid) == N
+    return np.stack([grid[rng.permutation(N)] for _ in range(2)]).astype(
+        np.float32)
+
+
+def _max_ties(pc, k):
+    """The most distances equal to a row's k-th smallest, over all rows."""
+    d2 = ((pc[:, :, None] - pc[:, None]) ** 2).sum(-1)
+    d2[:, np.arange(N), np.arange(N)] = np.inf
+    t = np.sort(d2, -1)[..., k - 1:k]
+    return int((d2 == t).sum(-1).max())
 
 
 def _grad_close(got, want):
@@ -154,3 +179,37 @@ def test_b4_plain_matches_jax(reference):
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_dp),
                                rtol=0, atol=1e-5 * np.abs(want_dp).max())
     assert np.abs(np.asarray(want_dp)[:, 0, 0]).sum() > 0   # border cells hit
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_b1_plain_matches_pallas_on_ties(k):
+    pc = _lattice(10 + k)
+    assert _max_ties(pc, k) > 1
+    w = np.array([1.0, 2.5], np.float32)
+    lt, gt = _torch_value_grad(
+        lambda p: repulsion_loss_threshold(p, k), pc, w)
+    lj, gj = _jax_value_grad(lambda p: fused_repulsion_loss(p, k), pc, w)
+    np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=1e-9)
+    _grad_close(gt, gj)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_b2_plain_mask_equals_pallas_on_ties(k):
+    pc = _lattice(20 + k)
+    got = repulsion_mask(torch.from_numpy(pc), k).numpy()
+    want = np.asarray(fused_repulsion_mask(jnp.asarray(pc), k))
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(-1) > k).any()          # tied rows keep every tie
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_b3_plain_matches_pallas_on_ties(k):
+    pc = _lattice(30 + k)
+    mask = np.array(fused_repulsion_mask(jnp.asarray(pc), k))
+    w = np.array([0.7, 1.3], np.float32)
+    lt, gt = _torch_value_grad(
+        lambda p: repulsion_loss_masked(p, torch.from_numpy(mask), k), pc, w)
+    lj, gj = _jax_value_grad(
+        lambda p: fused_repulsion_loss_masked(p, jnp.asarray(mask), k), pc, w)
+    np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=1e-9)
+    _grad_close(gt, gj)
