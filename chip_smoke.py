@@ -7,19 +7,27 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. builds the CUDA kernels from `if_defense_tpu_torch/csrc/` with nvcc
      (sm_90a) and prints the build time and each kernel's registers;
   2. holds each kernel (B1 repulsion loss, B2 repulsion mask, B3 masked
-     repulsion loss, B4 plane sampling) against its plain PyTorch version
-     at the ConvONet-Opt shapes (B=48, N=Q=1024, 64x64x32 planes), forward
-     and backward, in f32 and bf16, B1-B3 on random points with duplicates
-     and on a lattice whose rows tie at their thresholds; times each kernel,
-     its plain version and B4's one-call PyTorch yardstick (`F.grid_sample`,
-     forward + grid gradient) as set out below;
+     repulsion loss, B4 the decoder's three-plane features) against its
+     plain PyTorch version at the ConvONet-Opt shapes (B=48, N=Q=1024,
+     three 64x64x32 planes), forward and backward, in f32 and bf16, B1-B3
+     on random points with duplicates and on a lattice whose rows tie at
+     their thresholds, B4 in its defense form (forward + gradient to p,
+     points that the normalisation clamps) with two launches bit-identical;
+     times each kernel, its plain version and B4's PyTorch yardstick (three
+     `F.grid_sample` calls summed, forward + grid gradient) as set out
+     below;
   3. checks the ConvONet-Opt path on a small input against the port's own
-     CPU run (the plain versions) with the same draws;
+     CPU run (the plain versions) with the same draws, in both modes, at
+     256 optimised points and at 6000;
   4. writes a synthetic npz (48 clouds x 1024 points) and seeded weights,
      and runs `if_defense_tpu_torch.cli.opt_defense` at full width for 201
      steps in the reference mode (f32) and the fast mode (bf16, corner
      cache every 16 steps, cached repulsion graph), with every kernel
-     launch counter set to 0 just before each run and read just after;
+     launch counter set to 0 just before each run and read just after (B1
+     402 and B4 201 + 201 launches in the reference mode, B3 402 in the
+     fast mode); then profiles a reference-mode step of ConvONet-Opt and
+     ONet-Opt (`tools/profile_defense_step.py`: 5 and 10 warm steps,
+     differenced: wall ms, device ms, busy share, device operations);
   5. holds B5 (FPS) and B6 (ball query) against their plain versions at
      PU-Net's four set-abstraction levels, on the level inputs of one batch
      (128) of phase 7's clouds, unmasked and masked: indices bit-equal;
@@ -32,12 +40,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      B5/B6 launch counters set to 0 just before and read just after (first
      run), then all three defenses, then DUP-Net again (warm run); then
      profiles one batch of DUP-Net with torch.profiler;
-  8. holds B4 with its plane gradient against the plain version at the
-     training shapes (B=32, Q=2048, 64x64x32 planes, uv from [-0.1, 1.1] so
-     the clamp is exercised): forward, plane gradient alone (the training
-     call), plane and uv gradient together, in f32, and forward + plane
-     gradient with bf16 planes; times the training call, its plain version
-     and `F.grid_sample` with the gradient to its input;
+  8. holds B4 in its training form (forward + the three planes'
+     gradients; also with the gradient to p) against the plain version at
+     the training shapes (B=32, Q=2048, three 64x64x32 planes, points that
+     the normalisation clamps), f32 and bf16, two launches bit-identical;
+     times the training call, its plain version and three `F.grid_sample`
+     calls summed, with the gradient to their inputs;
   9. trains a small ConvONet (c_dim 8, 16x16 planes) and a narrow ONet (c_dim
      32, decoder 16) for 3 steps on the card and on the CPU from the same
      perturbed `flax_init_params` and sampler batches, and compares losses
@@ -49,15 +57,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      at lr 1e-3, ConvONet at the CLI's defaults (batch 32, 600 input points,
      2048 queries, 64x64 planes, c_dim 32) and ONet at c_dim 512, hidden
      512, decoder 256, each twice (first and warm run), with B4's launch
-     counters set to 0 just before the ConvONet runs and read just after;
+     counters set to 0 just before the ConvONet runs and read just after
+     (one forward and one plane-gradient launch a step);
      then profiles 10 ConvONet steps with torch.profiler;
  11. checks a small ONet-Opt on the card against the port's CPU run, then
      runs `if_defense_tpu_torch.cli.opt_defense --variant onet` on phase 4's
      clouds (48 x 1024) with the ONet weights phase 10 trained, 201 steps in
      the reference mode, with B1's launch counter set to 0 just before and
      read just after (first run), then again (warm run).
-The last lines are DUP-Net's clouds/s, the card's name and power limit, one
-JSON line of the kernels, and `{"ok": true, "device": {...}}`.
+The last lines are the rates, the defense step profiles, the card's name
+and power limit, one JSON line of the kernels, and `{"ok": true,
+"device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes:
 - `device_ms` (also `ms`): the device time of what the wrapper launches per
@@ -72,9 +82,12 @@ Each kernel row carries three times, all in f32 at the path's shapes:
   with a harness loss, `(out * w).sum()`, and its backward: what an eager
   step pays, host work included wherever the device waits for it;
 - `plain_ms`: the same whole-call timing of the plain version.
-B4's rows add `library_device_ms` (also `library_ms`: every kernel of
-`F.grid_sample`'s forward and backward, its gradient's fill included) and
-`library_call_ms`. `bound_share` is `bound_ms / device_ms`.
+B4's rows add `library_device_ms` (also `library_ms`: every kernel of the
+three `F.grid_sample` calls' forward and backward and of their sum, the
+gradients' fills included), `library_call_ms` and `bound_whole_planes_ms`
+(the bound with every plane byte read, as the one-plane design's rows
+counted it).
+`bound_share` is `bound_ms / device_ms`.
 
 Each kernel's `bound_ms` is the least time the card could take for its
 work on this run's inputs: the larger of its operations over 67 TFLOP/s
@@ -82,10 +95,13 @@ work on this run's inputs: the larger of its operations over 67 TFLOP/s
 output written once) over 3.35 TB/s, the H100 SXM's published peaks.
 Operations counted: 8 flops for a pair's squared distance (3 sub, 3 mul,
 2 add) and 1 for its selection compare; 50 for a weighted repulsion pair's
-term and gradient; 9 per channel for a bilinear sample and 12 for its uv
-gradient; 8 per channel for a query's share of the plane gradient (4
-multiplies and 4 adds into the corners), whose bytes are uv and the output
-gradient read once and the plane gradient written once; FPS 10 per point
+term and gradient; per query, plane and channel 10 for B4's forward (a
+bilinear sample and the sum over the planes), 12 for its gradient to p
+and 10 for its share of the planes' gradients (6 multiplies, 4 adds),
+whose bytes are p, the output's gradient and the output read or written
+once, dp written once, every cell of the three planes' gradients written
+once, and of the planes the distinct corner rows ([C] channels of a cell)
+that this run's queries touch, read once; FPS 10 per point
 and step (distance, min, compare); ball query 9 per (centre, point) pair
 scanned up to the centre's nsample-th hit and 5 per |v|^2.
 
@@ -114,6 +130,7 @@ PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
 TB, TQ = 32, 2048                        # train_implicit's batch and queries
 TRAIN_STEPS, TRAIN_LR = 100, 1e-3
 DEVICE_REPS, GRAPH_REPS = 20, 50          # calls per device-time reading
+PLANE_NAMES = ("xz", "xy", "yz")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -367,14 +384,13 @@ def check_repulsion(what: str, pts, moved, w) -> tuple[list, list, torch.Tensor]
 
 def check_kernels(dev) -> list[dict]:
     from if_defense_tpu_torch.defense import repulsion as rep
-    from if_defense_tpu_torch.ops import cuda_interp, cuda_repulsion, interp
+    from if_defense_tpu_torch.ops import cuda_repulsion
 
     gen = np.random.default_rng(0)
     pts = gen.uniform(-0.45, 0.45, (B, N, 3)).astype(np.float32)
     pts[:, N - 24:] = pts[:, :24]          # exact duplicates, as resampling makes
     pts = torch.from_numpy(pts).to(dev)
     w = torch.from_numpy(gen.uniform(0.5, 1.5, B).astype(np.float32)).to(dev)
-    bf16_tol = 2.0**-7                     # one bf16 rounding of the result
     rows = []
 
     print("B1-B3 on random points with duplicates (B3's mask built from the "
@@ -433,67 +449,9 @@ def check_kernels(dev) -> list[dict]:
             lambda: bare_grad(masked, moved, w),
             ("rep_masked_fwd", "rows_to_loss", "rep_masked_bwd"))))
 
-    print("B4 plane_sample (fwd + uv grad):")
-    plane = torch.from_numpy(gen.normal(size=(B, R, R, C)).astype(np.float32)).to(dev)
-    uv = torch.from_numpy(
-        gen.uniform(0.0, 1.0 - 1e-5, (B, N, 2)).astype(np.float32)).to(dev)
-    g_out = torch.from_numpy(gen.normal(size=(B, N, C)).astype(np.float32)).to(dev)
-
-    def run(fn, pl):
-        u = uv.detach().requires_grad_(True)
-        out = fn(pl, u)
-        (du,) = torch.autograd.grad((out.float() * g_out).sum(), u)
-        return out.detach(), du
-
-    def plain(pl, u):        # the kernel's semantics: f32 math, plane's type out
-        return interp.bilinear_plane_sample(pl.float(), u).to(pl.dtype)
-
-    errs = []
-    for dt, (fa, fr) in ((torch.float32, (1e-5, 0.0)),
-                         (torch.bfloat16, (1e-3, bf16_tol))):
-        pl = plane.to(dt)
-        ok_, dk = run(cuda_interp.plane_sample_cuda, pl)
-        op, dp = run(plain, pl)
-        tag = str(dt).split(".")[-1]
-        e = [compare(f"out {tag}", ok_, op, fa, fr),
-             compare(f"uv grad {tag}", dk, dp, grad_atol(dp), 1e-5)]
-        if dt == torch.float32:
-            errs += e
-    # the one PyTorch call that computes the same function (a yardstick;
-    # the port never calls it): NCHW planes, grid in [-1, 1]
-    plane_nchw = plane.permute(0, 3, 1, 2)
-    g_nchw = g_out.permute(0, 2, 1)[:, :, None, :]
-    grid = 2 * uv[:, None] - 1
-
-    def sample(g):
-        return torch.nn.functional.grid_sample(
-            plane_nchw, g, mode="bilinear", padding_mode="border",
-            align_corners=True)
-
-    def library():
-        g = (2 * uv[:, None] - 1).detach().requires_grad_(True)
-        out = sample(g)
-        (dg,) = torch.autograd.grad((out * g_nchw).sum(), g)
-        return out, dg
-
-    lib_out = library()[0].detach()[:, :, 0].transpose(1, 2)
-    diff = float((lib_out - run(interp.bilinear_plane_sample, plane)[0])
-                 .abs().max())
-    print(f"  grid_sample vs plain: max abs diff {diff:.3e}")
-    rows.append(dict(
-        name="plane_sample", id="B4",
-        source="if_defense_tpu_torch/csrc/interp.cu",
-        replaces="if_defense_tpu/ops/pallas_interp.py:233",
-        max_abs_err=max(errs),
-        bound=bound(21 * B * N * C,
-                    4 * (B * R * R * C + 2 * B * N * 2 + 2 * B * N * C)),
-        **kernel_times(
-            lambda: run(cuda_interp.plane_sample_cuda, plane),
-            lambda: run(interp.bilinear_plane_sample, plane),
-            lambda: bare_grad(lambda u: cuda_interp.plane_sample_cuda(
-                plane, u), uv, g_out),
-            ("sample_fwd", "sample_bwd"),
-            library=(library, lambda: bare_grad(sample, grid, g_nchw)))))
+    print(f"B4 plane_features, the defense form (fwd + gradient to p), "
+          f"three {R}x{R}x{C} planes:")
+    rows.append(check_plane_features(dev, gen, B, N, train=False))
     for r in rows:
         print_row(r)
     return rows
@@ -513,7 +471,9 @@ def check_small_path(dev) -> None:
     """The whole defense on a small input, CUDA (kernels) vs CPU (plain
     versions), same weights and draws: >= 99.9 % of coordinates within
     1e-4, all within 2 lr (steps + 1) (Adam's first steps move a coordinate
-    by ~lr sign(g), and a gradient within rounding of 0 can flip it)."""
+    by ~lr sign(g), and a gradient within rounding of 0 can flip it). At
+    256 optimised points, and at 6000 (more than the 4096 the repulsion
+    kernels once refused)."""
     from if_defense_tpu_torch.defense.ifdefense import convonet_opt_defense
     from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
     from if_defense_tpu_torch.utils.params_io import (
@@ -526,27 +486,30 @@ def check_small_path(dev) -> None:
     gen = np.random.default_rng(3)
     pc = gen.normal(size=(2, 512, 3)).astype(np.float32) * 0.3
     sel = gen.uniform(-0.4, 0.4, (2, 128, 3)).astype(np.float32)
-    init = gen.uniform(-0.4, 0.4, (2, 256, 3)).astype(np.float32)
     modes = {"reference": dict(),
              "fast f32": dict(interp_refresh=2, rep_graph_cache=True)}
-    for name, extra in modes.items():
-        outs = []
-        for d in ("cpu", dev):
-            model = ConvOccupancyNetwork(**cfg)
-            model.load_state_dict(sd)
-            model.to(d)
-            defend = convonet_opt_defense(
-                model, iterations=SMALL_ITERS, input_npoint=128,
-                sample_npoint=256, **extra)
-            draws = tuple(torch.from_numpy(a).to(d) for a in (sel, init))
-            outs.append(defend(torch.from_numpy(pc).to(d),
-                               draws=draws).cpu())
-        err = (outs[0] - outs[1]).abs()
-        share = float((err <= 1e-4).float().mean())
-        print(f"  {name}: {share:.5f} of coordinates within 1e-4, "
-              f"max {float(err.max()):.3e} (bound {2 * LR * (SMALL_ITERS + 1):g})")
-        if share < 0.999 or float(err.max()) > 2 * LR * (SMALL_ITERS + 1):
-            fail(f"small whole-path run ({name}) disagrees with the CPU run")
+    for npoint in (256, 6000):
+        init = gen.uniform(-0.4, 0.4, (2, npoint, 3)).astype(np.float32)
+        for name, extra in modes.items():
+            outs = []
+            for d in ("cpu", dev):
+                model = ConvOccupancyNetwork(**cfg)
+                model.load_state_dict(sd)
+                model.to(d)
+                defend = convonet_opt_defense(
+                    model, iterations=SMALL_ITERS, input_npoint=128,
+                    sample_npoint=npoint, **extra)
+                draws = tuple(torch.from_numpy(a).to(d) for a in (sel, init))
+                outs.append(defend(torch.from_numpy(pc).to(d),
+                                   draws=draws).cpu())
+            err = (outs[0] - outs[1]).abs()
+            share = float((err <= 1e-4).float().mean())
+            bound_ = 2 * LR * (SMALL_ITERS + 1)
+            print(f"  {name}, {npoint} points: {share:.5f} of coordinates "
+                  f"within 1e-4, max {float(err.max()):.3e} (bound {bound_:g})")
+            if share < 0.999 or float(err.max()) > bound_:
+                fail(f"small whole-path run ({name}, {npoint} points) "
+                     "disagrees with the CPU run")
 
 
 def run_cli(tmp: str, name: str, extra: list[str],
@@ -814,90 +777,152 @@ def profile_dupnet(dev, clouds: np.ndarray) -> None:
               f"{e.key[:90]}")
 
 
-def check_plane_gradient(dev) -> dict:
-    """B4 with its plane gradient at the training shapes, against the plain
-    version: forward, plane gradient alone, plane and uv gradient, in f32
-    (atol 1e-5 of the largest reference entry), and forward + plane
-    gradient with bf16 planes. Times the training call (forward + plane
-    gradient), its plain version and `F.grid_sample` with the gradient to
-    its input (`kernel_times`)."""
+def plane_inputs(dev, gen, b: int, q: int):
+    """Three N(0, 1) planes [b, R, R, C], points from [-0.6, 0.6]^3 (the
+    normalisation clamps about one coordinate in ten) and the output's
+    cotangent, f32."""
+    def dev_(shape, lo=None):
+        a = (gen.normal(size=shape) if lo is None
+             else gen.uniform(-lo, lo, shape))
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    planes = {n: dev_((b, R, R, C)) for n in PLANE_NAMES}
+    return dev_((b, q, 3), 0.6), planes, dev_((b, q, C))
+
+
+def touched_rows(p: torch.Tensor, planes: dict) -> int:
+    """Distinct corner rows ([C] channels of one cell) that the queries of
+    every cloud touch, summed over the planes and clouds: the plane bytes a
+    call must read, C x 4 each."""
+    from if_defense_tpu_torch.ops import interp
+
+    total = 0
+    for name, plane in planes.items():
+        b, h, w, _ = plane.shape
+        uv = interp.normalize_coordinate(p, name)
+        x0 = (uv[..., 0] * (w - 1)).floor().long()
+        y0 = (uv[..., 1] * (h - 1)).floor().long()
+        x1, y1 = (x0 + 1).clamp(max=w - 1), (y0 + 1).clamp(max=h - 1)
+        cells = torch.cat([y0 * w + x0, y0 * w + x1, y1 * w + x0,
+                           y1 * w + x1], 1)
+        hit = torch.zeros((b, h * w), dtype=torch.bool, device=p.device)
+        total += int(hit.scatter_(1, cells, True).sum())
+    return total
+
+
+def check_plane_features(dev, gen, b: int, q: int, train: bool) -> dict:
+    """B4 (`plane_features_cuda`, three planes) against its plain version
+    (`ops.interp.plane_features`), one form: the defense's (forward +
+    gradient to p) or training's (forward + the planes' gradients; also
+    with the gradient to p). f32: output atol 1e-5 of the largest entry,
+    gradient to p rtol 1e-4 with atol 1e-5 of the largest entry, the
+    planes' gradients atol 1e-5 of the largest entry (sums in other
+    orders); bf16 p and planes against the plain version on f32 copies,
+    cast once (the kernel's math is f32; the plain version in bf16
+    normalises in bf16), rtol 2^-7. Two launches bit-identical. Times the
+    form's call, its plain version and three `F.grid_sample` calls summed,
+    with the gradient to their grids (defense) or inputs (training)."""
     from if_defense_tpu_torch.ops import cuda_interp, interp
 
-    gen = np.random.default_rng(8)
-    plane = torch.from_numpy(
-        gen.normal(size=(TB, R, R, C)).astype(np.float32)).to(dev)
-    uv = torch.from_numpy(
-        gen.uniform(-0.1, 1.1, (TB, TQ, 2)).astype(np.float32)).to(dev)
-    g_out = torch.from_numpy(
-        gen.normal(size=(TB, TQ, C)).astype(np.float32)).to(dev)
+    p, planes, g_out = plane_inputs(dev, gen, b, q)
+    want_p, want_planes = not train, train
 
-    def run(fn, pl, with_uv=False):
-        p = pl.detach().requires_grad_(True)
-        u = uv.detach().requires_grad_(with_uv)
-        out = fn(p, u)
-        grads = torch.autograd.grad((out.float() * g_out).sum(),
-                                    (p, u) if with_uv else (p,))
-        return (out.detach(), *grads)
+    def grads(fn, pp, pls, wp, wpl, harness=True):
+        pp = pp.detach().requires_grad_(wp)
+        pls = {n: t.detach().requires_grad_(wpl) for n, t in pls.items()}
+        out = fn(pp, pls)
+        wrt = ([pp] if wp else []) + (list(pls.values()) if wpl else [])
+        if not wrt:
+            return [out.detach()]
+        g = (torch.autograd.grad((out.float() * g_out).sum(), wrt) if harness
+             else torch.autograd.grad(out, wrt, g_out.to(out.dtype)))
+        return [out.detach(), *g]
 
-    def plain(pl, u):        # the kernel's semantics: f32 math, plane's type out
-        return interp.bilinear_plane_sample(pl.float(), u).to(pl.dtype)
+    def kern(pp, pls):
+        return cuda_interp.plane_features_cuda(pp, pls)
 
-    def rel(ref):
-        return 1e-5 * float(ref.detach().float().abs().max())
+    def plain(pp, pls):       # the kernel's semantics: f32 math, cast once
+        dt = next(iter(pls.values())).dtype
+        return interp.plane_features(
+            pp.float(), {n: t.float() for n, t in pls.items()}).to(dt)
+
+    def tag_of(i, wp):
+        return "out" if i == 0 else ("dp" if wp and i == 1 else
+                                     f"d{PLANE_NAMES[i - 1 - wp]}")
 
     errs = []
-    ok_, dk = run(cuda_interp.plane_sample_cuda, plane)
-    op, dp = run(plain, plane)
-    errs += [compare("out f32", ok_, op, rel(op), 0.0),
-             compare("dplane f32", dk, dp, rel(dp), 0.0)]
-    _, dk, duk = run(cuda_interp.plane_sample_cuda, plane, True)
-    _, dp, dup = run(plain, plane, True)
-    errs.append(compare("dplane f32 (with uv grad)", dk, dp, rel(dp), 0.0))
-    compare("uv grad f32 (with dplane)", duk, dup, rel(dup), 1e-5)
-    pl16 = plane.to(torch.bfloat16)
-    ok_, dk = run(cuda_interp.plane_sample_cuda, pl16)
-    op, dp = run(plain, pl16)
-    compare("out bf16", ok_, op, 1e-3, 2.0**-7)
-    compare("dplane bf16", dk, dp, rel(dp), 2.0**-7)
-    print(f"  {int(((uv < 0) | (uv > 1)).any(-1).sum())} of "
-          f"{TB * TQ} queries clamped; border cells' gradient "
-          f"{float(dp[:, 0, 0].float().abs().sum()):.3f} (nonzero)")
+    cases = [(want_p, want_planes)] + ([(True, True)] if train else [])
+    for dt, rtol in ((torch.float32, 0.0), (torch.bfloat16, 2.0**-7)):
+        pd = p.to(dt)
+        pls = {n: t.to(dt) for n, t in planes.items()}
+        for wp, wpl in cases:
+            got = grads(kern, pd, pls, wp, wpl)
+            want = grads(plain, pd, pls, wp, wpl)
+            again = grads(kern, pd, pls, wp, wpl)
+            for i, (a, w_, a2) in enumerate(zip(got, want, again)):
+                tag = f"{tag_of(i, wp)} {str(dt).split('.')[-1]}" + (
+                    " (with dp)" if train and wp else "")
+                r = (1e-4 if dt == torch.float32 else rtol) if (
+                    wp and i == 1) else rtol
+                e = compare(tag, a, w_, 1e-5 * float(w_.float().abs().max()),
+                            r)
+                if dt == torch.float32:
+                    errs.append(e)
+                if not torch.equal(a, a2):
+                    fail(f"B4 {tag}: two launches differ")
+    print(f"  two launches bit-identical; "
+          f"{int(((p.abs() / 1.10001) > 0.5).any(-1).sum())} of {b * q} "
+          "queries clamped on some axis")
 
-    plane_nchw = plane.permute(0, 3, 1, 2)
+    # the yardstick: three F.grid_sample calls (NCHW views of the planes,
+    # grids in [-1, 1] from the normalised coordinates), summed
+    nchw = {n: t.permute(0, 3, 1, 2) for n, t in planes.items()}
+    grids = {n: (2 * interp.normalize_coordinate(p, n) - 1)[:, None]
+             for n in planes}
     g_nchw = g_out.permute(0, 2, 1)[:, :, None, :]
-    grid = (2 * uv[:, None] - 1)
 
-    def sample(x):
-        return torch.nn.functional.grid_sample(
-            x, grid, mode="bilinear", padding_mode="border",
-            align_corners=True)
+    def library(harness=True):
+        xs = {n: (t.detach().requires_grad_(True) if train else t)
+              for n, t in nchw.items()}
+        gs = {n: (t if train else t.detach().requires_grad_(True))
+              for n, t in grids.items()}
+        out = sum(torch.nn.functional.grid_sample(
+            xs[n], gs[n], mode="bilinear", padding_mode="border",
+            align_corners=True) for n in planes)
+        wrt = list((xs if train else gs).values())
+        if harness:
+            return out, torch.autograd.grad((out * g_nchw).sum(), wrt)
+        return torch.autograd.grad(out, wrt, g_nchw)
 
-    def library():
-        x = plane_nchw.detach().requires_grad_(True)
-        return torch.autograd.grad((sample(x) * g_nchw).sum(), x)
-
-    lib_grad = library()[0].permute(0, 2, 3, 1)
-    diff = float((lib_grad - run(interp.bilinear_plane_sample, plane)[1])
-                 .abs().max())
-    print(f"  grid_sample input gradient vs plain: max abs diff {diff:.3e}")
-    plane_bytes, q = 4 * TB * R * R * C, TB * TQ
-    print("  B4 training call (fwd + plane grad), f32:")
+    diff = float((library()[0].detach()[:, :, 0].transpose(1, 2)
+                  - grads(plain, p, planes, False, False)[0]).abs().max())
+    print(f"  three grid_sample calls vs plain: max abs diff {diff:.3e}")
+    rows_hit = touched_rows(p, planes)
+    per_q = 12 + 2 * 4 * C        # p read, g read, output written
+    nbytes = 4 * rows_hit * C + b * q * (per_q + (0 if train else 12))
+    whole = 3 * 4 * b * R * R * C
+    if train:                     # every cell of the three planes written
+        nbytes += whole
+    flops = 3 * b * q * C * (10 + (10 if train else 12))
+    b_touched = bound(flops, nbytes)
+    b_whole = bound(flops, nbytes - 4 * rows_hit * C + whole)
+    print(f"  bound: {rows_hit} of {3 * b * R * R} corner rows touched, "
+          f"{b_touched[0]:.4f} ms ({b_touched[1]}); with whole planes read "
+          f"{b_whole[0]:.4f} ms ({b_whole[1]})")
+    names = ("features_fwd", "features_dplane" if train else "features_dp")
+    print(f"  B4 {'training' if train else 'defense'} call, f32:")
     row = dict(
-        name="plane_sample_dplane", id="B4",
+        name="plane_features_dplane" if train else "plane_features", id="B4",
         source="if_defense_tpu_torch/csrc/interp.cu",
-        replaces="if_defense_tpu/ops/pallas_interp.py:74",
-        max_abs_err=max(errs),
-        bound=bound((9 + 8) * q * C,
-                    2 * plane_bytes + 2 * 8 * q + 2 * 4 * q * C),
-        # the wrapper's fill of its f32 accumulator counts; a bf16 plane's
-        # cast would too (not timed: f32 here)
+        replaces="if_defense_tpu/ops/pallas_interp.py:"
+                 + ("74" if train else "233"),
+        max_abs_err=max(errs), bound=b_touched, bound_whole_ms=b_whole[0],
         **kernel_times(
-            lambda: run(cuda_interp.plane_sample_cuda, plane),
-            lambda: run(interp.bilinear_plane_sample, plane),
-            lambda: bare_grad(cuda_interp.plane_sample_cuda, plane, g_out, uv),
-            ("sample_fwd", "sample_bwd_plane", "FillFunctor",
-             "direct_copy_kernel_cuda"),
-            library=(library, lambda: bare_grad(sample, plane_nchw, g_nchw))))
+            lambda: grads(kern, p, planes, want_p, want_planes),
+            lambda: grads(interp.plane_features, p, planes, want_p,
+                          want_planes),
+            lambda: grads(kern, p, planes, want_p, want_planes, False),
+            names, library=(library, lambda: library(False))))
     print_row(row)
     return row
 
@@ -1089,7 +1114,7 @@ def profile_training(dev, occ_npz: str) -> None:
         return
     busy = sum(e.self_device_time_total for e in events) / 1e3
     ours = sum(e.self_device_time_total for e in events
-               if "sample_fwd" in e.key or "sample_bwd" in e.key) / 1e3
+               if "features_fwd" in e.key or "features_dplane" in e.key) / 1e3
     print(f"  profile, 10 ConvONet steps (batch {TB}): wall {wall:.3f} ms, "
           f"device kernels {busy:.3f} ms (busy share {busy / wall:.3f}), "
           f"B4 fwd + plane grad {ours:.3f} ms ({ours / busy:.3f} of device "
@@ -1129,6 +1154,19 @@ def check_small_onet_opt(dev) -> None:
           f"max {float(err.max()):.3e} (bound {2 * LR * (SMALL_ITERS + 1):g})")
     if share < 0.999 or float(err.max()) > 2 * LR * (SMALL_ITERS + 1):
         fail("small ONet-Opt run disagrees with the CPU run")
+
+
+def profile_step():
+    """The module `tools/profile_defense_step.py` (a script, not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_defense_step",
+        os.path.join(ROOT, "tools", "profile_defense_step.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main() -> int:
@@ -1190,9 +1228,22 @@ def main() -> int:
             rates[name] = run_cli(tmp, name, extra)["clouds_per_sec"]
             launches[name] = {k: v for c in counters for k, v in c.items()}
             print(f"  {name}: launches {launches[name]}")
+        # B1 forward and backward a step, B4 once each way a step (three
+        # planes a launch); the fast mode bypasses B4 (corner cache)
+        ref = launches["reference"]
+        if (ref["repulsion_loss"] != 402 or ref["plane_features"] != 201
+                or ref["plane_features_dp"] != 201
+                or ref["plane_features_dplane"]
+                or launches["fast"]["repulsion_loss_masked"] != 402):
+            fail(f"launches {launches} in ConvONet-Opt: not B1 402 and B4 "
+                 "201 + 201 in the reference mode, B3 402 in the fast mode")
         # a second, warm run of each mode for the rate
         for name, extra in modes.items():
             rates[name + " warm"] = run_cli(tmp, name, extra)["clouds_per_sec"]
+    print("  a step of the reference mode, profiled "
+          "(tools/profile_defense_step.py):")
+    step_profiles = [profile_step().profile(dev, v, steps=5)
+                     for v in ("convonet", "onet")]
 
     dup_clouds = ellipsoids(np.random.default_rng(7), DUP_CLOUDS)
     print("phase 5: B5/B6 vs plain versions at PU-Net's SA levels, batch "
@@ -1210,7 +1261,8 @@ def main() -> int:
 
     print(f"phase 8: B4 with the plane gradient at the training shapes "
           f"(B={TB}, Q={TQ}, {R}x{R}x{C})")
-    rows.append(check_plane_gradient(dev))
+    rows.append(check_plane_features(dev, np.random.default_rng(8), TB, TQ,
+                                     train=True))
 
     train_rates, onet_rates = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1229,12 +1281,13 @@ def main() -> int:
             if variant == "convonet":
                 launches["train"] = dict(cuda_interp.launches)
                 print(f"  convonet, both runs: launches {launches['train']}")
-                want = 2 * 3 * TRAIN_STEPS     # 3 planes a step, 2 runs
-                if launches["train"] != {"plane_sample": want,
-                                         "plane_sample_dplane": want}:
+                want = 2 * TRAIN_STEPS         # one each a step, 2 runs
+                if launches["train"] != {"plane_features": want,
+                                         "plane_features_dp": 0,
+                                         "plane_features_dplane": want}:
                     fail(f"B4 launches {launches['train']} in ConvONet "
                          f"training, not {want} forward and {want} plane "
-                         "gradient (and no uv gradient)")
+                         "gradient (and no gradient to p)")
         train_rates = {f"{v} {t}": r["steps_per_sec"]
                        for (v, t), r in runs.items()}
         profile_training(dev, occ_npz)
@@ -1258,16 +1311,22 @@ def main() -> int:
         onet_rates["warm"] = run_cli(tmp, "onet", ["--variant", "onet"],
                                      weights)["clouds_per_sec"]
 
-    used_in = {"repulsion_loss": "reference", "plane_sample": "reference",
-               "repulsion_mask": "fast", "repulsion_loss_masked": "fast",
-               "fps": "dup", "ballquery": "dup",
-               "plane_sample_dplane": "train"}
+    # a row's launches: the counters of its wrapper's launches in its form
+    used_in = {"repulsion_loss": ("reference", ("repulsion_loss",)),
+               "plane_features": ("reference", ("plane_features",
+                                                "plane_features_dp")),
+               "repulsion_mask": ("fast", ("repulsion_mask",)),
+               "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
+               "fps": ("dup", ("fps",)), "ballquery": ("dup", ("ballquery",)),
+               "plane_features_dplane": ("train", ("plane_features",
+                                                   "plane_features_dplane"))}
     for row in rows:
-        mode = used_in[row["name"]]
-        row["launches"] = launches[mode][row["name"]]
+        mode, names = used_in[row["name"]]
+        row["launches"] = sum(launches[mode][n] for n in names)
         if row["launches"] <= 0:
             fail(f"{row['name']} was not launched in the {mode} mode")
     print("clouds/s: " + json.dumps(rates))
+    print("defense step profiles: " + json.dumps(step_profiles))
     print("ONet-Opt clouds/s: " + json.dumps(onet_rates) + f" on {card}")
     print("train_implicit steps/s: " + json.dumps(train_rates) + f" on {card}")
     print("DUP-Net clouds/s (defend_npz, host clock around main()): "
@@ -1277,6 +1336,8 @@ def main() -> int:
         {k: r[k] for k in ("name", "source", "replaces", "launches",
                            "max_abs_err", "plain_ms", "call_ms", "device_ms",
                            "library_call_ms", "library_device_ms")}
+        | ({"bound_whole_planes_ms": r["bound_whole_ms"]}
+           if "bound_whole_ms" in r else {})
         | {"route": "cuda", "ms": r["device_ms"], "bound_ms": r["bound"][0],
            "bound_by": r["bound"][1],
            "bound_share": r["bound"][0] / r["device_ms"],

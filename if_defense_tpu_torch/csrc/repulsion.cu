@@ -43,8 +43,20 @@
 // alone. The threshold is the k-th order statistic with multiplicity, bit-
 // equal to a full sort: k rounds of a warp min over the lanes' heads, the
 // lowest lane holding the min popping it. Where ties at u overflow the list,
-// and above N = 1024, every distance enters the lanes' sorted top-k (a
-// branch-free min/max network in registers) instead.
+// every distance enters the lanes' sorted top-k (a branch-free min/max
+// network in registers) instead. Above N = 1024 (rep_fwd_chunked) every
+// distance enters the top-k, and the counting pass computes them again.
+//
+// Any N. No kernel's shared memory grows past a fixed chunk: where a cloud
+// is larger than a kernel's staged chunk (1024 points in B1's forward, 4096
+// in B1's backward, 2048 in B2, 1024 partners in B3's backward), the block
+// walks the partners j chunk by chunk in increasing order, and every lane
+// still takes its partners in the order it did with the whole cloud
+// staged. Up to 4096 points the sums therefore keep their order and the
+// results their bits; above, B1's backward also empties its list at the end
+// of each chunk, so its sums group differently (still one fixed order:
+// deterministic). The only limit left is the [B, N, N] mask of B2/B3, which
+// the wrapper allocates.
 //
 // B1 backward (rep_bwd). Bound: issue, one distance per pair. A warp per
 // point m, lanes over j; a pair carries weight only where d2 <= max(t_m,
@@ -53,10 +65,7 @@
 //
 // B2 (rep_mask): thread per row for the thresholds, then each warp writes
 // whole rows of the int8 mask, lanes on consecutive columns; the design of
-// its port, bound by the 48 MB it writes at these shapes. Its thresholds sit
-// in dynamic shared memory after the cloud, so that the launch asks for
-// more than 48 KB at MAX_N (a static array on top of a 48 KB cloud was
-// refused).
+// its port, bound by the 48 MB it writes at these shapes.
 //
 // B3 forward (rep_masked_fwd). Bound: bytes, the [B, N, N] int8 mask read
 // once (48 MB; ~0.5 % of it ones). A warp per row reads the row as 16-byte
@@ -72,13 +81,15 @@
 // few nonzero bytes it scatters transposed into a zero-filled slab. A warp
 // per point then scans both as 16-byte words with its lanes over j and
 // lists the nonzero bytes. The slabs take 67 KB with the lists whatever N
-// (up to MAX_N = 4096, where whole slabs would not fit in a block's 227
-// KB). Measured slower on the H100: the row side read straight from global
+// (whole slabs would not fit in a block's 227 KB at N = 4096). Measured
+// slower on the H100: the row side read straight from global
 // memory warp by warp with only the column slab staged (with or without
 // the words loaded ahead), and the row slab staged by cp.async with the
 // column words loaded 8 a thread at once.
 
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -88,7 +99,10 @@ constexpr int kRows = 128;       // B2: thread-per-row blocks
 constexpr int kWarps = 8;        // warps per block of the warp-per-row kernels
 constexpr int kRowsPerWarp = 4;  // B1: rows (points) a warp takes in turn
 constexpr int kRegN = 1024;      // B1 forward keeps distances in registers up to this N
+                                 // (and stages chunks of this many points above it)
 constexpr int kStep = 4;         // B1 backward: 32-partner steps a warp takes at once
+constexpr int kStage = 4096;     // B1 backward: points staged at once
+constexpr int kMaskStage = 2048; // B2: points staged at once (beside its static arrays)
 constexpr int kList = 64;        // entries of a warp's list of weighted pairs
 constexpr int kLoads = 2;        // B3: 16-byte words of a mask row a lane loads at once
 constexpr int kTile = 32;        // B3 backward: points m per block
@@ -110,12 +124,6 @@ __device__ __forceinline__ float d2_of(float xi, float yi, float zi, float xj,
                    __fmul_rn(dz, dz));
 }
 
-// from a cloud stored point by point (x, y, z)
-__device__ __forceinline__ float dist2(const float* s, int i, int j) {
-  return d2_of(s[3 * i], s[3 * i + 1], s[3 * i + 2], s[3 * j], s[3 * j + 1],
-               s[3 * j + 2]);
-}
-
 __device__ __forceinline__ float term_of(float d2, const Params& P) {
   float d = sqrtf(fmaxf(d2, P.eps));
   float q = d / P.h;
@@ -135,47 +143,41 @@ __device__ __forceinline__ float coef_of(float d2, const Params& P) {
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-// the cloud point by point into s[0, 3N)
+// points j0 .. j0 + n of a cloud as three coordinate arrays of np >= n
+// entries, zero past n: x in s[0, np), y in s[np, 2 np), z in s[2 np, 3 np).
+// No barrier: the caller orders it with the readers.
 template <typename T>
-__device__ void load_cloud(const T* pts, long b, int N, float* s) {
-  const T* p = pts + b * (long)N * 3;
-  for (int t = threadIdx.x; t < 3 * N; t += blockDim.x) s[t] = ifdef::load_f(p, t);
-  __syncthreads();
-}
-
-// the cloud as three coordinate arrays of np >= N entries, zero past N: x in
-// s[0, np), y in s[np, 2 np), z in s[2 np, 3 np)
-template <typename T>
-__device__ void load_cloud_soa(const T* pts, long b, int N, int np, float* s) {
-  const T* p = pts + b * (long)N * 3;
+__device__ void stage_soa(const T* pb, int j0, int n, int np, float* s) {
 #pragma unroll 4
-  for (int t = threadIdx.x; t < 3 * N; t += blockDim.x)
-    s[(t % 3) * np + t / 3] = ifdef::load_f(p, t);
-  for (int t = N + threadIdx.x; t < np; t += blockDim.x)
+  for (int t = threadIdx.x; t < 3 * n; t += blockDim.x)
+    s[(t % 3) * np + t / 3] = ifdef::load_f(pb, 3L * j0 + t);
+  for (int t = n + threadIdx.x; t < np; t += blockDim.x)
     s[t] = s[np + t] = s[2 * np + t] = 0.f;
-  __syncthreads();
 }
 
-// B2: k-th smallest d2 of row i (self excluded), with multiplicity, by one
-// thread
-template <int K>
-__device__ float row_threshold(const float* s, int N, int i) {
-  float top[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) top[t] = kInf;
-  for (int j = 0; j < N; ++j) {
-    if (j == i) continue;
-    float v = dist2(s, i, j);
-    if (v < top[K - 1]) {
-#pragma unroll
-      for (int t = 0; t < K; ++t) {
-        float lo = fminf(top[t], v);
-        v = fmaxf(top[t], v);
-        top[t] = lo;
-      }
-    }
+// point j of a cloud in global memory, in f32
+template <typename T>
+__device__ __forceinline__ void point_of(const T* p, int j, float& x, float& y,
+                                         float& z) {
+  x = ifdef::load_f(p, 3L * j);
+  y = ifdef::load_f(p, 3L * j + 1);
+  z = ifdef::load_f(p, 3L * j + 2);
+}
+
+// The block walks a cloud of N points in chunks of `np`, staged one after
+// the other into s (three coordinate arrays of np entries), and calls
+// body(j0, n) on each with the chunk in place. Every thread of the block
+// must call it the same number of times (it synchronises the block).
+template <typename T, typename F>
+__device__ __forceinline__ void walk_chunks(const T* pb, int N, int np,
+                                            float* s, F&& body) {
+  for (int j0 = 0; j0 < N; j0 += np) {
+    const int n = min(np, N - j0);
+    __syncthreads();  // the previous chunk has been read
+    stage_soa(pb, j0, n, np, s);
+    __syncthreads();
+    body(j0, n);
   }
-  return top[K - 1];
 }
 
 // v into a lane's ascending top-K, branch-free
@@ -227,19 +229,52 @@ __device__ __forceinline__ int warp_slots(int cnt, int lane, int& total) {
   return incl - cnt;
 }
 
+// A row's tally of the distances v <= t: count and term sum below t and
+// at it
+struct Tally {
+  int n_lt = 0, n_eq = 0;
+  float s_lt = 0.f, s_eq = 0.f;
+  __device__ __forceinline__ void add(float v, float t, const Params& P) {
+    if (v <= t) {
+      const float tv = term_of(v, P);
+      if (v < t) {
+        ++n_lt;
+        s_lt += tv;
+      } else {
+        ++n_eq;
+        s_eq += tv;
+      }
+    }
+  }
+  // the warp's sums; lane 0 writes the row's loss, threshold and tie weight
+  __device__ __forceinline__ void write(int K, float t, long r, int lane,
+                                        float* row_loss, float* thr,
+                                        float* frac) {
+    n_lt = __reduce_add_sync(kFull, n_lt);
+    n_eq = __reduce_add_sync(kFull, n_eq);
+    s_lt = ifdef::warp_sum(s_lt);
+    s_eq = ifdef::warp_sum(s_eq);
+    if (lane == 0) {
+      const float f = (float)(K - n_lt) / (float)max(n_eq, 1);
+      row_loss[r] = s_lt + f * s_eq;
+      thr[r] = t;
+      frac[r] = f;
+    }
+  }
+};
+
 // B1 forward: warp per row; per-row threshold, tie weight and weighted
-// loss. PER > 0: a lane keeps its PER distances in registers (N <= 32 PER,
-// the cloud padded to 32 PER points) and selects through the warp's list;
-// PER == 0: every distance enters the lanes' top-K and the counting pass
-// computes them again.
+// loss. A lane keeps its PER distances in registers (N <= 32 PER, the cloud
+// padded to 32 PER points) and selects through the warp's list.
 template <int K, int PER, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     rep_fwd(const T* __restrict__ pts, Params P, float* __restrict__ row_loss,
             float* __restrict__ thr, float* __restrict__ frac) {
   extern __shared__ float s[];
   const int N = P.N, b = blockIdx.y;
-  const int np = PER > 0 ? 32 * PER : N;
-  load_cloud_soa(pts, b, N, np, s);
+  constexpr int np = 32 * PER;
+  stage_soa(pts + (long)b * N * 3, 0, N, np, s);
+  __syncthreads();
   const float *sx = s, *sy = s + np, *sz = s + 2 * np;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* list = s + 3 * np + warp * kList;
@@ -248,21 +283,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (i >= N) break;
     const float xi = sx[i], yi = sy[i], zi = sz[i];
     float t = 0.f;
-    int n_lt = 0, n_eq = 0;
-    float s_lt = 0.f, s_eq = 0.f;
-    auto tally = [&](float v) {
-      if (v <= t) {
-        const float tv = term_of(v, P);
-        if (v < t) {
-          ++n_lt;
-          s_lt += tv;
-        } else {
-          ++n_eq;
-          s_eq += tv;
-        }
-      }
-    };
-    if constexpr (PER > 0) {
+    Tally tl;
+    {
       // the lane's distances, branch-free, and their minimum
       float d[PER];
       float lo[4] = {inf_f(), inf_f(), inf_f(), inf_f()};
@@ -296,7 +318,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         float c2 = lane + 32 < n ? list[lane + 32] : inf_f();
         float top[2] = {fminf(a, c2), fmaxf(a, c2)};
         t = warp_kth<K>(top, lane);
-        for (int q = lane; q < n; q += 32) tally(list[q]);
+        for (int q = lane; q < n; q += 32) tl.add(list[q], t, P);
       } else {  // more ties at u than the list holds
         float top[K];
 #pragma unroll
@@ -305,30 +327,53 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int c = 0; c < PER; ++c) top_insert(top, d[c]);
         t = warp_kth<K>(top, lane);
 #pragma unroll
-        for (int c = 0; c < PER; ++c) tally(d[c]);
+        for (int c = 0; c < PER; ++c) tl.add(d[c], t, P);
       }
       __syncwarp();  // the list is read before the next row writes it
-    } else {
-      float top[K];
+    }
+    tl.write(K, t, (long)b * N + i, lane, row_loss, thr, frac);
+  }
+}
+
+// B1 forward above kRegN points: warp per row as rep_fwd; every distance
+// enters the lanes' top-K, then a counting pass computes them again. The
+// partners come in chunks of kRegN points staged in shared memory; a lane
+// takes j = lane mod 32 in increasing order, chunk after chunk.
+template <int K, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    rep_fwd_chunked(const T* __restrict__ pts, Params P,
+                    float* __restrict__ row_loss, float* __restrict__ thr,
+                    float* __restrict__ frac) {
+  __shared__ float s[3 * kRegN];
+  const int N = P.N, b = blockIdx.y;
+  const T* pb = pts + (long)b * N * 3;
+  const float *sx = s, *sy = s + kRegN, *sz = s + 2 * kRegN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // every warp takes kRowsPerWarp turns (the walks synchronise the block);
+  // a row past N, the same for the whole warp, does no work
+  for (int rr = warp; rr < kWarps * kRowsPerWarp; rr += kWarps) {
+    const int i = blockIdx.x * (kWarps * kRowsPerWarp) + rr;
+    const bool valid = i < N;
+    float xi = 0.f, yi = 0.f, zi = 0.f;
+    if (valid) point_of(pb, i, xi, yi, zi);
+    float top[K];
 #pragma unroll
-      for (int c = 0; c < K; ++c) top[c] = inf_f();
-      for (int j = lane; j < N; j += 32)
-        if (j != i) top_insert(top, d2_of(xi, yi, zi, sx[j], sy[j], sz[j]));
-      t = warp_kth<K>(top, lane);
-      for (int j = lane; j < N; j += 32)
-        if (j != i) tally(d2_of(xi, yi, zi, sx[j], sy[j], sz[j]));
-    }
-    n_lt = __reduce_add_sync(kFull, n_lt);
-    n_eq = __reduce_add_sync(kFull, n_eq);
-    s_lt = ifdef::warp_sum(s_lt);
-    s_eq = ifdef::warp_sum(s_eq);
-    if (lane == 0) {
-      const float f = (float)(K - n_lt) / (float)max(n_eq, 1);
-      const long r = (long)b * N + i;
-      row_loss[r] = s_lt + f * s_eq;
-      thr[r] = t;
-      frac[r] = f;
-    }
+    for (int c = 0; c < K; ++c) top[c] = inf_f();
+    walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
+      if (valid)
+        for (int jj = lane; jj < n; jj += 32)
+          if (j0 + jj != i)
+            top_insert(top, d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]));
+    });
+    const float t = warp_kth<K>(top, lane);
+    Tally tl;
+    walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
+      if (valid)
+        for (int jj = lane; jj < n; jj += 32)
+          if (j0 + jj != i)
+            tl.add(d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]), t, P);
+    });
+    if (valid) tl.write(K, t, (long)b * N + i, lane, row_loss, thr, frac);
   }
 }
 
@@ -358,31 +403,52 @@ __host__ __device__ inline int bwd_points(int N) {
 // only where d2 <= max(t_m, t_j): the lanes test kStep partners each,
 // branch-free, then gather the pairs that pass (~2k a row) into the warp's
 // list by ballot, and take them a pair a lane for the weights and the
-// coefficient's sqrt, exp and divisions.
-template <typename T>
+// coefficient's sqrt, exp and divisions. The partners and their thresholds
+// sit in shared memory: the whole cloud, staged once (kChunked false, N <=
+// kStage), or kStage points at a time, staged again for each of a warp's
+// rows, with the list drained at the end of each chunk (kChunked true).
+template <bool kChunked, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     rep_bwd(const T* __restrict__ pts, Params P,
             const float* __restrict__ thr, const float* __restrict__ frac,
             const float* __restrict__ g, T* __restrict__ grad) {
   extern __shared__ float s[];
-  const int N = P.N, b = blockIdx.y, np = bwd_points(N);
+  const int N = P.N, b = blockIdx.y, np = kChunked ? kStage : bwd_points(N);
+  const T* pb = pts + (long)b * N * 3;
+  const float *sx = s, *sy = s + np, *sz = s + 2 * np;
   float* st = s + 3 * np;
   float* sf = st + np;
-  for (int t = threadIdx.x; t < np; t += blockDim.x) {
-    st[t] = t < N ? thr[(long)b * N + t] : 0.f;
-    sf[t] = t < N ? frac[(long)b * N + t] : 0.f;
-  }
-  load_cloud_soa(pts, b, N, np, s);
-  const float *sx = s, *sy = s + np, *sz = s + 2 * np;
+  // points j0 .. j0 + np (zero past N) and their thresholds and weights
+  auto stage = [&](int j0) {
+    const int n = min(np, N - j0);
+    __syncthreads();  // the previous chunk has been read
+    for (int t = threadIdx.x; t < np; t += blockDim.x) {
+      st[t] = t < n ? thr[(long)b * N + j0 + t] : 0.f;
+      sf[t] = t < n ? frac[(long)b * N + j0 + t] : 0.f;
+    }
+    stage_soa(pb, j0, n, np, s);
+    __syncthreads();
+  };
+  if (!kChunked) stage(0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int* list = reinterpret_cast<int*>(sf + np) + warp * kList;
   const float gs = 2.f * g[b] / (float)(N * P.k);
+  // chunked, every warp takes kRowsPerWarp turns (the stages synchronise the
+  // block); a point past N, the same for the whole warp, does no work
   for (int rr = warp; rr < kWarps * kRowsPerWarp; rr += kWarps) {
     const int m = blockIdx.x * (kWarps * kRowsPerWarp) + rr;
-    if (m >= N) break;
-    const float xm = sx[m], ym = sy[m], zm = sz[m], tm = st[m], fm = sf[m];
+    const bool valid = m < N;
+    if (!kChunked && !valid) break;
+    float xm = 0.f, ym = 0.f, zm = 0.f, tm = 0.f, fm = 0.f;
+    if (!kChunked) {
+      xm = sx[m], ym = sy[m], zm = sz[m], tm = st[m], fm = sf[m];
+    } else if (valid) {
+      point_of(pb, m, xm, ym, zm);
+      tm = thr[(long)b * N + m];
+      fm = frac[(long)b * N + m];
+    }
     float ax = 0.f, ay = 0.f, az = 0.f;
-    int n = 0;  // pairs in the list
+    int n = 0;  // pairs in the list (indices into the chunk)
     auto drain = [&]() {
       for (int q = lane; q < n; q += 32) {
         const int j = list[q];
@@ -399,26 +465,38 @@ __global__ void __launch_bounds__(kWarps * 32)
       __syncwarp();
       n = 0;
     };
-    for (int j0 = 0; j0 < N; j0 += 32 * kStep) {
-      bool cand[kStep];
+    // the staged partners j0 .. j0 + jn into the list, then drained
+    auto scan = [&](int j0, int jn) {
+      for (int c0 = 0; c0 < jn; c0 += 32 * kStep) {
+        bool cand[kStep];
 #pragma unroll
-      for (int u = 0; u < kStep; ++u) {
-        const int j = j0 + 32 * u + lane;
-        const float v = d2_of(xm, ym, zm, sx[j], sy[j], sz[j]);
-        cand[u] = (v <= fmaxf(tm, st[j])) & (j != m) & (j < N);
-      }
+        for (int u = 0; u < kStep; ++u) {
+          const int j = c0 + 32 * u + lane;
+          const float v = d2_of(xm, ym, zm, sx[j], sy[j], sz[j]);
+          cand[u] = (v <= fmaxf(tm, st[j])) & (j0 + j != m) & (j < jn);
+        }
 #pragma unroll
-      for (int u = 0; u < kStep; ++u) {
-        const unsigned bal = __ballot_sync(kFull, cand[u]);
-        if (bal) {
-          if (n + __popc(bal) > kList) drain();
-          if (cand[u]) list[n + __popc(bal & lanes_below(lane))] = j0 + 32 * u + lane;
-          n += __popc(bal);
-          __syncwarp();
+        for (int u = 0; u < kStep; ++u) {
+          const unsigned bal = __ballot_sync(kFull, cand[u]);
+          if (bal) {
+            if (n + __popc(bal) > kList) drain();
+            if (cand[u]) list[n + __popc(bal & lanes_below(lane))] = c0 + 32 * u + lane;
+            n += __popc(bal);
+            __syncwarp();
+          }
         }
       }
+      drain();
+    };
+    if (!kChunked) {
+      scan(0, N);
+    } else {
+      for (int j0 = 0; j0 < N; j0 += np) {
+        stage(j0);
+        if (valid) scan(j0, min(np, N - j0));
+      }
     }
-    drain();
+    if (!valid) continue;
     ax = ifdef::warp_sum(ax);
     ay = ifdef::warp_sum(ay);
     az = ifdef::warp_sum(az);
@@ -432,35 +510,62 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // B2: thresholds thread-per-row, then each warp writes whole rows of the
-// int8 mask with consecutive lanes on consecutive columns
+// int8 mask with consecutive lanes on consecutive columns. Both passes walk
+// the cloud in chunks of kMaskStage points (staged once where it fits); the
+// block's own points sit apart.
 template <int K, typename T>
 __global__ void rep_mask(const T* __restrict__ pts, Params P,
                          int8_t* __restrict__ mask) {
-  extern __shared__ float s[];
-  float* ts = s + 3 * P.N;  // dynamic too: with the cloud over 48 KB at MAX_N
-  int b = blockIdx.y;
-  load_cloud(pts, b, P.N, s);
-  int r0 = blockIdx.x * kRows;
-  int i = r0 + threadIdx.x;
-  if (i < P.N) ts[threadIdx.x] = row_threshold<K>(s, P.N, i);
+  extern __shared__ float s[];  // a chunk, point by point (x, y, z)
+  __shared__ float ts[kRows];
+  __shared__ float rp[3 * kRows];
+  const int N = P.N, b = blockIdx.y, r0 = blockIdx.x * kRows;
+  const int np = min(N, kMaskStage);
+  const bool one = N <= np;
+  const T* pb = pts + (long)b * N * 3;
+  auto stage = [&](int j0) {
+    __syncthreads();  // the previous chunk has been read
+    for (int t = threadIdx.x; t < 3 * min(np, N - j0); t += kRows)
+      s[t] = ifdef::load_f(pb, 3L * j0 + t);
+    __syncthreads();
+  };
+  for (int t = threadIdx.x; t < 3 * kRows; t += kRows)
+    rp[t] = 3 * r0 + t < 3 * N ? ifdef::load_f(pb, 3L * r0 + t) : 0.f;
   __syncthreads();
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int rr = warp; rr < kRows && r0 + rr < P.N; rr += kRows / 32) {
-    int row = r0 + rr;
-    float t = ts[rr];
-    int8_t* out = mask + ((long)b * P.N + row) * P.N;
-    for (int j = lane; j < P.N; j += 32)
-      out[j] = (j != row && dist2(s, row, j) <= t) ? 1 : 0;
+  // the k-th smallest d2 of row i (self excluded), with multiplicity
+  const int i = r0 + threadIdx.x;
+  const float xi = rp[3 * threadIdx.x], yi = rp[3 * threadIdx.x + 1],
+              zi = rp[3 * threadIdx.x + 2];
+  float top[K];
+#pragma unroll
+  for (int t = 0; t < K; ++t) top[t] = kInf;
+  for (int j0 = 0; j0 < N; j0 += np) {
+    stage(j0);
+    const int jn = min(np, N - j0);
+    if (i < N)
+      for (int jj = 0; jj < jn; ++jj) {
+        if (j0 + jj == i) continue;
+        float v = d2_of(xi, yi, zi, s[3 * jj], s[3 * jj + 1], s[3 * jj + 2]);
+        if (v < top[K - 1]) top_insert(top, v);
+      }
   }
-}
-
-// point j of a cloud in global memory, in f32
-template <typename T>
-__device__ __forceinline__ void point_of(const T* p, int j, float& x, float& y,
-                                         float& z) {
-  x = ifdef::load_f(p, 3L * j);
-  y = ifdef::load_f(p, 3L * j + 1);
-  z = ifdef::load_f(p, 3L * j + 2);
+  if (i < N) ts[threadIdx.x] = top[K - 1];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j0 = 0; j0 < N; j0 += np) {
+    if (!one) stage(j0);
+    const int jn = min(np, N - j0);
+    for (int rr = warp; rr < kRows && r0 + rr < N; rr += kRows / 32) {
+      const int row = r0 + rr;
+      const float t = ts[rr], xr = rp[3 * rr], yr = rp[3 * rr + 1],
+                  zr = rp[3 * rr + 2];
+      int8_t* out = mask + ((long)b * N + row) * N + j0;
+      for (int jj = lane; jj < jn; jj += 32)
+        out[jj] = (j0 + jj != row &&
+                   d2_of(xr, yr, zr, s[3 * jj], s[3 * jj + 1], s[3 * jj + 2]) <= t)
+                      ? 1 : 0;
+    }
+  }
 }
 
 // The nonzero bytes of a mask word (0x80 in each), lowest first by __ffs
@@ -738,8 +843,6 @@ inline dim3 row_grid(const Params& P, int rows) {
   return dim3((unsigned)((P.N + rows - 1) / rows), (unsigned)P.B);
 }
 
-inline size_t cloud_bytes(const Params& P) { return sizeof(float) * 3 * P.N; }
-
 // bytes of a staged row in B3's backward: the chunk rounded up to 16-byte
 // words, plus 16 so that rows start in other banks
 inline int slab_stride(int N) { return 16 * ((min(N, kChunk) + 15) / 16) + 16; }
@@ -763,10 +866,10 @@ int fwd_impl(const void* pts, Params P, float* loss, float* thr, float* frac,
     IFDEF_LAUNCH(rows, grid, kWarps * 32,
                  sizeof(float) * (3 * kRegN + kWarps * kList), s,
                  static_cast<const T*>(pts), P, row_loss, thr, frac);
-  } else {
-    auto rows = rep_fwd<K, 0, T>;
-    IFDEF_LAUNCH(rows, grid, kWarps * 32, cloud_bytes(P), s,
-                 static_cast<const T*>(pts), P, row_loss, thr, frac);
+  } else {  // chunks of kRegN points in static shared memory
+    auto rows = rep_fwd_chunked<K, T>;
+    IFDEF_LAUNCH(rows, grid, kWarps * 32, 0, s, static_cast<const T*>(pts), P,
+                 row_loss, thr, frac);
   }
   IFDEF_LAUNCH(rows_to_loss, dim3(P.B), kReduce, 0, s, row_loss, P.N, P.k,
                loss);
@@ -776,10 +879,21 @@ int fwd_impl(const void* pts, Params P, float* loss, float* thr, float* frac,
 template <typename T>
 int bwd_impl(const void* pts, Params P, const float* thr, const float* frac,
              const float* g, void* grad, cudaStream_t s) {
-  IFDEF_LAUNCH(rep_bwd<T>, row_grid(P, kWarps * kRowsPerWarp), kWarps * 32,
-               sizeof(float) * 5 * bwd_points(P.N) + sizeof(int) * kWarps * kList, s,
-               static_cast<const T*>(pts), P, thr, frac, g,
-               static_cast<T*>(grad));
+  const size_t list = sizeof(int) * kWarps * kList;
+  const int np = bwd_points(P.N);
+  if (np <= kStage) {  // the whole cloud staged once
+    auto kern = rep_bwd<false, T>;
+    IFDEF_LAUNCH(kern, row_grid(P, kWarps * kRowsPerWarp), kWarps * 32,
+                 sizeof(float) * 5 * np + list, s,
+                 static_cast<const T*>(pts), P, thr, frac, g,
+                 static_cast<T*>(grad));
+  } else {
+    auto kern = rep_bwd<true, T>;
+    IFDEF_LAUNCH(kern, row_grid(P, kWarps * kRowsPerWarp), kWarps * 32,
+                 sizeof(float) * 5 * kStage + list, s,
+                 static_cast<const T*>(pts), P, thr, frac, g,
+                 static_cast<T*>(grad));
+  }
   return 0;
 }
 
@@ -787,7 +901,7 @@ template <int K, typename T>
 int mask_impl(const void* pts, Params P, int8_t* mask, cudaStream_t s) {
   auto kern = rep_mask<K, T>;
   IFDEF_LAUNCH(kern, row_grid(P, kRows), kRows,
-               cloud_bytes(P) + sizeof(float) * kRows, s,
+               sizeof(float) * 3 * std::min(P.N, kMaskStage), s,
                static_cast<const T*>(pts), P, mask);
   return 0;
 }

@@ -44,6 +44,7 @@ from if_defense_tpu_torch.defense.sor import sor_defense
 from if_defense_tpu_torch.ops import (
     cached_bilinear_sample,
     index_points,
+    normalize_coordinate,
     normalize_unit_cube,
     normalize_unit_sphere,
     plane_corner_features,
@@ -240,8 +241,6 @@ def make_opt_defense(
 
 def _convonet_corner_fns(padding: float):
     """(corner_cache_fn, decode_cached_fn) for the interp_refresh path."""
-    from if_defense_tpu_torch.implicit.convonet import normalize_coordinate
-
     def corner_cache(model, p, c):
         return {pl: plane_corner_features(
                     plane, normalize_coordinate(p, pl, padding))

@@ -56,8 +56,8 @@ def repulsion_loss(pc: torch.Tensor, nn_size: int = 5, radius: float = 0.07,
 def pairwise_d2(pc: torch.Tensor) -> torch.Tensor:
     """Exact f32 `[B, N, N]` squared distances from coordinate differences,
     summed x, y, z in that order (the kernels' bits); self -> 1e30."""
-    p = pc.float()
-    dx, dy, dz = (p[:, :, None, :] - p[:, None, :, :]).unbind(-1)
+    dx, dy, dz = (c[:, :, None] - c[:, None, :]
+                  for c in pc.float().unbind(-1))
     d2 = (dx * dx + dy * dy) + dz * dz
     eye = torch.eye(pc.shape[1], dtype=torch.bool, device=pc.device)
     return d2.masked_fill(eye, _FAR)

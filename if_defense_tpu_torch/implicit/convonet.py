@@ -18,22 +18,13 @@ from torch.nn import functional as F
 from if_defense_tpu_torch.implicit.layers import ResnetBlockFC
 from if_defense_tpu_torch.implicit.unet2d import UNet2D
 from if_defense_tpu_torch.ops import (
-    plane_sample,
+    normalize_coordinate,
+    plane_features,
     pooled_max_by_cell,
     scatter_mean_2d,
 )
 
 PLANES = ("xz", "xy", "yz")
-_PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
-
-
-def normalize_coordinate(p: torch.Tensor, plane: str,
-                         padding: float = 0.1) -> torch.Tensor:
-    """Project to a plane and normalise to [0, 1) (`src/common.py:235-258`)."""
-    a, b = _PLANE_AXES[plane]
-    xy = torch.stack([p[..., a], p[..., b]], dim=-1)
-    xy = xy / (1 + padding + 1e-5) + 0.5
-    return xy.clamp(0.0, 1.0 - 1e-5)
 
 
 def coordinate2index(xy: torch.Tensor, reso: int) -> torch.Tensor:
@@ -97,11 +88,13 @@ class LocalDecoder(nn.Module):
 
     def sample_features(self, p: torch.Tensor,
                         c_planes: dict[str, torch.Tensor]) -> torch.Tensor:
-        # p: [B, T, 3]; c_planes: {plane: [B, R, R, c_dim]} -> [B, T, c_dim]
-        c = 0
-        for pl, plane in c_planes.items():
-            c = c + plane_sample(plane, normalize_coordinate(p, pl, self.padding))
-        return c
+        # p: [B, T, 3]; c_planes: {plane: [B, R, R, c_dim]} -> [B, T, c_dim];
+        # kernel B4 (one launch for every plane) for CUDA tensors
+        if p.is_cuda:
+            from if_defense_tpu_torch.ops.cuda_interp import plane_features_cuda
+
+            return plane_features_cuda(p, c_planes, self.padding)
+        return plane_features(p, c_planes, self.padding)
 
     def head(self, p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         # p: [B, T, 3]; c: [B, T, c_dim] sampled features -> logits [B, T]

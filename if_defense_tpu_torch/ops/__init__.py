@@ -8,8 +8,9 @@ on first use, on a machine with `nvcc` and a card.
 from if_defense_tpu_torch.ops.interp import (
     bilinear_plane_sample,
     cached_bilinear_sample,
+    normalize_coordinate,
     plane_corner_features,
-    plane_sample,
+    plane_features,
 )
 from if_defense_tpu_torch.ops.normalize import (
     normalize_unit_cube,
@@ -31,8 +32,9 @@ from if_defense_tpu_torch.ops.scatter import pooled_max_by_cell, scatter_mean_2d
 __all__ = [
     "bilinear_plane_sample",
     "cached_bilinear_sample",
+    "normalize_coordinate",
     "plane_corner_features",
-    "plane_sample",
+    "plane_features",
     "normalize_unit_cube",
     "normalize_unit_sphere",
     "farthest_point_sample",

@@ -1,100 +1,145 @@
-"""Wrapper of the CUDA bilinear plane-sampling kernel (B4, `csrc/interp.cu`).
+"""Wrapper of the CUDA plane-feature kernel (B4, `csrc/interp.cu`).
 
 Replaces `fused_bilinear_plane_sample` of
-`if_defense_tpu/ops/pallas_interp.py:233`. Takes tensors on a CUDA device
-only; the plain PyTorch version is `ops.interp.bilinear_plane_sample`, and
-`ops.interp.plane_sample` chooses between the two by the tensor's device.
+`if_defense_tpu/ops/pallas_interp.py:233` as the ConvONet decoder uses it:
+the features of 1-3 channel-last planes at the points p, each plane's
+projection and normalisation (`normalize_coordinate`) and the sum over the
+planes included, in one launch forward and one per gradient asked for.
+Takes tensors on a CUDA device only; the plain PyTorch version is
+`ops.interp.plane_features`, and `LocalDecoder.sample_features` chooses
+between the two by the tensor's device.
 
-The backward launches only what autograd asks for: the uv gradient (the
-defense, planes frozen) and the plane gradient (implicit-network training,
-queries are data). The plane gradient adds with f32 atomics, so its last
-bits vary from run to run (`csrc/interp.cu`).
+The backward launches only what autograd asks for: the gradient to p (the
+defense, planes frozen) and the planes' gradients (implicit-network
+training, queries are data). Both are deterministic: two launches on one
+input give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from if_defense_tpu_torch.ops import _build
+from if_defense_tpu_torch.ops.interp import PLANE_AXES
 
-# kernel launches, counted where they happen: the forward and the uv
-# gradient under "plane_sample", the plane gradient under its own name
-launches = {"plane_sample": 0, "plane_sample_dplane": 0}
+MAX_PLANES = 3
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel launches, counted where they happen
+launches = {"plane_features": 0, "plane_features_dp": 0,
+            "plane_features_dplane": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_HEAD = [_P, _I, _PP, _PI, _I, _I, _I, _I, _I, _I, _F, _F]
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-class _PlaneSample(torch.autograd.Function):
+def _head(p, planes, axes, inv_scale, hi) -> list:
+    """The arguments the three C entry points share."""
+    B, Q, _ = p.shape
+    _, H, W, C = planes[0].shape
+    ptrs = (ctypes.c_void_p * MAX_PLANES)(*[t.data_ptr() for t in planes])
+    ax = (ctypes.c_int * (2 * MAX_PLANES))(*axes)
+    return [p.data_ptr(), int(p.dtype == torch.bfloat16), ptrs, ax,
+            len(planes), B, Q, H, W, C, inv_scale, hi]
+
+
+class _PlaneFeatures(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, plane, uv):
-        B, H, W, C = plane.shape
-        Q = uv.shape[1]
-        out = torch.empty((B, Q, C), dtype=plane.dtype, device=plane.device)
-        fn = _build.bind("interp", "ifdef_plane_sample_fwd",
-                         [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P])
-        err = fn(plane.data_ptr(), int(plane.dtype == torch.bfloat16),
-                 uv.data_ptr(), B, H, W, C, Q, out.data_ptr(), _stream(plane))
-        launches["plane_sample"] += 1
-        _build.check("interp", err, "plane_sample forward")
-        ctx.save_for_backward(plane, uv)
+    def forward(ctx, p, axes, inv_scale, hi, *planes):
+        B, Q, _ = p.shape
+        C = planes[0].shape[-1]
+        out = torch.empty((B, Q, C), dtype=planes[0].dtype, device=p.device)
+        fn = _build.bind("interp", "ifdef_plane_features_fwd",
+                         _HEAD + [_P, _P])
+        err = fn(*_head(p, planes, axes, inv_scale, hi), out.data_ptr(),
+                 _stream(p))
+        launches["plane_features"] += 1
+        _build.check("interp", err, "plane_features forward")
+        ctx.save_for_backward(p, *planes)
+        ctx.params = (axes, inv_scale, hi)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        plane, uv = ctx.saved_tensors
-        need_plane, need_uv = ctx.needs_input_grad
-        B, H, W, C = plane.shape
-        Q = uv.shape[1]
-        is_bf16 = int(plane.dtype == torch.bfloat16)
-        g = g.to(plane.dtype).contiguous()
-        dplane = duv = None
-        if need_uv:
-            duv = torch.empty_like(uv)
-            fn = _build.bind("interp", "ifdef_plane_sample_bwd",
-                             [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P])
-            err = fn(plane.data_ptr(), is_bf16, uv.data_ptr(), g.data_ptr(),
-                     B, H, W, C, Q, duv.data_ptr(), _stream(plane))
-            launches["plane_sample"] += 1
-            _build.check("interp", err, "plane_sample uv gradient")
-        if need_plane:
-            # the kernel adds into a zero-filled f32 buffer; bf16 is cast once
-            acc = torch.zeros((B, H, W, C), dtype=torch.float32,
-                              device=plane.device)
-            fn = _build.bind("interp", "ifdef_plane_sample_bwd_plane",
-                             [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
-            err = fn(uv.data_ptr(), g.data_ptr(), is_bf16, B, H, W, C, Q,
-                     acc.data_ptr(), _stream(plane))
-            launches["plane_sample_dplane"] += 1
-            _build.check("interp", err, "plane_sample plane gradient")
-            dplane = acc.to(plane.dtype)
-        return dplane, duv
+        p, *planes = ctx.saved_tensors
+        axes, inv_scale, hi = ctx.params
+        need_p, need_planes = ctx.needs_input_grad[0], ctx.needs_input_grad[4:]
+        g = g.to(planes[0].dtype).contiguous()
+        head = _head(p, planes, axes, inv_scale, hi)
+        dp = None
+        dplanes = [None] * len(planes)
+        if need_p:
+            dp = torch.empty_like(p)
+            fn = _build.bind("interp", "ifdef_plane_features_dp",
+                             _HEAD + [_P, _P, _P])
+            err = fn(*head, g.data_ptr(), dp.data_ptr(), _stream(p))
+            launches["plane_features_dp"] += 1
+            _build.check("interp", err, "plane_features gradient to p")
+        if any(need_planes):
+            # every cell of a plane asked for is written: no fill
+            dplanes = [torch.empty_like(pl) if need else None
+                       for pl, need in zip(planes, need_planes)]
+            ptrs = (ctypes.c_void_p * MAX_PLANES)(
+                *[0 if d is None else d.data_ptr() for d in dplanes])
+            fn = _build.bind("interp", "ifdef_plane_features_dplane",
+                             _HEAD + [_P, _PP, _P])
+            err = fn(*head, g.data_ptr(), ptrs, _stream(p))
+            launches["plane_features_dplane"] += 1
+            _build.check("interp", err, "plane_features plane gradients")
+        return (dp, None, None, None, *dplanes)
 
 
-def plane_sample_cuda(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Bilinear sampling of `[B, H, W, C]` planes (f32 or bf16) at
-    `[B, Q, 2]` uv in [0, 1] (x -> W, y -> H, align_corners=True, border
-    clamp) -> `[B, Q, C]` in the plane's type; math in f32.
+def _check(p: torch.Tensor, planes: list) -> None:
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"1 to {MAX_PLANES} planes, not {len(planes)}")
+    if not (p.is_cuda and all(t.device == p.device for t in planes)):
+        raise ValueError("plane_features_cuda takes CUDA tensors on one device")
+    dtype = p.dtype
+    if dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != dtype for t in planes):
+        raise TypeError("p and the planes must all be float32 or all "
+                        f"bfloat16, not {dtype} / {[t.dtype for t in planes]}")
+    shape = planes[0].shape
+    if p.dim() != 3 or p.shape[-1] != 3 or len(shape) != 4 \
+            or shape[0] != p.shape[0] or any(t.shape != shape for t in planes):
+        raise ValueError(
+            f"shapes {tuple(p.shape)} / {[tuple(t.shape) for t in planes]} "
+            "are not [B, Q, 3] / planes of one [B, H, W, C] shape")
+    if not (p.is_contiguous() and all(t.is_contiguous() for t in planes)):
+        raise ValueError("p and the planes must be contiguous")
+    C = shape[3]
+    vec = 16 // planes[0].element_size()
+    if C % vec or any(t.data_ptr() % 16 for t in planes):
+        raise ValueError(f"the planes' channels ({C}) must be a multiple of "
+                         f"{vec} and their storage 16-byte aligned")
 
-    Gradients flow to uv (zero where the clamp holds it) and to the plane
-    (in the plane's type, summed in f32 by atomics, so not bit-for-bit
-    repeatable).
+
+def plane_features_cuda(p: torch.Tensor, planes: dict[str, torch.Tensor],
+                        padding: float = 0.1) -> torch.Tensor:
+    """Sum over the planes, in the dict's order, of the bilinear samples of
+    `[B, H, W, C]` planes (keys from `PLANE_AXES`) at the points `p`
+    `[B, Q, 3]` projected and normalised as `normalize_coordinate` does ->
+    `[B, Q, C]`; p and the planes all f32 or all bf16, math in f32.
+
+    Gradients flow to p (zero where the normalisation's clamp holds a
+    coordinate) and to the planes (summed in f32).
     """
-    if not (plane.is_cuda and uv.is_cuda and plane.device == uv.device):
-        raise ValueError("plane_sample_cuda takes CUDA tensors on one device")
-    if plane.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"plane must be float32 or bfloat16, not {plane.dtype}")
-    if not uv.dtype.is_floating_point:
-        raise TypeError(f"uv must be floating point, not {uv.dtype}")
-    if plane.dim() != 4 or uv.dim() != 3 or uv.shape[-1] != 2 \
-            or uv.shape[0] != plane.shape[0]:
-        raise ValueError(f"shapes {tuple(plane.shape)} / {tuple(uv.shape)} "
-                         "are not [B, H, W, C] / [B, Q, 2]")
-    if not (plane.is_contiguous() and uv.is_contiguous()):
-        raise ValueError("plane and uv must be contiguous")
-    return _PlaneSample.apply(plane, uv.float())
+    names = list(planes)
+    if any(n not in PLANE_AXES for n in names):
+        raise ValueError(f"planes {names} are not among {list(PLANE_AXES)}")
+    tensors = [planes[n] for n in names]
+    _check(p, tensors)
+    axes = [a for n in names for a in PLANE_AXES[n]]
+    axes += [0] * (2 * MAX_PLANES - len(axes))
+    # torch's CUDA division by a Python scalar multiplies by the scalar's
+    # reciprocal, taken in double and rounded to f32 once
+    inv_scale = float(np.float32(1.0 / (1 + padding + 1e-5)))
+    hi = float(np.float32(1.0 - 1e-5))
+    return _PlaneFeatures.apply(p, axes, inv_scale, hi, *tensors)

@@ -9,7 +9,10 @@ and the `*_auto` dispatchers there choose by the tensor's device.
 
 Points are f32 or bf16 (math in f32), losses f32 `[B]`, gradients in the
 points' type. The forward of B1 keeps each row's threshold and tie weight
-for its backward, so the backward does no selection.
+for its backward, so the backward does no selection. Any N: the kernels
+walk the partners in chunks staged in shared memory; only the `[B, N, N]`
+int8 mask of B2/B3 grows with N^2, and `torch.empty` reports where it does
+not fit.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ import torch
 
 from if_defense_tpu_torch.ops import _build
 
-MAX_N = 4096     # the shared-memory budget of one cloud (and the JAX gate)
 MAX_K = 8        # the kernels keep a sorted top-k in registers
 
 # kernel launches, counted where they happen (forward and backward)
@@ -44,8 +46,6 @@ def _check_points(pc: torch.Tensor, k: int) -> None:
     if not pc.is_contiguous():
         raise ValueError("points must be contiguous")
     n = pc.shape[1]
-    if n > MAX_N:
-        raise ValueError(f"N={n} exceeds the kernels' limit of {MAX_N}")
     if not 1 <= k <= MAX_K or k >= n:
         raise ValueError(f"k={k} must be in [1, {MAX_K}] and below N={n}")
 

@@ -1,16 +1,30 @@
-"""Bilinear feature-plane sampling (port of `if_defense_tpu/ops/interp.py`).
+"""Bilinear feature-plane sampling (port of `if_defense_tpu/ops/interp.py`
+and of `normalize_coordinate` in `if_defense_tpu/implicit/convonet.py`).
 
 `F.grid_sample(..., padding_mode='border', align_corners=True)` as the
-ConvONet decoder uses it, on channel-last planes. `bilinear_plane_sample`
-is the plain PyTorch version of kernel B4 (`ops/cuda_interp.py`);
-`plane_sample` launches the kernel for CUDA tensors and takes the plain
-version for CPU tensors. The corner cache of the fast mode
-(`plane_corner_features` / `cached_bilinear_sample`) is plain PyTorch.
+ConvONet decoder uses it, on channel-last planes. `plane_features` (each
+plane's `normalize_coordinate`, `bilinear_plane_sample`, the sum over the
+planes) is the plain PyTorch version of kernel B4
+(`ops/cuda_interp.plane_features_cuda`); `LocalDecoder.sample_features`
+launches the kernel for CUDA tensors and takes the plain version for CPU
+tensors. The corner cache of the fast mode (`plane_corner_features` /
+`cached_bilinear_sample`) is plain PyTorch.
 """
 
 from __future__ import annotations
 
 import torch
+
+PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
+
+
+def normalize_coordinate(p: torch.Tensor, plane: str,
+                         padding: float = 0.1) -> torch.Tensor:
+    """Project to a plane and normalise to [0, 1) (`src/common.py:235-258`)."""
+    a, b = PLANE_AXES[plane]
+    xy = torch.stack([p[..., a], p[..., b]], dim=-1)
+    xy = xy / (1 + padding + 1e-5) + 0.5
+    return xy.clamp(0.0, 1.0 - 1e-5)
 
 
 def _corners(plane: torch.Tensor, uv: torch.Tensor):
@@ -55,14 +69,23 @@ def bilinear_plane_sample(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor
     return col0 * (1 - wx) + col1 * wx
 
 
-def plane_sample(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Bilinear plane sampling: kernel B4 for CUDA tensors, the plain
-    version for CPU tensors."""
-    if plane.is_cuda:
-        from if_defense_tpu_torch.ops.cuda_interp import plane_sample_cuda
+def plane_features(p: torch.Tensor, planes: dict[str, torch.Tensor],
+                   padding: float = 0.1) -> torch.Tensor:
+    """Plain version of kernel B4: the sum over the planes, in the dict's
+    order, of `bilinear_plane_sample(plane, normalize_coordinate(p, name,
+    padding))`.
 
-        return plane_sample_cuda(plane, uv)
-    return bilinear_plane_sample(plane, uv)
+    Args:
+        p: [B, Q, 3] points.
+        planes: {name in PLANE_AXES: [B, H, W, C]}.
+    Returns:
+        [B, Q, C]
+    """
+    c = 0
+    for name, plane in planes.items():
+        c = c + bilinear_plane_sample(plane,
+                                      normalize_coordinate(p, name, padding))
+    return c
 
 
 def plane_corner_features(plane: torch.Tensor, uv: torch.Tensor):

@@ -8,10 +8,12 @@ JAX, so it also runs on a machine without it:
 Tolerances: losses rtol 1e-5 (atol 1e-9); gradients rtol 1e-4 in f32 and
 2^-7 (one bf16 rounding) in bf16, with atol 1e-5 of the largest entry
 (pair terms summed in other orders); the B2 mask bit-equal; B1 and B3 also
-bit-identical from one launch to the next; B4 output atol
-1e-5 and uv gradient rtol 1e-5 in f32, its plane gradient atol 1e-5 of the
-largest entry (f32 atomics add in no fixed order) and rtol 2^-7 for bf16
-planes; B5 (FPS) and B6 (ball query)
+bit-identical from one launch to the next; B4 (the fused plane features)
+against the plain version on f32 copies, cast once (the kernel's math is
+f32): output bit-equal in f32, gradients to p rtol 1e-4 and
+to the planes atol 1e-5 of the largest entry (sums in other orders), rtol
+2^-7 in bf16, and bit-identical from one launch to the next; B5 (FPS) and
+B6 (ball query)
 indices bit-equal at PU-Net's four set-abstraction shapes, masked and not.
 """
 
@@ -24,7 +26,7 @@ from if_defense_tpu_torch.defense.repulsion import (
     repulsion_loss_threshold,
     repulsion_mask,
 )
-from if_defense_tpu_torch.ops.interp import bilinear_plane_sample
+from if_defense_tpu_torch.ops.interp import plane_features
 from if_defense_tpu_torch.ops.pointops import (
     farthest_point_sample_plain,
     query_ball_point_plain,
@@ -47,16 +49,17 @@ def cuda():
 def _points(seed, n=256):
     pc = np.random.default_rng(seed).uniform(-0.4, 0.4, (2, n, 3))
     pc = pc.astype(np.float32)
-    pc[:, n // 2:] = pc[:, : n // 2]          # resampling repeats points
+    pc[:, n - n // 2:] = pc[:, : n // 2]      # resampling repeats points
     return pc
 
 
 def _lattice(n, seed):
-    """2 clouds of the first n nodes of a 16 x 16 x 16 grid at spacing 1/16
-    (every d2 exact, so rows tie at their k-th smallest), each in its own
-    random order."""
+    """2 clouds of the first n nodes of an s x s x s grid at spacing 1/16
+    (every d2 exact, so rows tie at their k-th smallest), s = 16 up to 4096
+    points, each in its own random order."""
     rng = np.random.default_rng(seed)
-    axes = np.arange(16) - 8
+    side = max(16, int(np.ceil(n ** (1 / 3))))
+    axes = np.arange(side) - side // 2
     grid = np.stack(np.meshgrid(axes, axes, axes, indexing="ij"),
                     -1).reshape(-1, 3)[:n] / 16
     return np.stack([grid[rng.permutation(n)] for _ in range(2)]).astype(
@@ -96,13 +99,15 @@ def test_cuda_repulsion_kernels_match_plain(cuda, dtype):
     _grad_close(gk, gp, rtol)
 
 
-@pytest.mark.parametrize("n", [300, 1000, 1024, 4096])
+@pytest.mark.parametrize("n", [300, 1000, 1024, 4096, 4097, 6000])
 @pytest.mark.parametrize("cloud", ["lattice", "duplicates", "cluster"])
 def test_cuda_repulsion_kernels_on_ties(cuda, cloud, n):
     """B1, B2 and B3 against their plain versions where rows tie at their
     threshold, for k in {1, 5, 8}, f32 and bf16; N not a multiple of 32 or
-    of B3's 16-byte words (300, 1000), and 4096 = MAX_N, where B1's forward
-    computes its distances twice and B3's backward stages j in chunks. In
+    of B3's 16-byte words (300, 1000), and above 1024, where B1's forward
+    computes its distances twice and the kernels stage j in chunks (4096,
+    and 4097 and 6000: past the 4096 points the kernels once refused, and
+    past one chunk of 4096 in B1's backward and two of 2048 in B2). In
     "cluster" 100 points coincide: their rows tie 99 ways at 0, more than a
     warp's list of weighted pairs holds. Two launches on one input give
     bit-identical losses and gradients."""
@@ -135,65 +140,113 @@ def test_cuda_repulsion_kernels_on_ties(cuda, cloud, n):
                 _grad_close(gk, gp, rtol)
 
 
-def test_cuda_plane_sample_matches_plain(cuda):
-    from if_defense_tpu_torch.ops.cuda_interp import plane_sample_cuda
+PLANE_NAMES = ("xz", "xy", "yz")
 
-    rng = np.random.default_rng(7)
+
+def _plane_inputs(cuda, seed, n_planes, dtype, b=2, q=1000, res=64, c=32):
+    """Planes N(0, 1), p from [-0.6, 0.6]^3 (the normalisation clamps about
+    one coordinate in ten), the output's cotangent N(0, 1); p and the
+    planes in `dtype`."""
+    rng = np.random.default_rng(seed)
 
     def dev(a):
-        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
 
-    plane = dev(rng.normal(size=(2, 64, 64, 32)))
-    uv = dev(rng.uniform(0, 1, (2, 1024, 2)))
-    g = dev(rng.normal(size=(2, 1024, 32)))
-    outs = []
-    for fn in (plane_sample_cuda, bilinear_plane_sample):
-        u = uv.clone().requires_grad_(True)
-        out = fn(plane, u)
-        (du,) = torch.autograd.grad((out * g).sum(), u)
-        outs.append((out.detach(), du))
-    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=1e-5)
-    _grad_close(outs[0][1], outs[1][1], 1e-5)
+    planes = {n: dev(rng.normal(size=(b, res, res, c)))
+              for n in PLANE_NAMES[:n_planes]}
+    return (dev(rng.uniform(-0.6, 0.6, (b, q, 3))), planes,
+            dev(rng.normal(size=(b, q, c))))
+
+
+def _features(fn, p, planes, g, want_p, want_planes):
+    """fn's output and the gradients asked for, fed the cotangent g."""
+    p = p.clone().requires_grad_(want_p)
+    planes = {n: t.clone().requires_grad_(want_planes)
+              for n, t in planes.items()}
+    out = fn(p, planes)
+    wrt = ([p] if want_p else []) + (list(planes.values()) if want_planes
+                                     else [])
+    grads = torch.autograd.grad(out, wrt, g.to(out.dtype)) if wrt else ()
+    return [out.detach()] + [x.detach() for x in grads]
+
+
+def _plain_f32(p, planes):
+    """The kernel's semantics: the plain version in f32, cast once to the
+    planes' type (the plain version in bf16 normalises in bf16, whose
+    rounding moves a coordinate by up to (R - 1) 2^-9 cells)."""
+    return plane_features(p.float(), {n: t.float() for n, t in planes.items()},
+                          0.1).to(next(iter(planes.values())).dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_plane_gradient_matches_plain(cuda, dtype):
-    """The plane gradient alone (training) and with the uv gradient, uv
-    from [-0.1, 1.1] so that clamped queries add to the border cells."""
-    from if_defense_tpu_torch.ops.cuda_interp import launches, plane_sample_cuda
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+def test_cuda_plane_sample_matches_plain(cuda, n_planes, dtype):
+    """Fused B4 (`plane_features_cuda`) forward and gradient to p against
+    the plain version: forward bit-equal in f32 (the kernel rounds as the
+    plain composition does on the card), dp rtol 1e-4 with atol
+    1e-5 of the largest entry (channel sums in other orders); rtol 2^-7 in
+    bf16 (one rounding of the f32 result). One launch forward, one for dp;
+    two launches give the same bits."""
+    from if_defense_tpu_torch.ops.cuda_interp import launches, plane_features_cuda
 
-    rng = np.random.default_rng(8)
-    plane = torch.from_numpy(rng.normal(size=(2, 64, 64, 32)).astype(
-        np.float32)).to(cuda, dtype)
-    uv = torch.from_numpy(rng.uniform(-0.1, 1.1, (2, 1024, 2)).astype(
-        np.float32)).to(cuda)
-    g = torch.from_numpy(rng.normal(size=(2, 1024, 32)).astype(
-        np.float32)).to(cuda)
+    p, planes, g = _plane_inputs(cuda, n_planes, n_planes, dtype)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
+    before = dict(launches)
+    ok, dk = _features(plane_features_cuda, p, planes, g, True, False)
+    assert launches["plane_features"] - before["plane_features"] == 1
+    assert launches["plane_features_dp"] - before["plane_features_dp"] == 1
+    assert launches["plane_features_dplane"] == before["plane_features_dplane"]
+    assert ok.dtype == dtype and dk.dtype == dtype
+    op, dp = _features(_plain_f32, p, planes, g, True, False)
+    if dtype == torch.float32:
+        assert torch.equal(ok, op)
+    else:
+        _grad_close(ok.cpu(), op.cpu(), rtol)
+    _grad_close(dk.cpu(), dp.cpu(), rtol)
+    # zero exactly where the clamp holds a coordinate in every plane
+    assert torch.equal(dk == 0, dp == 0) and bool((dp == 0).any())
+    ok2, dk2 = _features(plane_features_cuda, p, planes, g, True, False)
+    assert torch.equal(ok, ok2) and torch.equal(dk, dk2)
 
-    def plain(pl, u):        # the kernel's semantics: f32 math, plane's type out
-        return bilinear_plane_sample(pl.float(), u).to(pl.dtype)
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+def test_cuda_plane_gradient_matches_plain(cuda, n_planes, dtype):
+    """The planes' gradients alone (training) and with the gradient to p,
+    against the plain version: atol 1e-5 of the largest entry (the plain
+    version's gather backward adds in another order), rtol 2^-7 in bf16;
+    the border cells take the clamped queries' weights. One launch for the
+    planes' gradients whatever their number; two launches give the same
+    bits."""
+    from if_defense_tpu_torch.ops.cuda_interp import launches, plane_features_cuda
+
+    p, planes, g = _plane_inputs(cuda, 10 + n_planes, n_planes, dtype,
+                                 q=2000)
     rtol = 0.0 if dtype == torch.float32 else 2.0**-7
-    for with_uv in (False, True):
-        grads = []
-        for fn in (plane_sample_cuda, plain):
-            pl = plane.clone().requires_grad_(True)
-            u = uv.clone().requires_grad_(with_uv)
-            before = dict(launches)
-            out = fn(pl, u)
-            wrt = (pl, u) if with_uv else (pl,)
-            grads.append(torch.autograd.grad((out.float() * g).sum(), wrt))
-            if fn is plane_sample_cuda:     # forward, plus uv grad if asked
-                assert launches["plane_sample"] - before["plane_sample"] \
-                    == 1 + with_uv
-                assert launches["plane_sample_dplane"] \
-                    - before["plane_sample_dplane"] == 1
-        (dk, *duk), (dp, *dup) = grads
-        assert dk.dtype == dtype
-        _grad_close(dk.cpu(), dp.cpu(), rtol)
-        assert float(dp[:, 0, 0].abs().sum()) > 0       # border cells hit
-        if with_uv:
-            _grad_close(duk[0].cpu(), dup[0].cpu(), 1e-5)
+    for want_p in (False, True):
+        before = dict(launches)
+        got = _features(plane_features_cuda, p, planes, g, want_p, True)
+        assert launches["plane_features_dplane"] \
+            - before["plane_features_dplane"] == 1
+        assert launches["plane_features_dp"] \
+            - before["plane_features_dp"] == int(want_p)
+        want = _features(_plain_f32, p, planes, g, want_p, True)
+        again = _features(plane_features_cuda, p, planes, g, want_p, True)
+        for a, b, c in zip(got, want, again):
+            assert a.dtype == dtype and torch.equal(a, c)
+            _grad_close(a.cpu(), b.cpu(), rtol)
+        dplanes = want[1 + want_p:]
+        assert all(float(d[:, 0, 0].float().abs().sum()) > 0 for d in dplanes)
+    # only the planes asked for get a gradient
+    names = list(planes)
+    q = {n: t.clone().requires_grad_(n == names[0]) for n, t in planes.items()}
+    before = dict(launches)
+    (d0,) = torch.autograd.grad(plane_features_cuda(p, q), [q[names[0]]],
+                                g)
+    assert launches["plane_features_dplane"] - before["plane_features_dplane"] \
+        == 1
+    _grad_close(d0.cpu(), _features(_plain_f32, p, planes, g, False, True)[1]
+                .cpu(), rtol)
 
 
 def _sa_inputs(cuda, seed, n, masked):
@@ -241,15 +294,22 @@ def test_cuda_ballquery_matches_plain(cuda, masked):
 def test_cuda_wrappers_refuse(cuda):
     from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
     from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
-    from if_defense_tpu_torch.ops.cuda_interp import plane_sample_cuda
+    from if_defense_tpu_torch.ops.cuda_interp import plane_features_cuda
     from if_defense_tpu_torch.ops.cuda_repulsion import repulsion_loss_cuda
 
-    with pytest.raises(ValueError, match="4096"):
-        repulsion_loss_cuda(torch.zeros(1, 4097, 3, device=cuda))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        plane_sample_cuda(torch.zeros(1, 8, 8, 4, device=cuda,
-                                      dtype=torch.float64),
-                          torch.zeros(1, 3, 2, device=cuda))
+    with pytest.raises(ValueError, match="k=9"):
+        repulsion_loss_cuda(torch.zeros(1, 4097, 3, device=cuda), 9)
+    p = torch.zeros(1, 3, 3, device=cuda)
+    with pytest.raises(TypeError, match="all be float32 or all bfloat16"):
+        plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 4, device=cuda,
+                                                  dtype=torch.bfloat16)})
+    with pytest.raises(ValueError, match="shape"):
+        plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 4, device=cuda),
+                                "xy": torch.zeros(1, 8, 4, 4, device=cuda)})
+    with pytest.raises(ValueError, match="multiple of 4"):
+        plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 6, device=cuda)})
+    with pytest.raises(ValueError, match="among"):
+        plane_features_cuda(p, {"grid": torch.zeros(1, 8, 8, 4, device=cuda)})
     with pytest.raises(ValueError, match="16384"):
         fps_cuda(torch.zeros(1, 16385, 3, device=cuda), 8)
     with pytest.raises(ValueError, match="12288"):

@@ -174,6 +174,26 @@ def test_rep_graph_cache_needs_the_corner_cache():
                          interp_refresh=2)
 
 
+def test_opt_defense_above_4096_points():
+    """ConvONet-Opt restores 4200 points a cloud (more than the 4096 the
+    repulsion kernels once refused), B=1, 2 iterations: finite points inside
+    the unit sphere. The card runs the same path through B1
+    (`chip_smoke.py` phase 3, `tests/test_torch_port_cuda.py`)."""
+    from if_defense_tpu_torch.utils.params_io import init_params
+
+    pc = (np.random.default_rng(3).normal(size=(1, K, 3)) * 0.3).astype(
+        np.float32)
+    model = ConvOccupancyNetwork(C, C, RES)
+    model.load_state_dict(params_from_jax(init_params(0, c_dim=C,
+                                                      hidden_dim=C)))
+    defend = convonet_opt_defense(model, iterations=2, input_npoint=INP,
+                                  sample_npoint=4200)
+    out = defend(torch.from_numpy(pc),
+                 torch.Generator().manual_seed(3)).numpy()
+    assert out.shape == (1, 4200, 3) and np.isfinite(out).all()
+    assert np.sqrt((out ** 2).sum(-1)).max() <= 1 + 1e-5
+
+
 def test_generator_draws_are_seeded():
     """Without draws the port samples from the torch.Generator it is given:
     the same seed gives the same restoration."""

@@ -152,13 +152,14 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
 
     from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
     from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
-    from if_defense_tpu_torch.ops.cuda_interp import plane_sample_cuda
+    from if_defense_tpu_torch.ops.cuda_interp import plane_features_cuda
     from if_defense_tpu_torch.ops.cuda_repulsion import repulsion_loss_cuda
 
     with pytest.raises(ValueError, match="CUDA"):
         repulsion_loss_cuda(torch.zeros(1, 16, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        plane_sample_cuda(torch.zeros(1, 4, 4, 2), torch.zeros(1, 3, 2))
+        plane_features_cuda(torch.zeros(1, 3, 3),
+                            {"xz": torch.zeros(1, 4, 4, 4)})
     with pytest.raises(ValueError, match="CUDA"):
         fps_cuda(torch.zeros(1, 16, 3), 4)
     with pytest.raises(ValueError, match="CUDA"):
