@@ -25,20 +25,27 @@ Phases, in order; any failure exits non-zero and prints no result:
      cache every 16 steps, cached repulsion graph), with every kernel
      launch counter set to 0 just before each run and read just after (B1
      402 and B4 201 + 201 launches in the reference mode, B3 402 in the
-     fast mode); then profiles a reference-mode step of ConvONet-Opt and
-     ONet-Opt (`tools/profile_defense_step.py`: 5 and 10 warm steps,
-     differenced: wall ms, device ms, busy share, device operations);
+     fast mode, B2 exactly 13: once per 16-step window); then profiles a
+     reference-mode step of ConvONet-Opt and ONet-Opt
+     (`tools/profile_defense_step.py`: 5 and 10 warm steps, differenced:
+     wall ms, device ms, busy share, device operations);
   5. holds B5 (FPS) and B6 (ball query) against their plain versions at
      PU-Net's four set-abstraction levels, on the level inputs of one batch
      (128) of phase 7's clouds, unmasked and masked: indices bit-equal;
-     times both;
+     times both, and B5 per step (device time over the 1920 steps, the SM
+     clock sampled by nvidia-smi beside the window); then past the sizes
+     the kernels keep in registers and shared memory, B5 at N = 16385 and
+     40000 (B=2, npoint 512, also from `start_idx`) and B6 at N = 12289
+     and 40000 (B=2, 512 centres, 32 slots), masked and not, bit-equal and
+     timed once for information;
   6. checks DUP-Net on a small input (B=2, N=1024, the repository's PU-Net
      weights, the same resampling draws) against the port's CPU run;
   7. writes a synthetic npz (256 clouds x 1024 points) and runs
      `if_defense_tpu_torch.cli.defend_npz` at full width (batch 128, PU-Net
      1024 x 4 with `weights/punet_1024_up4.npz`): DUP-Net alone with the
      B5/B6 launch counters set to 0 just before and read just after (first
-     run), then all three defenses, then DUP-Net again (warm run); then
+     run: exactly 8 each, 4 SA levels a batch of 128), then all three
+     defenses, then DUP-Net again (warm run); then
      profiles one batch of DUP-Net with torch.profiler;
   8. holds B4 in its training form (forward + the three planes'
      gradients; also with the gradient to p) against the plain version at
@@ -69,7 +76,8 @@ The last lines are the rates, the defense step profiles, the card's name
 and power limit, one JSON line of the kernels, and `{"ok": true,
 "device": {...}}`.
 
-Each kernel row carries three times, all in f32 at the path's shapes:
+Each kernel row carries three times, all in f32 at the path's shapes
+(B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
 - `device_ms` (also `ms`): the device time of what the wrapper launches per
   call (its kernels, and any fill or cast it does around them), from
   torch.profiler over 20 calls of the wrapper alone, forward and backward
@@ -145,6 +153,31 @@ def card_line() -> str:
     if out.returncode:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+class SmClock:
+    """The SM clock in MHz, sampled every 100 ms by `nvidia-smi` while the
+    block runs (the process is stopped on exit); `readings` holds them."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(0.3)
+        return self
+
+    def __exit__(self, *exc):
+        time.sleep(0.3)
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.readings = [int(v) for v in out.split() if v.isdigit()]
+        return False
+
+    def text(self) -> str:
+        r = self.readings
+        return (f"SM clock {min(r)}-{max(r)} MHz over {len(r)} readings"
+                if r else "SM clock not read")
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -419,16 +452,19 @@ def check_kernels(dev) -> list[dict]:
             lambda: bare_grad(cuda_repulsion.repulsion_loss_cuda, pts, w),
             ("rep_fwd", "rows_to_loss", "rep_bwd"))))
 
-    print("B2 repulsion_mask, random points, f32:")
-    rows.append(dict(
-        name="repulsion_mask", id="B2",
-        source="if_defense_tpu_torch/csrc/repulsion.cu",
-        replaces="if_defense_tpu/ops/pallas_repulsion.py:267",
-        max_abs_err=0.0, bound=bound(9 * B * N * N, pts_bytes + B * N * N),
-        **kernel_times(
-            lambda: cuda_repulsion.repulsion_mask_cuda(pts),
-            lambda: rep.repulsion_mask(pts),
-            lambda: cuda_repulsion.repulsion_mask_cuda(pts), ("rep_mask",))))
+    for dt, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        x = pts.to(dt)
+        print(f"B2 repulsion_mask, random points, {str(dt).split('.')[-1]}:")
+        rows.append(dict(
+            name="repulsion_mask" + suffix, id="B2",
+            source="if_defense_tpu_torch/csrc/repulsion.cu",
+            replaces="if_defense_tpu/ops/pallas_repulsion.py:267",
+            max_abs_err=0.0,
+            bound=bound(9 * B * N * N, x.element_size() * B * N * 3 + B * N * N),
+            **kernel_times(
+                lambda: cuda_repulsion.repulsion_mask_cuda(x),
+                lambda: rep.repulsion_mask(x),
+                lambda: cuda_repulsion.repulsion_mask_cuda(x), ("rep_mask",))))
 
     print("B3 repulsion_loss_masked (fwd + bwd), moved points, f32:")
 
@@ -566,7 +602,40 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
     """B5 and B6 against their plain versions at each SA level, unmasked
     and masked (~90 % valid, the last cloud with none): indices bit-equal.
     Times are of unmasked calls (`kernel_times`); a row's numbers are sums
-    over the four levels (one batch of the path)."""
+    over the four levels (one batch of the path). Then the large clouds
+    (`check_pointops_large`)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # per kernel: times, flops and bytes, summed over the levels
+    tot = {k: dict.fromkeys(("call_ms", "plain_ms", "device_ms", "graph_ms",
+                             "flops", "bytes"), 0.0)
+           for k in ("fps", "ballquery")}
+    with SmClock() as clock:
+        levels = check_sa_levels(dev, clouds, gen, tot)
+    rows = []
+    for k, rid, src, rep_ in (
+            ("fps", "B5", "fps.cu", "pallas_fps.py:82"),
+            ("ballquery", "B6", "ballquery.cu", "pallas_ballquery.py:71")):
+        t = tot[k]
+        rows.append(dict(
+            name=k, id=rid, source=f"if_defense_tpu_torch/csrc/{src}",
+            replaces=f"if_defense_tpu/ops/{rep_}", max_abs_err=0.0,
+            call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+            device_ms=t["device_ms"], graph_ms=t["graph_ms"],
+            library_call_ms=None, library_device_ms=None,
+            bound=bound(t["flops"], t["bytes"])))
+        print(f"  {rid}, summed over the 4 levels:")
+        print_row(rows[-1])
+    steps = sum(s for _, s in levels)
+    print(f"  B5 per step: {tot['fps']['device_ms']:.4f} ms over {steps} "
+          f"dependent steps = {1e3 * tot['fps']['device_ms'] / steps:.4f} us "
+          f"a step ({clock.text()}, sampled while phase 5's levels ran)")
+    check_pointops_large(dev)
+    return rows
+
+
+def check_sa_levels(dev, clouds: np.ndarray, gen, tot: dict) -> list:
+    """check_pointops' work at each SA level: the bit-equality checks and
+    the timings, summed into `tot`. -> [(N, steps)] per level."""
     from if_defense_tpu_torch.ops import (
         farthest_point_sample_plain,
         query_ball_point_plain,
@@ -574,11 +643,7 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
     from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
     from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
 
-    gen = torch.Generator(device=dev).manual_seed(2)
-    # per kernel: times, flops and bytes, summed over the levels
-    tot = {k: dict.fromkeys(("call_ms", "plain_ms", "device_ms", "graph_ms",
-                             "flops", "bytes"), 0.0)
-           for k in ("fps", "ballquery")}
+    levels = []
     for level, (xyz, new, radius) in enumerate(sa_level_inputs(dev, clouds)):
         b, n, _ = xyz.shape
         s = new.shape[1]
@@ -605,7 +670,7 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
         calls = {
             "fps": (lambda: fps_cuda(xyz, s),
                     lambda: farthest_point_sample_plain(xyz, s),
-                    ("fps_kernel",)),
+                    ("fps_kernel", "fps_kernel_global")),
             "ballquery": (lambda: ballquery_cuda(radius, 32, xyz, new),
                           lambda: query_ball_point_plain(radius, 32, xyz, new),
                           ("ballquery_kernel",))}
@@ -622,21 +687,55 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
             tot[k]["bytes"] += work[k][1]
         print(f"  level {level}: a centre scans "
               f"{float(scanned.float().mean()):.1f} of {n} points on average")
-    rows = []
-    for k, rid, src, rep_ in (
-            ("fps", "B5", "fps.cu", "pallas_fps.py:82"),
-            ("ballquery", "B6", "ballquery.cu", "pallas_ballquery.py:71")):
-        t = tot[k]
-        rows.append(dict(
-            name=k, id=rid, source=f"if_defense_tpu_torch/csrc/{src}",
-            replaces=f"if_defense_tpu/ops/{rep_}", max_abs_err=0.0,
-            call_ms=t["call_ms"], plain_ms=t["plain_ms"],
-            device_ms=t["device_ms"], graph_ms=t["graph_ms"],
-            library_call_ms=None, library_device_ms=None,
-            bound=bound(t["flops"], t["bytes"])))
-        print(f"  {rid}, summed over the 4 levels:")
-        print_row(rows[-1])
-    return rows
+        levels.append((n, s))
+    return levels
+
+
+def check_pointops_large(dev) -> None:
+    """B5 and B6 past the sizes their kernels keep in registers and shared
+    memory: B5 at N = 16385 and 40000 (B=2, npoint 512; unmasked, masked,
+    from `start_idx`), B6 at N = 12289 and 40000 (B=2, the first 512 points
+    as centres, 32 slots, radius 0.05; unmasked and masked). Indices
+    bit-equal to the plain versions; each call timed for information: the
+    median of 3 CUDA-event timings of one whole call (the profiler has
+    missed these long single launches; the host's share of a call of
+    milliseconds is small)."""
+    from if_defense_tpu_torch.ops import (
+        farthest_point_sample_plain,
+        query_ball_point_plain,
+    )
+    from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+    from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
+
+    gen = np.random.default_rng(9)
+    cases = [("fps", n) for n in (16385, 40000)] + [
+        ("ballquery", n) for n in (12289, 40000)]
+    for kernel, n in cases:
+        x = torch.from_numpy((gen.normal(size=(2, n, 3)) * 0.3).astype(
+            np.float32)).to(dev)
+        mask = torch.from_numpy(gen.uniform(size=(2, n)) > 0.1).to(dev)
+        start = torch.tensor([n - 1, n // 3], device=dev)
+        q = x[:, :512].contiguous()
+        if kernel == "fps":
+            calls = {tag: (lambda m=m, st=st: fps_cuda(x, 512, st, m),
+                           lambda m=m, st=st: farthest_point_sample_plain(
+                               x, 512, st, m))
+                     for tag, m, st in (("unmasked", None, None),
+                                        ("masked", mask, None),
+                                        ("start_idx", None, start))}
+        else:
+            calls = {tag: (lambda m=m: ballquery_cuda(0.05, 32, x, q, m),
+                           lambda m=m: query_ball_point_plain(0.05, 32, x, q,
+                                                              m))
+                     for tag, m in (("unmasked", None), ("masked", mask))}
+        for tag, (kern, plain) in calls.items():
+            diff = int((kern() != plain()).sum())
+            print(f"  {kernel} [2, {n}] {tag}: {diff} indices differ "
+                  f"(bit-equal required), one call {median_ms(kern, 3):.4f} "
+                  "ms (CUDA events)")
+            if diff:
+                fail(f"{kernel} at N={n} ({tag}) disagrees with its plain "
+                     "version")
 
 
 def load_punet(device):
@@ -716,8 +815,11 @@ def run_defend_npz(dev, tmp: str, clouds: np.ndarray) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  DUP-Net first run: {first:.3f} s, launches {launches}, peak "
           f"device memory {peak:.2f} GiB")
-    if min(launches.values()) <= 0:
-        fail("B5/B6 were not launched on the DUP-Net path")
+    # 4 SA levels a batch, 2 batches of DUP_B
+    want = 4 * DUP_CLOUDS // DUP_B
+    if launches != {"fps": want, "ballquery": want}:
+        fail(f"B5/B6 launches {launches} on the DUP-Net path, not {want} "
+             "each")
     paths, seconds = timed([])
     print(f"  all three defenses: {seconds:.3f} s")
     shapes = {"srs": (len(clouds), 1024 - 500, 3), "sor": (len(clouds), 1024, 3),
@@ -1229,14 +1331,17 @@ def main() -> int:
             launches[name] = {k: v for c in counters for k, v in c.items()}
             print(f"  {name}: launches {launches[name]}")
         # B1 forward and backward a step, B4 once each way a step (three
-        # planes a launch); the fast mode bypasses B4 (corner cache)
-        ref = launches["reference"]
+        # planes a launch); the fast mode bypasses B4 (corner cache) and
+        # builds B2's mask once per 16-step window (13 of 201 steps)
+        ref, fast = launches["reference"], launches["fast"]
         if (ref["repulsion_loss"] != 402 or ref["plane_features"] != 201
                 or ref["plane_features_dp"] != 201
                 or ref["plane_features_dplane"]
-                or launches["fast"]["repulsion_loss_masked"] != 402):
+                or fast["repulsion_loss_masked"] != 402
+                or fast["repulsion_mask"] != 13):
             fail(f"launches {launches} in ConvONet-Opt: not B1 402 and B4 "
-                 "201 + 201 in the reference mode, B3 402 in the fast mode")
+                 "201 + 201 in the reference mode, B3 402 and B2 13 in the "
+                 "fast mode")
         # a second, warm run of each mode for the rate
         for name, extra in modes.items():
             rates[name + " warm"] = run_cli(tmp, name, extra)["clouds_per_sec"]
@@ -1316,6 +1421,7 @@ def main() -> int:
                "plane_features": ("reference", ("plane_features",
                                                 "plane_features_dp")),
                "repulsion_mask": ("fast", ("repulsion_mask",)),
+               "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
                "fps": ("dup", ("fps",)), "ballquery": ("dup", ("ballquery",)),
                "plane_features_dplane": ("train", ("plane_features",

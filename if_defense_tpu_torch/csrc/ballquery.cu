@@ -28,6 +28,14 @@
 // sort. The warp stops once nsample slots are full, then fills the rest.
 // The TPU kernel's [TS, N] rank from a triangular matmul and its nsample
 // compare-and-sum passes are matrix-unit workarounds with no use here.
+//
+// Any N. Above kStagedN points (16 B a point would pass the 227 KB a block
+// can hold), ballquery_kernel_global reads the points straight from device
+// memory, where the block's 32 centres share them through L1 and L2, and
+// computes |x|^2 and the mask test as it goes: the same scan in the same
+// order, the same bits. It is a kernel of its own: one templated kernel for
+// both tiers ran the staged scan 3-4 % slower on the H100 at 700 W
+// (`tools/time_kernels.py`).
 
 #include <stdint.h>
 
@@ -39,6 +47,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kCentres = 32;  // centres per block
+constexpr int kStagedN = 12288;  // largest cloud staged in shared memory
 constexpr float kInf = std::numeric_limits<float>::infinity();
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
@@ -99,6 +108,49 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ballquery_kernel above kStagedN points: point n read from device memory
+__global__ void __launch_bounds__(kWarps * 32)
+    ballquery_kernel_global(const float* __restrict__ xyz,
+                            const float* __restrict__ new_xyz,
+                            const uint8_t* __restrict__ valid, int N, int S,
+                            int nsample, float r2, int* __restrict__ out) {
+  const long b = blockIdx.y;
+  const float* p = xyz + b * N * 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  for (int c = warp; c < kCentres; c += kWarps) {
+    const int si = blockIdx.x * kCentres + c;
+    if (si >= S) break;
+    const float* q = new_xyz + (b * S + si) * 3;
+    const float qx = q[0], qy = q[1], qz = q[2];
+    const float q2 = sq3(qx, qy, qz);
+    int* o = out + (b * S + si) * nsample;
+    int count = 0, first = 0;
+    for (int base = 0; base < N && count < nsample; base += 32) {
+      const int n = base + lane;
+      bool hit = false;
+      if (n < N) {
+        const float x = p[3 * n], y = p[3 * n + 1], z = p[3 * n + 2];
+        const bool v = valid == nullptr || valid[b * N + n] != 0;
+        float cross = __fadd_rn(__fadd_rn(__fmul_rn(qx, x), __fmul_rn(qy, y)),
+                                __fmul_rn(qz, z));
+        float d2 = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, cross)),
+                             v ? sq3(x, y, z) : kInf);
+        hit = d2 <= r2;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (m) {
+        if (count == 0) first = base + __ffs(m) - 1;
+        const int slot = count + __popc(m & below);
+        if (hit && slot < nsample) o[slot] = n;
+        count += __popc(m);
+      }
+    }
+    const int fill = count > 0 ? first : 0;
+    for (int j = min(count, nsample) + lane; j < nsample; j += 32) o[j] = fill;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -108,11 +160,18 @@ const char* ifdef_error_string(int err) {
 }
 
 // xyz [B,N,3] f32, new_xyz [B,S,3] f32, valid [B,N] u8 or null
-// -> out [B,S,nsample] i32. 16 N bytes of shared memory per block.
+// -> out [B,S,nsample] i32. 16 N bytes of shared memory per block up to
+// kStagedN points, none above.
 int ifdef_ballquery(const float* xyz, const float* new_xyz,
                     const uint8_t* valid, int B, int N, int S, int nsample,
                     float r2, int* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > kStagedN) {
+    dim3 grid((unsigned)((S + kCentres - 1) / kCentres), (unsigned)B);
+    ballquery_kernel_global<<<grid, kWarps * 32, 0, s>>>(
+        xyz, new_xyz, valid, N, S, nsample, r2, out);
+    return ifdef::last_error();
+  }
   size_t smem = sizeof(float) * 4 * (size_t)N;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

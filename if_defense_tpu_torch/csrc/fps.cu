@@ -18,17 +18,43 @@
 // Bound: at PU-Net's first level (B=128, N=npoint=1024) the work is
 // ~10 flops x B N npoint = 1.3 GFLOP, about 20 us of f32 on the card, and the
 // bytes are 0.5 MB in and 0.5 MB out. The real limit is the chain of npoint
-// dependent steps, each a block-wide argmax, which no roofline sees.
+// dependent steps, each a block-wide argmax, which no roofline sees: the
+// design shortens a step's critical path.
 //
-// Design: one block per cloud (128 blocks on 132 SMs at the path's batch).
-// The cloud's coordinates sit in shared memory (12 B x N, as x, y, z rows);
-// the running min sits in registers, PER points per thread, so a step reads
-// only shared memory. A step's argmax is a warp shuffle over (distance,
-// index) pairs, then one shared-memory round that every warp reduces for
-// itself; the partials are double-buffered, so a step costs one barrier.
-// The TPU kernel's one-hot masked reductions (for the centroid fetch and
-// the argmax) are TPU workarounds: here the winner's coordinates are one
-// shared-memory read.
+// Design: one block per cloud (128 blocks on 132 SMs at the path's batch),
+// kPer = 8 points a thread, so 32 threads at N <= 256, 64 at 512, 128 at
+// 1024 (the next power of two of N / 8, up to 1024 threads at 8192 points).
+// A thread keeps its points' coordinates and running minima in registers,
+// and a step's distances are an unrolled run of independent work, reduced
+// to the thread's best by a tree whose left side always holds the lower
+// indices. The cloud also sits in shared memory as float4 (x, y, z, 0), so
+// the winner's coordinates are one broadcast 16-byte load. The argmax works
+// on an order-preserving integer key, the running minimum's bits as a
+// signed int: a distance >= 0 orders as its bits do and an invalid point's
+// -inf is negative. A warp's winner is then two REDUX instructions: the
+// max of the keys, then the min of the indices among the lanes that hold it
+// (first maximum, lowest index). The warps' winners meet in shared memory,
+// double-buffered, for one barrier a step, each packed into 64 bits as
+// (key with its sign bit flipped, ~index), whose unsigned order is the
+// selection's, and every thread takes their max in registers. A one-warp
+// block needs no barrier at all. Thread t keeps the index of the steps s
+// with s mod threads = t in a register and writes them, coalesced, once
+// every `threads` steps.
+//
+// Any N. Above 8192 points (registers and shared memory), the running
+// minima live in a [B, N] f32 scratch buffer in device memory that the
+// wrapper allocates, and the coordinates are read from the input as they
+// are; at such N both sit in the 50 MB L2. Same selection, same bits.
+//
+// Measured on the H100 at 700 W (`tools/time_kernels.py`, device time over
+// PU-Net's 1920 steps at B = 128): this design about 0.22 us a step. Slower:
+// the port's first design (512 threads whatever N, 32 running minima a
+// thread with the coordinates in shared memory as three arrays, an argmax
+// of ten shuffles and five selects a stage, thread 0 storing each index to
+// global memory), 0.50 us; this design with the warps' winners reduced by a
+// second REDUX pair instead of the packed max, 0.31 us (a one-warp block,
+// 128 steps at N = 256, 0.14 us: the cross-warp stage was most of a step);
+// 16 or 32 points a thread (fewer warps), 0.31 and 0.38 us.
 
 #include <stdint.h>
 
@@ -39,120 +65,190 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 8;                  // points a thread keeps in registers
+constexpr int kMaxThreads = 1024;
+constexpr int kRegN = kPer * kMaxThreads;  // the register tier's largest N
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = std::numeric_limits<float>::infinity();
 
-// (d, i) beats (bd, bi): larger distance, or equal distance and lower index
-__device__ __forceinline__ bool better(float d, int i, float bd, int bi) {
-  return d > bd || (d == bd && i < bi);
+// order-preserving key of a running minimum (>= 0, or -inf when invalid)
+__device__ __forceinline__ int key_of(float d) { return __float_as_int(d); }
+
+// The warp's winner: the largest key, then the lowest index among the
+// lanes that hold it. Every lane gets both.
+__device__ __forceinline__ int warp_argmax(int& key, int idx) {
+  const int top = __reduce_max_sync(kFull, key);
+  idx = (int)__reduce_min_sync(kFull, key == top ? (unsigned)idx : UINT_MAX);
+  key = top;
+  return idx;
 }
 
-__device__ __forceinline__ void warp_argmax(float& d, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float od = __shfl_xor_sync(0xffffffffu, d, off);
-    int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(od, oi, d, i)) {
-      d = od;
-      i = oi;
-    }
-  }
-}
-
-// Block argmax; every thread gets the winner's index. One barrier: the
-// partials of consecutive calls go to alternate buffers.
-__device__ __forceinline__ int block_argmax(float d, int i, float (*part_d)[kWarps],
-                                            int (*part_i)[kWarps], int buf) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_argmax(d, i);
-  if (lane == 0) {
-    part_d[buf][warp] = d;
-    part_i[buf][warp] = i;
-  }
+// The block's winner; every thread gets its index. The warps' winners go
+// to shared memory packed as (key with its sign bit flipped, ~index), whose
+// unsigned order is the selection's, and every thread takes their max.
+template <int WARPS>
+__device__ __forceinline__ int block_argmax(int key, int idx,
+                                            unsigned long long (*part)[WARPS],
+                                            int buf) {
+  idx = warp_argmax(key, idx);
+  if (WARPS == 1) return idx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0)
+    part[buf][warp] = ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) |
+                      (unsigned)~idx;
   __syncthreads();
-  d = lane < kWarps ? part_d[buf][lane] : -kInf;
-  i = lane < kWarps ? part_i[buf][lane] : INT_MAX;
-  warp_argmax(d, i);
-  return i;
+  unsigned long long best = part[buf][0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) best = max(best, part[buf][w]);
+  return (int)~(unsigned)best;
 }
 
-template <int PER>
-__global__ void __launch_bounds__(kThreads)
+// Step `it` selected `far`: thread (it mod THREADS) keeps it, and the
+// block writes the kept indices once every THREADS steps and at the end.
+template <int THREADS>
+__device__ __forceinline__ void record(int it, int far, int npoint,
+                                       int& mine, int* out) {
+  const int slot = it & (THREADS - 1);
+  if (slot == (int)threadIdx.x) mine = far;
+  if (slot == THREADS - 1 || it == npoint - 1) {
+    const int at = it - slot + threadIdx.x;
+    if (at <= it) out[at] = mine;
+  }
+}
+
+// Register tier: N <= THREADS * kPer. Thread t holds points t + k THREADS.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
     fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ valid,
                const int* __restrict__ start, int N, int npoint,
                int* __restrict__ out) {
-  extern __shared__ float s[];
-  __shared__ float part_d[2][kWarps];
-  __shared__ int part_i[2][kWarps];
-  float* sx = s;
-  float* sy = s + N;
-  float* sz = s + 2 * N;
+  constexpr int WARPS = THREADS / 32;
+  extern __shared__ float4 cloud[];
+  __shared__ unsigned long long part[2][WARPS];
   const long b = blockIdx.x;
   const float* p = xyz + b * N * 3;
-  for (int t = threadIdx.x; t < N; t += kThreads) {
-    sx[t] = p[3 * t];
-    sy[t] = p[3 * t + 1];
-    sz[t] = p[3 * t + 2];
-  }
-  // running min: +inf for valid points, -inf for invalid ones; the start
-  // is the first valid point (key 1 over key 0), or 0 when none is valid
-  float dist[PER];
-  float kd = -kInf;
-  int ki = INT_MAX;
+  out += b * npoint;
+  // a slot past N holds (0, 0, 0) at -inf: it ties with invalid points and
+  // loses to them on its index
+  float x[kPer], y[kPer], z[kPer], dist[kPer];
+  int key = INT_MIN, idx = INT_MAX;
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    int n = threadIdx.x + k * kThreads;
+  for (int k = 0; k < kPer; ++k) {
+    const int n = threadIdx.x + k * THREADS;
+    x[k] = y[k] = z[k] = 0.f;
+    dist[k] = -kInf;
     if (n < N) {
-      bool v = valid == nullptr || valid[b * N + n] != 0;
+      x[k] = p[3 * n];
+      y[k] = p[3 * n + 1];
+      z[k] = p[3 * n + 2];
+      cloud[n] = make_float4(x[k], y[k], z[k], 0.f);
+      const bool v = valid == nullptr || valid[b * N + n] != 0;
       dist[k] = v ? kInf : -kInf;
-      float key = v ? 1.f : 0.f;
-      if (better(key, n, kd, ki)) {
-        kd = key;
-        ki = n;
+      // the start: the first valid point (key 1 over key 0), else 0
+      if ((int)v > key) {
+        key = v;
+        idx = n;
       }
     }
   }
-  // this barrier also publishes the coordinates in shared memory
-  int far = block_argmax(kd, ki, part_d, part_i, 0);
+  __syncthreads();  // the cloud is in shared memory
+  int far = block_argmax<WARPS>(key, idx, part, 0);
   if (start != nullptr) far = start[b];
-  int buf = 1;
+  int mine = 0, buf = 1;
   for (int it = 0; it < npoint; ++it) {
-    if (threadIdx.x == 0) out[b * npoint + it] = far;
-    const float cx = sx[far], cy = sy[far], cz = sz[far];
-    float bd = -kInf;
-    int bi = INT_MAX;
+    record<THREADS>(it, far, npoint, mine, out);
+    const float4 c = cloud[far];
+    int kk[kPer];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      int n = threadIdx.x + k * kThreads;
-      if (n < N) {
-        float dx = __fsub_rn(sx[n], cx);
-        float dy = __fsub_rn(sy[n], cy);
-        float dz = __fsub_rn(sz[n], cz);
-        float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                            __fmul_rn(dz, dz));
-        dist[k] = fminf(dist[k], d);
-        if (better(dist[k], n, bd, bi)) {
-          bd = dist[k];
-          bi = n;
-        }
-      }
+    for (int k = 0; k < kPer; ++k) {
+      const float dx = __fsub_rn(x[k], c.x);
+      const float dy = __fsub_rn(y[k], c.y);
+      const float dz = __fsub_rn(z[k], c.z);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      dist[k] = fminf(dist[k], d);
+      kk[k] = key_of(dist[k]);
     }
-    far = block_argmax(bd, bi, part_d, part_i, buf);
+    // the thread's best by a tree; slot k holds the lower index of a pair
+    int ii[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) ii[k] = threadIdx.x + k * THREADS;
+#pragma unroll
+    for (int w = 1; w < kPer; w <<= 1)
+#pragma unroll
+      for (int k = 0; k + w < kPer; k += 2 * w)
+        if (kk[k + w] > kk[k]) {
+          kk[k] = kk[k + w];
+          ii[k] = ii[k + w];
+        }
+    far = block_argmax<WARPS>(kk[0], ii[0], part, buf);
     buf ^= 1;
   }
 }
 
-template <int PER>
+// Device-memory tier: any N. The running minima sit in dist [B, N], the
+// coordinates are read from the input; thread t takes n = t, t + THREADS,
+// ... in increasing order.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+    fps_kernel_global(const float* __restrict__ xyz,
+                      const uint8_t* __restrict__ valid,
+                      const int* __restrict__ start, int N, int npoint,
+                      int* __restrict__ out, float* __restrict__ dist) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ unsigned long long part[2][WARPS];
+  const long b = blockIdx.x;
+  const float* p = xyz + b * N * 3;
+  out += b * npoint;
+  dist += b * N;
+  int key = INT_MIN, idx = INT_MAX;
+  for (int n = threadIdx.x; n < N; n += THREADS) {
+    const bool v = valid == nullptr || valid[b * N + n] != 0;
+    dist[n] = v ? kInf : -kInf;
+    if ((int)v > key) {
+      key = v;
+      idx = n;
+    }
+  }
+  int far = block_argmax<WARPS>(key, idx, part, 0);
+  if (start != nullptr) far = start[b];
+  int mine = 0, buf = 1;
+  for (int it = 0; it < npoint; ++it) {
+    record<THREADS>(it, far, npoint, mine, out);
+    const float cx = p[3 * far], cy = p[3 * far + 1], cz = p[3 * far + 2];
+    key = INT_MIN;
+    idx = INT_MAX;
+#pragma unroll 4
+    for (int n = threadIdx.x; n < N; n += THREADS) {
+      const float dx = __fsub_rn(p[3 * n], cx);
+      const float dy = __fsub_rn(p[3 * n + 1], cy);
+      const float dz = __fsub_rn(p[3 * n + 2], cz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const float m = fminf(dist[n], d);
+      dist[n] = m;
+      if (key_of(m) > key) {
+        key = key_of(m);
+        idx = n;
+      }
+    }
+    far = block_argmax<WARPS>(key, idx, part, buf);
+    buf ^= 1;
+  }
+}
+
+template <int THREADS>
 int launch(const float* xyz, const uint8_t* valid, const int* start, int B,
            int N, int npoint, int* out, cudaStream_t s) {
-  size_t smem = sizeof(float) * 3 * (size_t)N;
+  size_t smem = sizeof(float4) * (size_t)N;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fps_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fps_kernel<THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fps_kernel<PER><<<B, kThreads, smem, s>>>(xyz, valid, start, N, npoint, out);
+  fps_kernel<THREADS><<<B, THREADS, smem, s>>>(xyz, valid, start, N, npoint,
+                                               out);
   return ifdef::last_error();
 }
 
@@ -164,19 +260,27 @@ const char* ifdef_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// xyz [B,N,3] f32; valid [B,N] u8 or null; start [B] i32 or null
-// -> out [B,npoint] i32. N <= 32 * 512 (registers and shared memory).
+// The largest N of the register tier; above it `ifdef_fps` needs `dist`.
+int ifdef_fps_register_n() { return kRegN; }
+
+// xyz [B,N,3] f32; valid [B,N] u8 or null; start [B] i32 or null;
+// dist [B,N] f32 scratch, read only when N > kRegN -> out [B,npoint] i32.
 int ifdef_fps(const float* xyz, const uint8_t* valid, const int* start, int B,
-              int N, int npoint, int* out, void* stream) {
+              int N, int npoint, int* out, float* dist, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int per = (N + kThreads - 1) / kThreads;
-  if (per <= 1) return launch<1>(xyz, valid, start, B, N, npoint, out, s);
-  if (per <= 2) return launch<2>(xyz, valid, start, B, N, npoint, out, s);
-  if (per <= 4) return launch<4>(xyz, valid, start, B, N, npoint, out, s);
-  if (per <= 8) return launch<8>(xyz, valid, start, B, N, npoint, out, s);
-  if (per <= 16) return launch<16>(xyz, valid, start, B, N, npoint, out, s);
+  if (N > kRegN) {
+    if (dist == nullptr) return (int)cudaErrorInvalidValue;
+    fps_kernel_global<kMaxThreads><<<B, kMaxThreads, 0, s>>>(
+        xyz, valid, start, N, npoint, out, dist);
+    return ifdef::last_error();
+  }
+  const int per = (N + kPer - 1) / kPer;  // threads needed
   if (per <= 32) return launch<32>(xyz, valid, start, B, N, npoint, out, s);
-  return (int)cudaErrorInvalidValue;
+  if (per <= 64) return launch<64>(xyz, valid, start, B, N, npoint, out, s);
+  if (per <= 128) return launch<128>(xyz, valid, start, B, N, npoint, out, s);
+  if (per <= 256) return launch<256>(xyz, valid, start, B, N, npoint, out, s);
+  if (per <= 512) return launch<512>(xyz, valid, start, B, N, npoint, out, s);
+  return launch<1024>(xyz, valid, start, B, N, npoint, out, s);
 }
 
 }  // extern "C"

@@ -48,8 +48,8 @@
 // distance enters the top-k, and the counting pass computes them again.
 //
 // Any N. No kernel's shared memory grows past a fixed chunk: where a cloud
-// is larger than a kernel's staged chunk (1024 points in B1's forward, 4096
-// in B1's backward, 2048 in B2, 1024 partners in B3's backward), the block
+// is larger than a kernel's staged chunk (1024 points in B1's forward and
+// B2, 4096 in B1's backward, 1024 partners in B3's backward), the block
 // walks the partners j chunk by chunk in increasing order, and every lane
 // still takes its partners in the order it did with the whole cloud
 // staged. Up to 4096 points the sums therefore keep their order and the
@@ -63,9 +63,29 @@
 // t_j) (the thresholds sit in shared memory beside the cloud), and those
 // pairs go to the list for their row and column weights and coefficient.
 //
-// B2 (rep_mask): thread per row for the thresholds, then each warp writes
-// whole rows of the int8 mask, lanes on consecutive columns; the design of
-// its port, bound by the 48 MB it writes at these shapes.
+// B2 (rep_mask). Bound: bytes, the [B, N, N] int8 mask written once (48 MB
+// at B=48, N=1024: 0.015 ms at 3.35 TB/s); its ~50M pair distances, 9
+// operations each, would take 0.007 ms at the f32 peak. What holds it at
+// about 5x that is not measured (`ncu` does not run on the card's machine);
+// the lead is a row's instruction count (distances, the list, the REDUX
+// rounds, the ballots). B1's forward up to its threshold: a warp per row, the
+// row's distances in registers, the bound filter and the list, the k-th
+// order statistic by REDUX rounds (`row_threshold`, shared with rep_fwd).
+// Then, from the same registers, the row: a ballot of d2 <= t for each
+// 32-column group gives 32 mask bits (self and columns past N hold +inf),
+// and lane l expands half a ballot into the 16-byte word at columns 16 l
+// and at 512 + 16 l, so a 1 KB row is two coalesced warp stores of 512
+// bytes and no distance is computed twice. Rows of N % 16 != 0 columns are
+// not 16-byte aligned: there each lane stores its own columns' bytes.
+// Above 1024 points (rep_mask_chunked) the thresholds come from the lanes'
+// top-k over staged chunks, as in rep_fwd_chunked, and the row is written
+// chunk by chunk with the distances computed again. Measured on the H100
+// at 700 W (`tools/time_kernels.py`, B=48, N=1024): this design 0.082 ms in
+// f32 and in bf16. Slower: the port's first B2, a thread per row for the
+// thresholds (a serial top-k insertion over N - 1 partners) and a second
+// pass that computed every distance again to store a byte a lane, 0.134
+// ms; this design at three blocks an SM (80 registers), 0.090 ms; and with
+// the cloud staged as float4 and the ballots handed on by shuffles, 0.092.
 //
 // B3 forward (rep_masked_fwd). Bound: bytes, the [B, N, N] int8 mask read
 // once (48 MB; ~0.5 % of it ones). A warp per row reads the row as 16-byte
@@ -89,27 +109,22 @@
 
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 128;       // B2: thread-per-row blocks
 constexpr int kWarps = 8;        // warps per block of the warp-per-row kernels
 constexpr int kRowsPerWarp = 4;  // B1: rows (points) a warp takes in turn
-constexpr int kRegN = 1024;      // B1 forward keeps distances in registers up to this N
-                                 // (and stages chunks of this many points above it)
+constexpr int kRegN = 1024;      // B1 forward and B2 keep distances in registers up to
+                                 // this N (and stage chunks of this many points above it)
 constexpr int kStep = 4;         // B1 backward: 32-partner steps a warp takes at once
 constexpr int kStage = 4096;     // B1 backward: points staged at once
-constexpr int kMaskStage = 2048; // B2: points staged at once (beside its static arrays)
 constexpr int kList = 64;        // entries of a warp's list of weighted pairs
 constexpr int kLoads = 2;        // B3: 16-byte words of a mask row a lane loads at once
 constexpr int kTile = 32;        // B3 backward: points m per block
 constexpr int kChunk = 1024;     // B3 backward: partners j staged per pass
 constexpr int kBatch = 4;        // B3 backward: 16-byte column words a thread loads at once
 constexpr int kReduce = 256;
-constexpr float kInf = 1e30f;    // B2: an empty top-k entry (the Pallas kernels' _INF)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -229,6 +244,70 @@ __device__ __forceinline__ int warp_slots(int cnt, int lane, int& total) {
   return incl - cnt;
 }
 
+// A row's threshold t, the K-th smallest of its distances with
+// multiplicity, from the lane's PER distances in registers (lane l holds
+// j = 32 c + l; +inf where j is self or past N). u, the K-th smallest of the
+// lanes' minima, bounds t from above (K lanes hold a distance <= u), so the
+// distances <= u, a few per row, go to the warp's list and t comes from the
+// list alone; where ties at u overflow the list, every distance enters the
+// lanes' sorted top-K instead. `n` gets the count of distances <= u: the
+// list holds them where n <= kList. The caller syncs the warp before the
+// list is written again.
+template <int K, int PER>
+__device__ __forceinline__ float row_threshold(const float (&d)[PER], int lane,
+                                               float* list, int& n) {
+  float lo[4] = {inf_f(), inf_f(), inf_f(), inf_f()};
+#pragma unroll
+  for (int c = 0; c < PER; ++c) lo[c & 3] = fminf(lo[c & 3], d[c]);
+  float lane_min[1] = {fminf(fminf(lo[0], lo[1]), fminf(lo[2], lo[3]))};
+  const float u = warp_kth<K>(lane_min, lane);
+  n = 0;
+#pragma unroll
+  for (int c = 0; c < PER; ++c) {
+    const bool q = d[c] <= u;
+    const unsigned bal = __ballot_sync(kFull, q);
+    if (bal) {
+      const int at = n + __popc(bal & lanes_below(lane));
+      if (q && at < kList) list[at] = d[c];
+      n += __popc(bal);
+    }
+  }
+  __syncwarp();
+  if (n <= kList) {
+    float a = lane < n ? list[lane] : inf_f();
+    float c2 = lane + 32 < n ? list[lane + 32] : inf_f();
+    float top[2] = {fminf(a, c2), fmaxf(a, c2)};
+    return warp_kth<K>(top, lane);
+  }
+  float top[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) top[c] = inf_f();
+#pragma unroll
+  for (int c = 0; c < PER; ++c) top_insert(top, d[c]);
+  return warp_kth<K>(top, lane);
+}
+
+// The threshold of row i above kRegN points: every distance enters the
+// lanes' top-K, the partners staged chunk by chunk (walk_chunks: every warp
+// of the block calls it; a warp whose row is past N, valid false, does no
+// work and gets +inf).
+template <int K, typename T>
+__device__ __forceinline__ float walk_threshold(const T* pb, int N, float* s,
+                                                int i, bool valid, int lane,
+                                                float xi, float yi, float zi) {
+  const float *sx = s, *sy = s + kRegN, *sz = s + 2 * kRegN;
+  float top[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) top[c] = inf_f();
+  walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
+    if (valid)
+      for (int jj = lane; jj < n; jj += 32)
+        if (j0 + jj != i)
+          top_insert(top, d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]));
+  });
+  return warp_kth<K>(top, lane);
+}
+
 // A row's tally of the distances v <= t: count and term sum below t and
 // at it
 struct Tally {
@@ -282,55 +361,24 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int i = blockIdx.x * (kWarps * kRowsPerWarp) + rr;
     if (i >= N) break;
     const float xi = sx[i], yi = sy[i], zi = sz[i];
-    float t = 0.f;
-    Tally tl;
-    {
-      // the lane's distances, branch-free, and their minimum
-      float d[PER];
-      float lo[4] = {inf_f(), inf_f(), inf_f(), inf_f()};
+    // the lane's distances, branch-free
+    float d[PER];
 #pragma unroll
-      for (int c = 0; c < PER; ++c) {
-        const int j = 32 * c + lane;
-        const float v = d2_of(xi, yi, zi, sx[j], sy[j], sz[j]);
-        d[c] = (j < N && j != i) ? v : inf_f();
-        lo[c & 3] = fminf(lo[c & 3], d[c]);
-      }
-      // u, the K-th smallest of the lanes' minima, bounds t from above (K
-      // lanes hold a distance <= u): the distances <= u, a few per row, go
-      // to the warp's list
-      float lane_min[1] = {fminf(fminf(lo[0], lo[1]), fminf(lo[2], lo[3]))};
-      const float u = warp_kth<K>(lane_min, lane);
-      int n = 0;
-#pragma unroll
-      for (int c = 0; c < PER; ++c) {
-        const bool q = d[c] <= u;
-        const unsigned bal = __ballot_sync(kFull, q);
-        if (bal) {
-          const int at = n + __popc(bal & lanes_below(lane));
-          if (q && at < kList) list[at] = d[c];
-          n += __popc(bal);
-        }
-      }
-      __syncwarp();
-      if (n <= kList) {
-        // t and the sums from the list alone: it holds every distance <= t
-        float a = lane < n ? list[lane] : inf_f();
-        float c2 = lane + 32 < n ? list[lane + 32] : inf_f();
-        float top[2] = {fminf(a, c2), fmaxf(a, c2)};
-        t = warp_kth<K>(top, lane);
-        for (int q = lane; q < n; q += 32) tl.add(list[q], t, P);
-      } else {  // more ties at u than the list holds
-        float top[K];
-#pragma unroll
-        for (int c = 0; c < K; ++c) top[c] = inf_f();
-#pragma unroll
-        for (int c = 0; c < PER; ++c) top_insert(top, d[c]);
-        t = warp_kth<K>(top, lane);
-#pragma unroll
-        for (int c = 0; c < PER; ++c) tl.add(d[c], t, P);
-      }
-      __syncwarp();  // the list is read before the next row writes it
+    for (int c = 0; c < PER; ++c) {
+      const int j = 32 * c + lane;
+      const float v = d2_of(xi, yi, zi, sx[j], sy[j], sz[j]);
+      d[c] = (j < N && j != i) ? v : inf_f();
     }
+    int n;
+    const float t = row_threshold<K>(d, lane, list, n);
+    Tally tl;
+    if (n <= kList) {  // the list holds every distance <= t
+      for (int q = lane; q < n; q += 32) tl.add(list[q], t, P);
+    } else {  // more ties at u than the list holds
+#pragma unroll
+      for (int c = 0; c < PER; ++c) tl.add(d[c], t, P);
+    }
+    __syncwarp();  // the list is read before the next row writes it
     tl.write(K, t, (long)b * N + i, lane, row_loss, thr, frac);
   }
 }
@@ -356,16 +404,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const bool valid = i < N;
     float xi = 0.f, yi = 0.f, zi = 0.f;
     if (valid) point_of(pb, i, xi, yi, zi);
-    float top[K];
-#pragma unroll
-    for (int c = 0; c < K; ++c) top[c] = inf_f();
-    walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
-      if (valid)
-        for (int jj = lane; jj < n; jj += 32)
-          if (j0 + jj != i)
-            top_insert(top, d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]));
-    });
-    const float t = warp_kth<K>(top, lane);
+    const float t = walk_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi);
     Tally tl;
     walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
       if (valid)
@@ -509,62 +548,116 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// B2: thresholds thread-per-row, then each warp writes whole rows of the
-// int8 mask with consecutive lanes on consecutive columns. Both passes walk
-// the cloud in chunks of kMaskStage points (staged once where it fits); the
-// block's own points sit apart.
-template <int K, typename T>
-__global__ void rep_mask(const T* __restrict__ pts, Params P,
-                         int8_t* __restrict__ mask) {
-  extern __shared__ float s[];  // a chunk, point by point (x, y, z)
-  __shared__ float ts[kRows];
-  __shared__ float rp[3 * kRows];
-  const int N = P.N, b = blockIdx.y, r0 = blockIdx.x * kRows;
-  const int np = min(N, kMaskStage);
-  const bool one = N <= np;
-  const T* pb = pts + (long)b * N * 3;
-  auto stage = [&](int j0) {
-    __syncthreads();  // the previous chunk has been read
-    for (int t = threadIdx.x; t < 3 * min(np, N - j0); t += kRows)
-      s[t] = ifdef::load_f(pb, 3L * j0 + t);
-    __syncthreads();
-  };
-  for (int t = threadIdx.x; t < 3 * kRows; t += kRows)
-    rp[t] = 3 * r0 + t < 3 * N ? ifdef::load_f(pb, 3L * r0 + t) : 0.f;
-  __syncthreads();
-  // the k-th smallest d2 of row i (self excluded), with multiplicity
-  const int i = r0 + threadIdx.x;
-  const float xi = rp[3 * threadIdx.x], yi = rp[3 * threadIdx.x + 1],
-              zi = rp[3 * threadIdx.x + 2];
-  float top[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) top[t] = kInf;
-  for (int j0 = 0; j0 < N; j0 += np) {
-    stage(j0);
-    const int jn = min(np, N - j0);
-    if (i < N)
-      for (int jj = 0; jj < jn; ++jj) {
-        if (j0 + jj == i) continue;
-        float v = d2_of(xi, yi, zi, s[3 * jj], s[3 * jj + 1], s[3 * jj + 2]);
-        if (v < top[K - 1]) top_insert(top, v);
-      }
-  }
-  if (i < N) ts[threadIdx.x] = top[K - 1];
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j0 = 0; j0 < N; j0 += np) {
-    if (!one) stage(j0);
-    const int jn = min(np, N - j0);
-    for (int rr = warp; rr < kRows && r0 + rr < N; rr += kRows / 32) {
-      const int row = r0 + rr;
-      const float t = ts[rr], xr = rp[3 * rr], yr = rp[3 * rr + 1],
-                  zr = rp[3 * rr + 2];
-      int8_t* out = mask + ((long)b * N + row) * N + j0;
-      for (int jj = lane; jj < jn; jj += 32)
-        out[jj] = (j0 + jj != row &&
-                   d2_of(xr, yr, zr, s[3 * jj], s[3 * jj + 1], s[3 * jj + 2]) <= t)
-                      ? 1 : 0;
+// Four mask bits as four bytes of 0/1, bit e into byte e: the bits land at
+// 0, 8, 16 and 24 with no carries between them
+__device__ __forceinline__ unsigned bytes_of(unsigned bits4) {
+  return (bits4 * 0x00204081u) & 0x01010101u;
+}
+
+// 16 mask bits as a 16-byte word of 0/1 bytes, bit e into byte e
+__device__ __forceinline__ uint4 word_of(unsigned bits16) {
+  return make_uint4(bytes_of(bits16 & 0xf), bytes_of((bits16 >> 4) & 0xf),
+                    bytes_of((bits16 >> 8) & 0xf), bytes_of((bits16 >> 12) & 0xf));
+}
+
+// B2's row writer for up to 1024 columns j0 + 32 c + l (c < 32). Per group
+// c the warp calls `group(c, hit)` with the lane's bit; on a 16-byte-aligned
+// row (`vec`) lane l keeps the ballots of groups l / 2 and 16 + l / 2 and
+// stores the 16-byte words at columns j0 + 16 l and j0 + 512 + 16 l that
+// lie below `ncols`; else each lane stores its own bytes.
+struct MaskRow {
+  int8_t* row;
+  int ncols, lane;
+  bool vec;
+  unsigned h0 = 0, h1 = 0;
+  __device__ __forceinline__ void group(int c, bool hit) {
+    const unsigned bal = __ballot_sync(kFull, hit);
+    if (vec) {
+      if (c == lane >> 1) h0 = bal;
+      if (c == 16 + (lane >> 1)) h1 = bal;
+    } else if (32 * c + lane < ncols) {
+      row[32 * c + lane] = hit ? 1 : 0;
     }
+  }
+  __device__ __forceinline__ void store() {
+    if (!vec) return;
+    const int sh = 16 * (lane & 1);
+    if (16 * lane < ncols)
+      reinterpret_cast<uint4*>(row)[lane] = word_of((h0 >> sh) & 0xffffu);
+    if (512 + 16 * lane < ncols)
+      reinterpret_cast<uint4*>(row)[32 + lane] = word_of((h1 >> sh) & 0xffffu);
+  }
+};
+
+// B2 up to kRegN points: warp per row as rep_fwd, the cloud padded to 32 PER
+// points; each row's mask from the distances in registers. Four blocks an
+// SM (64 registers a thread): 9 % faster on the H100 at 700 W than the
+// three that 80 registers allow.
+template <int K, int PER, typename T>
+__global__ void __launch_bounds__(kWarps * 32, 4)
+    rep_mask(const T* __restrict__ pts, Params P, int8_t* __restrict__ mask) {
+  extern __shared__ float s[];
+  const int N = P.N, b = blockIdx.y;
+  constexpr int np = 32 * PER;
+  stage_soa(pts + (long)b * N * 3, 0, N, np, s);
+  __syncthreads();
+  const float *sx = s, *sy = s + np, *sz = s + 2 * np;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* list = s + 3 * np + warp * kList;
+  const bool vec = N % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  for (int rr = warp; rr < kWarps * kRowsPerWarp; rr += kWarps) {
+    const int i = blockIdx.x * (kWarps * kRowsPerWarp) + rr;
+    if (i >= N) break;
+    const float xi = sx[i], yi = sy[i], zi = sz[i];
+    float d[PER];
+#pragma unroll
+    for (int c = 0; c < PER; ++c) {
+      const int j = 32 * c + lane;
+      const float v = d2_of(xi, yi, zi, sx[j], sy[j], sz[j]);
+      d[c] = (j < N && j != i) ? v : inf_f();
+    }
+    int n;
+    const float t = row_threshold<K>(d, lane, list, n);
+    __syncwarp();  // the list is read before the next row writes it
+    MaskRow out{mask + ((long)b * N + i) * N, N, lane, vec};
+#pragma unroll
+    for (int c = 0; c < PER; ++c) out.group(c, d[c] <= t);
+    out.store();
+  }
+}
+
+// B2 above kRegN points: warp per row as rep_fwd_chunked; the threshold from
+// the lanes' top-K over the staged chunks, then the row written chunk by
+// chunk with the chunk's distances computed again.
+template <int K, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    rep_mask_chunked(const T* __restrict__ pts, Params P,
+                     int8_t* __restrict__ mask) {
+  __shared__ float s[3 * kRegN];
+  const int N = P.N, b = blockIdx.y;
+  const T* pb = pts + (long)b * N * 3;
+  const float *sx = s, *sy = s + kRegN, *sz = s + 2 * kRegN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = N % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  // every warp takes kRowsPerWarp turns (the walks synchronise the block);
+  // a row past N, the same for the whole warp, does no work
+  for (int rr = warp; rr < kWarps * kRowsPerWarp; rr += kWarps) {
+    const int i = blockIdx.x * (kWarps * kRowsPerWarp) + rr;
+    const bool valid = i < N;
+    float xi = 0.f, yi = 0.f, zi = 0.f;
+    if (valid) point_of(pb, i, xi, yi, zi);
+    const float t = walk_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi);
+    walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
+      if (!valid) return;
+      MaskRow out{mask + ((long)b * N + i) * N + j0, n, lane, vec};
+#pragma unroll
+      for (int c = 0; c < kRegN / 32; ++c) {
+        const int jj = 32 * c + lane;
+        out.group(c, jj < n && j0 + jj != i &&
+                         d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]) <= t);
+      }
+      out.store();
+    });
   }
 }
 
@@ -899,10 +992,17 @@ int bwd_impl(const void* pts, Params P, const float* thr, const float* frac,
 
 template <int K, typename T>
 int mask_impl(const void* pts, Params P, int8_t* mask, cudaStream_t s) {
-  auto kern = rep_mask<K, T>;
-  IFDEF_LAUNCH(kern, row_grid(P, kRows), kRows,
-               sizeof(float) * 3 * std::min(P.N, kMaskStage), s,
-               static_cast<const T*>(pts), P, mask);
+  const dim3 grid = row_grid(P, kWarps * kRowsPerWarp);
+  if (P.N <= kRegN) {  // the cloud padded to kRegN points, then the lists
+    auto rows = rep_mask<K, kRegN / 32, T>;
+    IFDEF_LAUNCH(rows, grid, kWarps * 32,
+                 sizeof(float) * (3 * kRegN + kWarps * kList), s,
+                 static_cast<const T*>(pts), P, mask);
+  } else {  // chunks of kRegN points in static shared memory
+    auto rows = rep_mask_chunked<K, T>;
+    IFDEF_LAUNCH(rows, grid, kWarps * 32, 0, s, static_cast<const T*>(pts), P,
+                 mask);
+  }
   return 0;
 }
 

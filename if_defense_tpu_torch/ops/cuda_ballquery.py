@@ -4,7 +4,9 @@ Replaces `ballquery_pallas` of `if_defense_tpu/ops/pallas_ballquery.py:71`,
 and the masked XLA path of `if_defense_tpu/ops/pointops.py:323-343`. Takes
 tensors on a CUDA device only; the plain PyTorch version is
 `ops.pointops.query_ball_point_plain`, and `ops.pointops.query_ball_point`
-chooses between the two by the tensor's device.
+chooses between the two by the tensor's device. Any N: the kernel stages
+clouds of up to 12288 points in shared memory and reads larger ones from
+device memory.
 """
 
 from __future__ import annotations
@@ -14,8 +16,6 @@ import ctypes
 import torch
 
 from if_defense_tpu_torch.ops import _build
-
-MAX_N = 12288    # a block stages the cloud: 16 B a point, 192 KB
 
 # kernel launches, counted where they happen
 launches = {"ballquery": 0}
@@ -44,8 +44,6 @@ def ballquery_cuda(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError("points and centres must be contiguous")
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
-    if N > MAX_N:
-        raise ValueError(f"N={N} exceeds the kernel's limit of {MAX_N}")
     if B > 65535 or nsample < 1:
         raise ValueError(f"B={B} must be <= 65535 and nsample={nsample} >= 1")
     valid = None

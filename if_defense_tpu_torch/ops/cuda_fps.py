@@ -5,23 +5,29 @@ masked lax path of `if_defense_tpu/ops/pointops.py:252-273`. Takes tensors
 on a CUDA device only; the plain PyTorch version is
 `ops.pointops.farthest_point_sample_plain`, and
 `ops.pointops.farthest_point_sample` chooses between the two by the
-tensor's device.
+tensor's device. Any N: above the kernel's register tier the running
+minima live in a `[B, N]` f32 scratch buffer that the wrapper allocates.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from if_defense_tpu_torch.ops import _build
 
-MAX_N = 16384    # 32 registers a thread x 512 threads; 192 KB of shared memory
-
 # kernel launches, counted where they happen
 launches = {"fps": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _register_n() -> int:
+    """The largest N whose running minima the kernel keeps in registers."""
+    return _build.bind("fps", "ifdef_fps_register_n", [])()
 
 
 def fps_cuda(xyz: torch.Tensor, npoint: int,
@@ -42,8 +48,6 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
     if not xyz.is_contiguous():
         raise ValueError("points must be contiguous")
     B, N, _ = xyz.shape
-    if N > MAX_N:
-        raise ValueError(f"N={N} exceeds the kernel's limit of {MAX_N}")
     if npoint < 1:
         raise ValueError(f"npoint={npoint} must be positive")
     valid = start = None
@@ -58,10 +62,13 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
         if not bool(((start >= 0) & (start < N)).all()):
             raise ValueError(f"start_idx must lie in [0, {N})")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    fn = _build.bind("fps", "ifdef_fps", [_P, _P, _P, _I, _I, _I, _P, _P])
+    dist = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+            if N > _register_n() else None)
+    fn = _build.bind("fps", "ifdef_fps", [_P, _P, _P, _I, _I, _I, _P, _P, _P])
     err = fn(xyz.data_ptr(), None if valid is None else valid.data_ptr(),
              None if start is None else start.data_ptr(), B, N, npoint,
-             out.data_ptr(), torch.cuda.current_stream(xyz.device).cuda_stream)
+             out.data_ptr(), None if dist is None else dist.data_ptr(),
+             torch.cuda.current_stream(xyz.device).cuda_stream)
     launches["fps"] += 1
     _build.check("fps", err, "fps")
     return out

@@ -13,8 +13,9 @@ against the plain version on f32 copies, cast once (the kernel's math is
 f32): output bit-equal in f32, gradients to p rtol 1e-4 and
 to the planes atol 1e-5 of the largest entry (sums in other orders), rtol
 2^-7 in bf16, and bit-identical from one launch to the next; B5 (FPS) and
-B6 (ball query)
-indices bit-equal at PU-Net's four set-abstraction shapes, masked and not.
+B6 (ball query) indices bit-equal at PU-Net's four set-abstraction shapes
+and past the sizes their kernels keep in registers and shared memory,
+masked and not; B2 and B5 bit-identical from one launch to the next.
 """
 
 import numpy as np
@@ -291,6 +292,86 @@ def test_cuda_ballquery_matches_plain(cuda, masked):
                                                        mask))
 
 
+@pytest.mark.parametrize("n", [8192, 8193, 16385, 40000])
+def test_cuda_fps_any_n(cuda, n):
+    """B5 at the register tier's largest cloud (8192 points, 1024 threads)
+    and above it, where the running minima live in device memory: indices
+    bit-equal to the plain version, unmasked, masked and from `start_idx`;
+    two launches give the same bits."""
+    from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.normal(size=(2, n, 3)) * 0.3).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(2, n)) > 0.2).to(cuda)
+    mask[1, :7] = False
+    mask[1, 7] = True
+    start = torch.tensor([n - 1, 12345 % n], device=cuda)
+    for m, st in ((None, None), (mask, None), (None, start), (mask, start)):
+        got = fps_cuda(x, 512, st, m)
+        assert torch.equal(got, farthest_point_sample_plain(x, 512, st, m))
+        assert torch.equal(got, fps_cuda(x, 512, st, m))
+    assert int(fps_cuda(x, 512, mask=mask)[1, 0]) == 7
+
+
+@pytest.mark.parametrize("n", [1024, 40000])
+def test_cuda_fps_degenerate_clouds(cuda, n):
+    """B5 on a cloud whose points all coincide (every distance 0 after the
+    first pick: index 0 again and again) and on a wholly invalid cloud
+    (every key -inf: index 0 throughout), in both tiers, as the plain
+    version."""
+    from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
+
+    x = torch.full((2, n, 3), 0.25, device=cuda)
+    x[1] = torch.linspace(-1, 1, n, device=cuda)[:, None]
+    mask = torch.ones((2, n), dtype=torch.bool, device=cuda)
+    mask[1] = False
+    for m in (None, mask):
+        got = fps_cuda(x, 300, mask=m)
+        assert torch.equal(got, farthest_point_sample_plain(x, 300, mask=m))
+    assert bool((fps_cuda(x, 300)[0] == 0).all())
+    assert bool((fps_cuda(x, 300, mask=mask)[1] == 0).all())
+
+
+@pytest.mark.parametrize("n", [12288, 12289, 40000])
+def test_cuda_ballquery_any_n(cuda, n):
+    """B6 at the largest cloud it stages in shared memory and above it,
+    where the warps read the points from device memory (B = 2, 512 centres,
+    32 slots): groups bit-equal to the plain version, masked and not."""
+    from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.normal(size=(2, n, 3)) * 0.3).astype(
+        np.float32)).to(cuda)
+    q = x[:, :512].contiguous()
+    q[:, :4] += 5.0                                        # no hit
+    mask = torch.from_numpy(rng.uniform(size=(2, n)) > 0.2).to(cuda)
+    for m in (None, mask):
+        for radius in (0.05, 0.2):
+            got = ballquery_cuda(radius, 32, x, q, m)
+            assert torch.equal(got, query_ball_point_plain(radius, 32, x, q,
+                                                           m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1000, 1024, 2000])
+def test_cuda_repulsion_mask_rows(cuda, n, dtype):
+    """B2 where rows are 16-byte aligned (1024, and 2000 in chunks above
+    1024 points) and where they are not (1000: byte stores), for k in
+    {1, 5, 8}: bit-equal to the plain version, on random points with
+    duplicates and on a lattice (ties at every threshold); two launches
+    give the same bits."""
+    from if_defense_tpu_torch.ops.cuda_repulsion import repulsion_mask_cuda
+
+    for pts in (_points(n, n), _lattice(n, n)):
+        pc = torch.from_numpy(pts).to(cuda, dtype)
+        for k in (1, 5, 8):
+            got = repulsion_mask_cuda(pc, k)
+            assert torch.equal(got, repulsion_mask(pc, k))
+            assert torch.equal(got, repulsion_mask_cuda(pc, k))
+            assert int(got.diagonal(dim1=1, dim2=2).abs().sum()) == 0
+
+
 def test_cuda_wrappers_refuse(cuda):
     from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
     from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
@@ -310,10 +391,10 @@ def test_cuda_wrappers_refuse(cuda):
         plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 6, device=cuda)})
     with pytest.raises(ValueError, match="among"):
         plane_features_cuda(p, {"grid": torch.zeros(1, 8, 8, 4, device=cuda)})
-    with pytest.raises(ValueError, match="16384"):
-        fps_cuda(torch.zeros(1, 16385, 3, device=cuda), 8)
-    with pytest.raises(ValueError, match="12288"):
-        ballquery_cuda(0.1, 8, torch.zeros(1, 12289, 3, device=cuda),
-                       torch.zeros(1, 4, 3, device=cuda))
+    with pytest.raises(ValueError, match="65535"):
+        ballquery_cuda(0.1, 8, torch.zeros(65536, 4, 3, device=cuda),
+                       torch.zeros(65536, 1, 3, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        fps_cuda(torch.zeros(1, 3, 16, device=cuda).transpose(1, 2), 8)
     with pytest.raises(TypeError, match="float32"):
         fps_cuda(torch.zeros(1, 16, 3, device=cuda, dtype=torch.float64), 8)

@@ -92,15 +92,23 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("case", ["random", "duplicates", "masked", "start"])
+@pytest.mark.parametrize("case", ["random", "duplicates", "masked", "start",
+                                  "large", "large_masked"])
 def test_fps_plain_matches_jax(case):
     """Indices identical to the lax path and, unmasked, to the Pallas
     kernel. `duplicates` is a cloud padded by duplication and sampled to
     its full size: once every distance is 0 the pick is index 0, again and
-    again."""
+    again. `large` clouds (16400 points) lie past the sizes that the CUDA
+    kernel keeps in registers and shared memory, where JAX takes its lax
+    path; the card tests hold the kernel to this plain version there."""
     x = _clouds()
     npoint, mask, start = 64, None, None
-    if case == "duplicates":
+    if case.startswith("large"):
+        x = _clouds(b=2, n=16400, seed=5)
+        npoint = 16
+        if case == "large_masked":
+            mask = _mask(n=16400)[:2]      # cloud 1 starts with invalid points
+    elif case == "duplicates":
         x = np.concatenate([x[:, :128], x[:, :128]], axis=1)
         npoint = 256
     elif case == "masked":
@@ -125,6 +133,8 @@ def test_fps_plain_matches_jax(case):
     if case == "masked":
         assert (got[2] == 0).all() and got[1, 0] == 5
         assert mask[np.arange(4)[:, None], got][[0, 1, 3]].all()
+    if case == "large_masked":
+        assert got[1, 0] == 5 and mask[np.arange(2)[:, None], got].all()
 
 
 def _assert_same_groups(got, want, x, q, radius):
@@ -138,12 +148,20 @@ def _assert_same_groups(got, want, x, q, radius):
         assert (np.abs(d2[b, s] - radius ** 2) <= 1e-6).any(), (b, s)
 
 
-@pytest.mark.parametrize("case", ["levels", "no_hit", "small_tile", "masked"])
+@pytest.mark.parametrize("case", ["levels", "no_hit", "small_tile", "masked",
+                                  "large"])
 def test_ball_query_plain_matches_jax(case):
+    """Groups identical to JAX's XLA path and, unmasked, to the Pallas
+    kernel; `large` (16400 points, 8 centres) lies past the cloud that the
+    CUDA kernel stages in shared memory, and there JAX's XLA path alone is
+    the reference."""
     x = _clouds()
     q = x[:, ::4].copy()                                   # [4, 64, 3]
     mask = None
-    if case == "no_hit":
+    if case == "large":
+        x = _clouds(b=1, n=16400, seed=6)
+        q = x[:, ::2050].copy()                            # [1, 8, 3]
+    elif case == "no_hit":
         q[:, :8] += 5.0                                    # far from all
     elif case == "masked":
         mask = _mask()
@@ -151,12 +169,12 @@ def test_ball_query_plain_matches_jax(case):
         got = query_ball_point_plain(
             radius, nsample, _t(x), _t(q),
             None if mask is None else _t(mask)).numpy()
-        assert got.dtype == np.int32 and got.shape == (4, 64, nsample)
+        assert got.dtype == np.int32 and got.shape == (*q.shape[:2], nsample)
         want = np.asarray(jax_ball_query(
             radius, nsample, jnp.asarray(x), jnp.asarray(q),
             mask=None if mask is None else jnp.asarray(mask)))
         _assert_same_groups(got, want, x, q, radius)
-        if mask is None:
+        if mask is None and case != "large":
             tile = 8 if case == "small_tile" else 64
             kern = np.asarray(ballquery_pallas(
                 radius, nsample, jnp.asarray(x), jnp.asarray(q),
