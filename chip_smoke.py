@@ -33,11 +33,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      PU-Net's four set-abstraction levels, on the level inputs of one batch
      (128) of phase 7's clouds, unmasked and masked: indices bit-equal;
      times both, and B5 per step (device time over the 1920 steps, the SM
-     clock sampled by nvidia-smi beside the window); then past the sizes
-     the kernels keep in registers and shared memory, B5 at N = 16385 and
-     40000 (B=2, npoint 512, also from `start_idx`) and B6 at N = 12289
-     and 40000 (B=2, 512 centres, 32 slots), masked and not, bit-equal and
-     timed once for information;
+     clock sampled by nvidia-smi beside the window; B6's mean scan length
+     and its warps a group of 32 centres); then B6 at the victims' shapes
+     (B=32 of the same clouds normalised to the unit sphere: PointNet++
+     SA1/SA2 at r 0.2/0.4 and 32/64 slots, RS-CNN at r 0.23/0.32 and 48/64
+     slots), masked and not, bit-equal and timed for information (not
+     summed into B6's row); then past the sizes the kernels keep in
+     registers and shared memory, B5 at N = 16385 and 40000 (B=2, npoint
+     512, also from `start_idx`) and B6 at N = 12289 and 40000 (B=2, 512
+     centres, 32 slots, several staged chunks), masked and not, bit-equal
+     and timed once for information;
   6. checks DUP-Net on a small input (B=2, N=1024, the repository's PU-Net
      weights, the same resampling draws) against the port's CPU run;
   7. writes a synthetic npz (256 clouds x 1024 points) and runs
@@ -133,6 +138,12 @@ B, N, R, C = 48, 1024, 64, 32
 LR, SMALL_ITERS = 1e-3, 5
 DUP_B, DUP_CLOUDS = 128, 256             # defend_npz's batch; clouds in its file
 SA_LEVELS = ((1024, 0.05), (512, 0.1), (256, 0.2), (128, 0.3))
+# the victims' ball queries at cli/inference.py's batch: (centres, radius,
+# nsample) of set-abstraction levels 1 and 2 (models/pointnet2.py:153,156,
+# models/rscnn.py:95,98); level 2 groups level 1's centres
+VICTIM_B = 32
+VICTIM_LEVELS = (("PointNet++", ((512, 0.2, 32), (128, 0.4, 64))),
+                 ("RS-CNN", ((512, 0.23, 48), (128, 0.32, 64))))
 NEAR_FACTOR = 1.5
 PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
 TB, TQ = 32, 2048                        # train_implicit's batch and queries
@@ -598,6 +609,43 @@ def sa_level_inputs(dev, clouds: np.ndarray):
     return levels
 
 
+def victim_level_inputs(dev, clouds: np.ndarray):
+    """The victims' ball-query inputs: the first VICTIM_B clouds normalised
+    to the unit sphere, each level's centres by FPS (plain version) of its
+    points. -> [(name, points [B, N, 3], centres [B, S, 3], radius,
+    nsample)]."""
+    from if_defense_tpu_torch.ops import (
+        farthest_point_sample_plain,
+        index_points,
+        normalize_unit_sphere,
+    )
+
+    x0 = normalize_unit_sphere(torch.from_numpy(clouds[:VICTIM_B]).to(dev))
+    out = []
+    for model, levels in VICTIM_LEVELS:
+        xyz = x0
+        for i, (npoint, radius, nsample) in enumerate(levels):
+            new = index_points(xyz, farthest_point_sample_plain(xyz, npoint))
+            out.append((f"{model} SA{i + 1}", xyz, new, radius, nsample))
+            xyz = new
+    return out
+
+
+def ballquery_work(xyz, new, radius: float, nsample: int):
+    """(flops, bytes, mean points scanned a centre) of a ball query on these
+    inputs: a centre scans up to its nsample-th hit, which is its last slot
+    when that slot differs from slot 0, else the whole cloud."""
+    from if_defense_tpu_torch.ops import query_ball_point_plain
+
+    b, n, _ = xyz.shape
+    s = new.shape[1]
+    idx = query_ball_point_plain(radius, nsample, xyz, new)
+    scanned = torch.where(idx[..., -1] != idx[..., 0], idx[..., -1] + 1, n)
+    return (9 * float(scanned.sum()) + 5 * b * (n + s),
+            12 * b * (n + s) + 4 * b * s * nsample,
+            float(scanned.float().mean()))
+
+
 def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
     """B5 and B6 against their plain versions at each SA level, unmasked
     and masked (~90 % valid, the last cloud with none): indices bit-equal.
@@ -629,6 +677,7 @@ def check_pointops(dev, clouds: np.ndarray) -> list[dict]:
     print(f"  B5 per step: {tot['fps']['device_ms']:.4f} ms over {steps} "
           f"dependent steps = {1e3 * tot['fps']['device_ms'] / steps:.4f} us "
           f"a step ({clock.text()}, sampled while phase 5's levels ran)")
+    check_victim_levels(dev, clouds)
     check_pointops_large(dev)
     return rows
 
@@ -660,13 +709,9 @@ def check_sa_levels(dev, clouds: np.ndarray, gen, tot: dict) -> list:
             if diff:
                 fail(f"B5/B6 disagree with their plain versions at level "
                      f"{level} ({tag})")
-        # ball-query work: a centre scans up to its 32nd hit, which is slot
-        # 31 when that slot differs from slot 0, else the whole cloud
-        idx = query_ball_point_plain(radius, 32, xyz, new)
-        scanned = torch.where(idx[..., 31] != idx[..., 0], idx[..., 31] + 1, n)
+        bq_flops, bq_bytes, scanned = ballquery_work(xyz, new, radius, 32)
         work = {"fps": (10 * b * n * s, 12 * b * n + 4 * b * s),
-                "ballquery": (9 * float(scanned.sum()) + 5 * b * (n + s),
-                              12 * b * (n + s) + 4 * b * s * 32)}
+                "ballquery": (bq_flops, bq_bytes)}
         calls = {
             "fps": (lambda: fps_cuda(xyz, s),
                     lambda: farthest_point_sample_plain(xyz, s),
@@ -685,10 +730,45 @@ def check_sa_levels(dev, clouds: np.ndarray, gen, tot: dict) -> list:
                 tot[k][key] += t[key]
             tot[k]["flops"] += work[k][0]
             tot[k]["bytes"] += work[k][1]
-        print(f"  level {level}: a centre scans "
-              f"{float(scanned.float().mean()):.1f} of {n} points on average")
+        print(f"  level {level}: a centre scans {scanned:.1f} of {n} points "
+              "on average")
         levels.append((n, s))
     return levels
+
+
+def check_victim_levels(dev, clouds: np.ndarray) -> None:
+    """B6 at the victims' set-abstraction shapes (`victim_level_inputs`),
+    unmasked and masked (~90 % valid, the last cloud with none): indices
+    bit-equal to the plain version; timed like a level of `check_sa_levels`,
+    for information (not summed into the B6 row)."""
+    from if_defense_tpu_torch.ops import query_ball_point_plain
+    from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, xyz, new, radius, ns in victim_level_inputs(dev, clouds):
+        b, n, _ = xyz.shape
+        s = new.shape[1]
+        mask = torch.rand((b, n), generator=gen, device=dev) > 0.1
+        mask[-1] = False
+        for tag, m in (("unmasked", None), ("masked", mask)):
+            diff = int((ballquery_cuda(radius, ns, xyz, new, m)
+                        != query_ball_point_plain(radius, ns, xyz, new, m))
+                       .sum())
+            print(f"  {name} [{b}, {n}] -> {s}, r {radius}, nsample {ns} "
+                  f"{tag}: {diff} indices differ (bit-equal required)")
+            if diff:
+                fail(f"B6 disagrees with its plain version at {name} ({tag})")
+        flops, nbytes, scanned = ballquery_work(xyz, new, radius, ns)
+        print(f"  {name} ballquery:")
+        t = kernel_times(lambda: ballquery_cuda(radius, ns, xyz, new),
+                         lambda: query_ball_point_plain(radius, ns, xyz, new),
+                         lambda: ballquery_cuda(radius, ns, xyz, new),
+                         ("ballquery_kernel",))
+        bound_ms, by = bound(flops, nbytes)
+        print(f"  {name} ballquery: device {t['device_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by}, share "
+              f"{bound_ms / t['device_ms']:.3f}); a centre scans "
+              f"{scanned:.1f} of {n} points on average")
 
 
 def check_pointops_large(dev) -> None:

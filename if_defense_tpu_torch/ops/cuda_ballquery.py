@@ -4,9 +4,10 @@ Replaces `ballquery_pallas` of `if_defense_tpu/ops/pallas_ballquery.py:71`,
 and the masked XLA path of `if_defense_tpu/ops/pointops.py:323-343`. Takes
 tensors on a CUDA device only; the plain PyTorch version is
 `ops.pointops.query_ball_point_plain`, and `ops.pointops.query_ball_point`
-chooses between the two by the tensor's device. Any N: the kernel stages
-clouds of up to 12288 points in shared memory and reads larger ones from
-device memory.
+chooses between the two by the tensor's device. Any B, N, S and nsample:
+the kernel scans one centre a thread over the cloud staged in shared
+memory, 4096 points at a time, with 1, 2, 4 or 8 warps on each group of 32
+centres (more where the centres are few).
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ def ballquery_cuda(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError("points and centres must be contiguous")
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
-    if B > 65535 or nsample < 1:
-        raise ValueError(f"B={B} must be <= 65535 and nsample={nsample} >= 1")
+    if nsample < 1:
+        raise ValueError(f"nsample={nsample} must be >= 1")
     valid = None
     if mask is not None:
         if tuple(mask.shape) != (B, N) or mask.device != xyz.device:

@@ -15,7 +15,11 @@ to the planes atol 1e-5 of the largest entry (sums in other orders), rtol
 2^-7 in bf16, and bit-identical from one launch to the next; B5 (FPS) and
 B6 (ball query) indices bit-equal at PU-Net's four set-abstraction shapes
 and past the sizes their kernels keep in registers and shared memory,
-masked and not; B2 and B5 bit-identical from one launch to the next.
+masked and not; B6 also at the victims' radii with 48-128 slots that
+centres fill (slots past those a block keeps in shared memory too), at
+ragged N and S, at shapes where the kernel sets 1, 2, 4 and 8 warps on
+a group of centres, and at B = 65536; B2, B5 and B6 bit-identical from one launch
+to the next.
 """
 
 import numpy as np
@@ -38,6 +42,16 @@ pytestmark = pytest.mark.cuda
 # PU-Net's set-abstraction levels: (input points, centres, radius)
 SA_LEVELS = ((1024, 1024, 0.05), (1024, 512, 0.1), (512, 256, 0.2),
              (256, 128, 0.3))
+
+
+def _warps_a_group(b, n, s):
+    """The warps that B6 sets on each group of 32 centres for these shapes
+    (`csrc/ballquery.cu` `auto_splits`): more where the centres are few, no
+    more than a chunk's 32-point steps allow."""
+    warps, steps, p = b * -(-s // 32), -(-min(n, 4096) // 32), 1
+    while warps < 2048 and p < 8 and warps * p < 4096 and 2 * p <= steps:
+        p *= 2
+    return p
 
 
 @pytest.fixture
@@ -333,24 +347,102 @@ def test_cuda_fps_degenerate_clouds(cuda, n):
     assert bool((fps_cuda(x, 300, mask=mask)[1] == 0).all())
 
 
-@pytest.mark.parametrize("n", [12288, 12289, 40000])
+@pytest.mark.parametrize("n", [4096, 4097, 12288, 12289, 40000])
 def test_cuda_ballquery_any_n(cuda, n):
-    """B6 at the largest cloud it stages in shared memory and above it,
-    where the warps read the points from device memory (B = 2, 512 centres,
-    32 slots): groups bit-equal to the plain version, masked and not."""
+    """B6 at the largest cloud it stages in shared memory at once (4096
+    points) and above it, where it stages the cloud chunk after chunk (B =
+    2, 512 centres, 32 slots: 8 warps a group of centres; up to 4097 points
+    also B = 64, 1024 centres: one warp a group): groups bit-equal to the
+    plain version, masked and not."""
     from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
 
     rng = np.random.default_rng(n)
-    x = torch.from_numpy((rng.normal(size=(2, n, 3)) * 0.3).astype(
+    for b, s in ((2, 512), (64, 1024))[:2 if n <= 4097 else 1]:
+        x = torch.from_numpy((rng.normal(size=(b, n, 3)) * 0.3).astype(
+            np.float32)).to(cuda)
+        q = x[:, :s].contiguous()
+        q[:, :4] += 5.0                                    # no hit
+        mask = torch.from_numpy(rng.uniform(size=(b, n)) > 0.2).to(cuda)
+        assert _warps_a_group(b, n, s) == (8 if b == 2 else 1)
+        for m in (None, mask):
+            for radius in (0.05, 0.2):
+                got = ballquery_cuda(radius, 32, x, q, m)
+                assert torch.equal(got, query_ball_point_plain(radius, 32, x,
+                                                               q, m))
+
+
+def _unit_sphere_clouds(seed, b, n):
+    """b clouds of n points on ellipsoids with 8 outliers each (as
+    `chip_smoke.py`'s), normalised to the unit sphere as a victim sees
+    them: dense enough at its radii that most centres fill their slots."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(b, n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pc = d * rng.uniform(0.3, 1.0, (b, 1, 3))
+    pc[:, :8] *= 3.0
+    pc -= pc.mean(axis=1, keepdims=True)
+    pc /= np.linalg.norm(pc, axis=-1).max(axis=1)[:, None, None]
+    return pc.astype(np.float32)
+
+
+@pytest.mark.parametrize("nsample,radius", [(32, 0.2), (48, 0.23),
+                                            (64, 0.4), (64, 0.32),
+                                            (128, 0.4)])
+def test_cuda_ballquery_victim_slots(cuda, nsample, radius):
+    """B6 at the victims' radii (PointNet++ 0.2 / 0.4, RS-CNN 0.23 / 0.32)
+    with 32-128 slots on unit-sphere clouds where most centres fill them
+    (the early exit): bit-equal to the plain version, masked (a cloud with
+    no valid point) and not, at 4 clouds of 512 centres, 64 of 512 and 64
+    of 1024, where the kernel sets 8, 4 and 1 warps on a group of centres
+    (at 1, a block keeps 35 slots a centre in shared memory and stores the
+    rest straight to the output); two launches give the same bits."""
+    from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+
+    x = torch.from_numpy(_unit_sphere_clouds(nsample, 64, 1024)).to(cuda)
+    mask = torch.from_numpy(np.random.default_rng(5).uniform(
+        size=(64, 1024)) > 0.2).to(cuda)
+    mask[2] = False
+    for b, every, warps in ((4, 2, 8), (64, 2, 4), (64, 1, 1)):
+        q = x[:b, ::every].contiguous()
+        q[:, :3] += 3.0                                    # no hit
+        assert _warps_a_group(b, 1024, q.shape[1]) == warps
+        for m in (None, mask[:b]):
+            want = query_ball_point_plain(radius, nsample, x[:b], q, m)
+            if m is None:   # most centres fill their slots
+                assert float((want[..., -1] != want[..., 0]).float()
+                             .mean()) > 0.5
+            got = ballquery_cuda(radius, nsample, x[:b], q, m)
+            assert torch.equal(got, want)
+            assert torch.equal(ballquery_cuda(radius, nsample, x[:b], q, m),
+                               got)
+
+
+@pytest.mark.parametrize("b,n,s,warps", [
+    (3, 20, 5, 1), (3, 37, 5, 2), (3, 100, 33, 4), (3, 1000, 129, 8),
+    (3, 1030, 1030, 8), (3, 513, 70, 8), (40, 1000, 1000, 4),
+    (64, 1030, 1030, 1)])
+def test_cuda_ballquery_ragged_shapes(cuda, b, n, s, warps):
+    """B6 where N and S are not multiples of 32 or of a block's 32-256
+    centres, with 1, 7 and 33 slots, at shapes where the kernel sets 1, 2,
+    4 and 8 warps on a group of centres: bit-equal to the plain version,
+    masked (a cloud with no valid point) and not; two launches give the
+    same bits."""
+    from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+
+    assert _warps_a_group(b, n, s) == warps
+    rng = np.random.default_rng(n + s)
+    x = torch.from_numpy((rng.normal(size=(b, n, 3)) * 0.3).astype(
         np.float32)).to(cuda)
-    q = x[:, :512].contiguous()
-    q[:, :4] += 5.0                                        # no hit
-    mask = torch.from_numpy(rng.uniform(size=(2, n)) > 0.2).to(cuda)
+    q = torch.from_numpy((rng.normal(size=(b, s, 3)) * 0.3).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) > 0.3).to(cuda)
+    mask[1] = False
     for m in (None, mask):
-        for radius in (0.05, 0.2):
-            got = ballquery_cuda(radius, 32, x, q, m)
-            assert torch.equal(got, query_ball_point_plain(radius, 32, x, q,
-                                                           m))
+        for nsample, radius in ((1, 0.1), (7, 0.3), (33, 0.5)):
+            want = query_ball_point_plain(radius, nsample, x, q, m)
+            got = ballquery_cuda(radius, nsample, x, q, m)
+            assert torch.equal(got, want)
+            assert torch.equal(ballquery_cuda(radius, nsample, x, q, m), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -391,9 +483,14 @@ def test_cuda_wrappers_refuse(cuda):
         plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 6, device=cuda)})
     with pytest.raises(ValueError, match="among"):
         plane_features_cuda(p, {"grid": torch.zeros(1, 8, 8, 4, device=cuda)})
-    with pytest.raises(ValueError, match="65535"):
-        ballquery_cuda(0.1, 8, torch.zeros(65536, 4, 3, device=cuda),
-                       torch.zeros(65536, 1, 3, device=cuda))
+    # no batch limit: B = 65536 clouds of 4 points, bit-equal
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.2, 0.2, (65536, 4, 3)).astype(np.float32)).to(cuda)
+    q = x[:, 1:3].contiguous()
+    assert torch.equal(ballquery_cuda(0.1, 8, x, q),
+                       query_ball_point_plain(0.1, 8, x, q))
+    with pytest.raises(ValueError, match="nsample=0"):
+        ballquery_cuda(0.1, 0, x, q)
     with pytest.raises(ValueError, match="contiguous"):
         fps_cuda(torch.zeros(1, 3, 16, device=cuda).transpose(1, 2), 8)
     with pytest.raises(TypeError, match="float32"):

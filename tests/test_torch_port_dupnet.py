@@ -148,16 +148,34 @@ def _assert_same_groups(got, want, x, q, radius):
         assert (np.abs(d2[b, s] - radius ** 2) <= 1e-6).any(), (b, s)
 
 
+def _dense_clouds(b=2, n=1024, seed=8):
+    """b clouds of n points on ellipsoids with 8 outliers each, normalised
+    to the unit sphere as a victim sees them: at the victims' radii most
+    centres find more hits than they have slots."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(b, n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pc = d * rng.uniform(0.3, 1.0, (b, 1, 3))
+    pc[:, :8] *= 3.0
+    pc -= pc.mean(axis=1, keepdims=True)
+    pc /= np.linalg.norm(pc, axis=-1).max(axis=1)[:, None, None]
+    return pc.astype(np.float32)
+
+
 @pytest.mark.parametrize("case", ["levels", "no_hit", "small_tile", "masked",
-                                  "large"])
+                                  "large", "dense_0.2_32", "dense_0.23_48",
+                                  "dense_0.4_64", "dense_0.32_64"])
 def test_ball_query_plain_matches_jax(case):
     """Groups identical to JAX's XLA path and, unmasked, to the Pallas
     kernel; `large` (16400 points, 8 centres) lies past the cloud that the
     CUDA kernel stages in shared memory, and there JAX's XLA path alone is
-    the reference."""
+    the reference. `dense_<radius>_<nsample>`: the victims' ball queries
+    (PointNet++ 0.2 / 32 and 0.4 / 64, RS-CNN 0.23 / 48 and 0.32 / 64) on
+    unit-sphere clouds where most centres fill their slots."""
     x = _clouds()
     q = x[:, ::4].copy()                                   # [4, 64, 3]
     mask = None
+    pairs = ((0.05, 32), (0.1, 32), (0.2, 32), (0.3, 16))
     if case == "large":
         x = _clouds(b=1, n=16400, seed=6)
         q = x[:, ::2050].copy()                            # [1, 8, 3]
@@ -165,7 +183,12 @@ def test_ball_query_plain_matches_jax(case):
         q[:, :8] += 5.0                                    # far from all
     elif case == "masked":
         mask = _mask()
-    for radius, nsample in ((0.05, 32), (0.1, 32), (0.2, 32), (0.3, 16)):
+    elif case.startswith("dense"):
+        x = _dense_clouds()
+        q = x[:, ::16].copy()                              # [2, 64, 3]
+        _, radius, nsample = case.split("_")
+        pairs = ((float(radius), int(nsample)),)
+    for radius, nsample in pairs:
         got = query_ball_point_plain(
             radius, nsample, _t(x), _t(q),
             None if mask is None else _t(mask)).numpy()
@@ -180,6 +203,8 @@ def test_ball_query_plain_matches_jax(case):
                 radius, nsample, jnp.asarray(x), jnp.asarray(q),
                 tile_s=tile, interpret=True))
             _assert_same_groups(got, kern, x, q, radius)
+        if case.startswith("dense"):        # most centres fill their slots
+            assert (got[..., -1] != got[..., 0]).mean() > 0.5
         if case == "no_hit":
             assert (got[:, :8] == 0).all()
         if case == "masked":                # only valid points, or no hit

@@ -11,7 +11,10 @@ device time of the kernels named), the device ms per call of:
 - B1 forward + backward (f32) and B2 (f32 and bf16) at B=48, N=1024, on
   `chip_smoke.py` phase 2's random points;
 - B5 and B6 (unmasked) at PU-Net's four set-abstraction levels of one
-  batch of 128 of `chip_smoke.py` phase 7's clouds, and their sums.
+  batch of 128 of `chip_smoke.py` phase 7's clouds, and their sums;
+- B6 at the victims' shapes (`chip_smoke.py` `victim_level_inputs`: 32 of
+  those clouds normalised to the unit sphere, PointNet++ and RS-CNN
+  set-abstraction levels 1 and 2), each on its own line and in no sum.
 Prints one line per reading with the four turns' values, and the SM clock
 that nvidia-smi read during each turn. The card's name and power limit come
 first.
@@ -59,8 +62,8 @@ def readings(tree: str) -> dict:
     pts[:, cs.N - 24:] = pts[:, :24]
     pts = torch.from_numpy(pts).to(dev)
     w = torch.from_numpy(gen.uniform(0.5, 1.5, cs.B).astype(np.float32)).to(dev)
-    levels = cs.sa_level_inputs(
-        dev, cs.ellipsoids(np.random.default_rng(7), cs.DUP_CLOUDS)[:cs.DUP_B])
+    clouds = cs.ellipsoids(np.random.default_rng(7), cs.DUP_CLOUDS)
+    levels = cs.sa_level_inputs(dev, clouds[:cs.DUP_B])
     calls = {"B1 f32": (lambda: cs.bare_grad(cr.repulsion_loss_cuda, pts, w),
                         ("rep_fwd", "rows_to_loss", "rep_bwd"))}
     for dt in (torch.float32, torch.bfloat16):
@@ -74,6 +77,10 @@ def readings(tree: str) -> dict:
         calls[f"B6 level {i}"] = (
             lambda xyz=xyz, new=new, r=radius: ballquery_cuda(r, 32, xyz, new),
             ("ballquery_kernel",))
+    for name, xyz, new, radius, ns in cs.victim_level_inputs(dev, clouds):
+        calls[f"B6 {name}"] = (
+            lambda xyz=xyz, new=new, r=radius, ns=ns: ballquery_cuda(
+                r, ns, xyz, new), ("ballquery_kernel",))
     out = {}
     with cs.SmClock() as clock:
         for name, (fn, names) in calls.items():
