@@ -34,11 +34,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      (128) of phase 7's clouds, unmasked and masked: indices bit-equal;
      times both, and B5 per step (device time over the 1920 steps, the SM
      clock sampled by nvidia-smi beside the window; B6's mean scan length
-     and its warps a group of 32 centres); then B6 at the victims' shapes
-     (B=32 of the same clouds normalised to the unit sphere: PointNet++
-     SA1/SA2 at r 0.2/0.4 and 32/64 slots, RS-CNN at r 0.23/0.32 and 48/64
-     slots), masked and not, bit-equal and timed for information (not
-     summed into B6's row); then past the sizes the kernels keep in
+     and its warps a group of 32 centres); then B5 and B6 at the victims'
+     shapes (B=32 of the same clouds normalised to the unit sphere: FPS
+     1024 -> 512 -> 128, PointNet++ SA1/SA2 at r 0.2/0.4 and 32/64 slots,
+     RS-CNN at r 0.23/0.32 and 48/64 slots), masked and not, bit-equal, B6
+     timed for information (not summed into B6's row); then past the sizes the kernels keep in
      registers and shared memory, B5 at N = 16385 and 40000 (B=2, npoint
      512, also from `start_idx`) and B6 at N = 12289 and 40000 (B=2, 512
      centres, 32 slots, several staged chunks), masked and not, bit-equal
@@ -76,10 +76,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      runs `if_defense_tpu_torch.cli.opt_defense --variant onet` on phase 4's
      clouds (48 x 1024) with the ONet weights phase 10 trained, 201 steps in
      the reference mode, with B1's launch counter set to 0 just before and
-     read just after (first run), then again (warm run).
-The last lines are the rates, the defense step profiles, the card's name
-and power limit, one JSON line of the kernels, and `{"ok": true,
-"device": {...}}`.
+     read just after (first run), then again (warm run);
+ 12. the victims (PointNet, PointNet++, DGCNN, PointConv, RS-CNN) at their
+     published widths, weights from the port's seeded init with batch-norm
+     statistics calibrated on the clouds and perturbed: (a) each on a small
+     batch (B=4, N=1024), CUDA against the port's CPU path, unmasked and
+     masked, logits within rtol and atol 1e-3 (of the largest magnitude);
+     (b) `if_defense_tpu_torch.cli.inference` for each on 320 of phase 7's
+     clouds in the unit sphere (40 classes, a target label), batch 32,
+     normal mode (B5/B6 launch counters set to 0 just before and read just
+     after: PointNet++ and RS-CNN 20 each, PointConv 20 and 0, PointNet
+     and DGCNN none) then target mode, clouds/s by the host clock around
+     main(); the target run held against the port's CPU path on the same
+     npz and checkpoint: every cloud's logits at batch 32 within (a)'s
+     tolerance with the card on the CPU's kNN graphs, the card's own graphs
+     equal to the CPU's but at near ties, its predictions equal but where
+     its graph differs or the CPU's two best classes tie within 2 atol, and
+     the CLI's accuracy and target success equal to the CPU's but for the
+     clouds whose predictions differ; (c) a profile of one warm PointNet++ and one warm DGCNN batch;
+     (d) B1-B3 at k = 9, 16 and 33 (above the register top-k; B = 4 and 48,
+     N = 1024, random points and the lattice, f32 and bf16) against their
+     plain versions with phase 2's tolerances, and their device times at
+     B = 48 beside k = 5's.
+The last lines are the rates, the defense step and victim batch profiles,
+the card's name and power limit, one JSON line of the kernels, and
+`{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -144,6 +165,15 @@ SA_LEVELS = ((1024, 0.05), (512, 0.1), (256, 0.2), (128, 0.3))
 VICTIM_B = 32
 VICTIM_LEVELS = (("PointNet++", ((512, 0.2, 32), (128, 0.4, 64))),
                  ("RS-CNN", ((512, 0.23, 48), (128, 0.32, 64))))
+VICTIMS = ("pointnet", "pointnet2", "dgcnn", "pointconv", "rscnn")
+VICTIM_CLOUDS, VICTIM_TOL = 320, 1e-3
+KNN_TIE = 1e-5        # a near tie of kNN, of |q|^2 + max |x|^2 in the row
+# B5 and B6 launches of one 320-cloud pass at batch 32: two sampled levels
+# a batch (models/pointnet2.py, pointconv.py, rscnn.py; PointConv groups
+# by kNN, PointNet and DGCNN sample nothing)
+VICTIM_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (20, 20),
+                   "dgcnn": (0, 0), "pointconv": (20, 0), "rscnn": (20, 20)}
+REPULSION_KS = (9, 16, 33)               # above the register top-k's 8
 NEAR_FACTOR = 1.5
 PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
 TB, TQ = 32, 2048                        # train_implicit's batch and queries
@@ -288,6 +318,26 @@ def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(prof) -> list:
+    """A profile's device operations with device time: a user annotation's
+    device-side range (Adam's step) spans kernels that are counted on their
+    own, and it also has a host-side event of its name, which no kernel
+    has."""
+    stats = prof.key_averages()
+    host = {e.key for e in stats
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in stats
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key not in host]
+
+
+def print_top(events, n: int) -> None:
+    """The n device operations that take the most time."""
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:n]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
 def kernel_times(call, plain, bare, names, library=None) -> dict:
     """The timings of one kernel row. `call` and `plain` are the harness
     calls (forward, harness loss, backward) of the wrapper and of the plain
@@ -389,12 +439,13 @@ def lattice(gen, b: int, shape: tuple[int, int, int]) -> np.ndarray:
                      for _ in range(b)]).astype(np.float32)
 
 
-def check_repulsion(what: str, pts, moved, w) -> tuple[list, list, torch.Tensor]:
+def check_repulsion(what: str, pts, moved, w,
+                    k: int = 5) -> tuple[list, list, torch.Tensor]:
     """B1, B2 and B3 against their plain versions on one input, f32 and
-    bf16: losses rtol 1e-5, gradients atol 1e-5 of the largest entry and
-    rtol 1e-4 (f32) or 2^-7 (bf16), masks bit-equal. B3 takes the f32 mask
-    of `pts` at the points `moved`. -> (B1 f32 errors, B3 f32 errors, the
-    f32 mask)."""
+    bf16, at k neighbours: losses rtol 1e-5, gradients atol 1e-5 of the
+    largest entry and rtol 1e-4 (f32) or 2^-7 (bf16), masks bit-equal. B3
+    takes the f32 mask of `pts` at the points `moved`. -> (B1 f32 errors,
+    B3 f32 errors, the f32 mask)."""
     from if_defense_tpu_torch.defense import repulsion as rep
     from if_defense_tpu_torch.ops import cuda_repulsion
 
@@ -402,18 +453,19 @@ def check_repulsion(what: str, pts, moved, w) -> tuple[list, list, torch.Tensor]
     errs = {"B1": [], "B3": []}
     masks = {}
     for dt, _ in tols:
-        mk = cuda_repulsion.repulsion_mask_cuda(pts.to(dt))
-        diff = int((mk != rep.repulsion_mask(pts.to(dt))).sum())
+        mk = cuda_repulsion.repulsion_mask_cuda(pts.to(dt), k)
+        diff = int((mk != rep.repulsion_mask(pts.to(dt), k)).sum())
         print(f"  {what} B2 mask {str(dt).split('.')[-1]}: {diff} entries "
               f"differ (bit-equal required), {int(mk.sum())} ones")
         if diff:
             fail(f"B2 mask disagrees with its plain version ({what})")
         masks[dt] = mk
     mask = masks[torch.float32]
-    pairs = {"B1": (cuda_repulsion.repulsion_loss_cuda,
-                    rep.repulsion_loss_threshold, pts),
-             "B3": (lambda x: cuda_repulsion.repulsion_loss_masked_cuda(x, mask),
-                    lambda x: rep.repulsion_loss_masked(x, mask), moved)}
+    pairs = {"B1": (lambda x: cuda_repulsion.repulsion_loss_cuda(x, k),
+                    lambda x: rep.repulsion_loss_threshold(x, k), pts),
+             "B3": (lambda x: cuda_repulsion.repulsion_loss_masked_cuda(
+                        x, mask, k),
+                    lambda x: rep.repulsion_loss_masked(x, mask, k), moved)}
     for kid, (kern, plain, x) in pairs.items():
         for dt, gr in tols:
             lk, gk = value_and_grad(kern, x.to(dt), w)
@@ -737,12 +789,18 @@ def check_sa_levels(dev, clouds: np.ndarray, gen, tot: dict) -> list:
 
 
 def check_victim_levels(dev, clouds: np.ndarray) -> None:
-    """B6 at the victims' set-abstraction shapes (`victim_level_inputs`),
-    unmasked and masked (~90 % valid, the last cloud with none): indices
-    bit-equal to the plain version; timed like a level of `check_sa_levels`,
-    for information (not summed into the B6 row)."""
-    from if_defense_tpu_torch.ops import query_ball_point_plain
+    """B5 and B6 at the victims' set-abstraction shapes
+    (`victim_level_inputs`; PointConv samples at the same shapes), unmasked
+    and masked (~90 % valid, the last cloud with none): indices bit-equal
+    to the plain versions, so B5's centres come in the plain version's
+    order; B6 timed like a level of `check_sa_levels`, for information (not
+    summed into the B6 row)."""
+    from if_defense_tpu_torch.ops import (
+        farthest_point_sample_plain,
+        query_ball_point_plain,
+    )
     from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+    from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
 
     gen = torch.Generator(device=dev).manual_seed(3)
     for name, xyz, new, radius, ns in victim_level_inputs(dev, clouds):
@@ -751,12 +809,18 @@ def check_victim_levels(dev, clouds: np.ndarray) -> None:
         mask = torch.rand((b, n), generator=gen, device=dev) > 0.1
         mask[-1] = False
         for tag, m in (("unmasked", None), ("masked", mask)):
-            diff = int((ballquery_cuda(radius, ns, xyz, new, m)
-                        != query_ball_point_plain(radius, ns, xyz, new, m))
-                       .sum())
+            fps_diff = int((fps_cuda(xyz, s, mask=m)
+                            != farthest_point_sample_plain(xyz, s, mask=m))
+                           .sum())
+            bq_diff = int((ballquery_cuda(radius, ns, xyz, new, m)
+                           != query_ball_point_plain(radius, ns, xyz, new, m))
+                          .sum())
             print(f"  {name} [{b}, {n}] -> {s}, r {radius}, nsample {ns} "
-                  f"{tag}: {diff} indices differ (bit-equal required)")
-            if diff:
+                  f"{tag}: {fps_diff} B5 and {bq_diff} B6 indices differ "
+                  "(bit-equal required)")
+            if fps_diff:
+                fail(f"B5 disagrees with its plain version at {name} ({tag})")
+            if bq_diff:
                 fail(f"B6 disagrees with its plain version at {name} ({tag})")
         flops, nbytes, scanned = ballquery_work(xyz, new, radius, ns)
         print(f"  {name} ballquery:")
@@ -954,9 +1018,7 @@ def profile_dupnet(dev, clouds: np.ndarray) -> None:
     print(f"  profile, one batch of {len(clouds)}: wall {wall:.3f} ms, "
           f"device kernels {busy:.3f} ms (busy share {busy / wall:.3f}), "
           f"B5 + B6 {ours:.3f} ms ({ours / busy:.3f} of device time)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
-              f"{e.key[:90]}")
+    print_top(events, 8)
 
 
 def plane_inputs(dev, gen, b: int, q: int):
@@ -1281,15 +1343,7 @@ def profile_training(dev, occ_npz: str) -> None:
             step(*b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # a user annotation's device-side range (Adam's step) spans kernels
-    # that are counted on their own; it also has a host-side event of its
-    # name, which no kernel has
-    stats = prof.key_averages()
-    host = {e.key for e in stats
-            if e.device_type == torch.autograd.DeviceType.CPU}
-    events = [e for e in stats
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0 and e.key not in host]
+    events = device_events(prof)
     if not events:
         print(f"  profile, 10 steps: wall {wall:.3f} ms; device time not "
               "measured (the profiler saw no CUDA kernel)")
@@ -1301,9 +1355,7 @@ def profile_training(dev, occ_npz: str) -> None:
           f"device kernels {busy:.3f} ms (busy share {busy / wall:.3f}), "
           f"B4 fwd + plane grad {ours:.3f} ms ({ours / busy:.3f} of device "
           "time)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
-              f"{e.key[:90]}")
+    print_top(events, 10)
 
 
 def check_small_onet_opt(dev) -> None:
@@ -1338,6 +1390,306 @@ def check_small_onet_opt(dev) -> None:
         fail("small ONet-Opt run disagrees with the CPU run")
 
 
+def seeded_victim(name: str, dev, clouds: torch.Tensor, seed: int = 0):
+    """A victim at its published widths from the port's own seeded init,
+    its batch-norm statistics calibrated on `clouds` and perturbed
+    (`models.common.calibrate_batch_norm`), on `dev` in eval mode."""
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.models.common import calibrate_batch_norm
+
+    torch.manual_seed(seed)
+    return calibrate_batch_norm(build_model(name).to(dev), clouds.to(dev),
+                                seed)
+
+
+def victim_clouds(gen, n: int) -> torch.Tensor:
+    """n of phase 7's ellipsoid clouds (1024 points, 8 outliers each)
+    normalised to the unit sphere, as the victims see defended clouds."""
+    from if_defense_tpu_torch.ops import normalize_unit_sphere
+
+    return normalize_unit_sphere(torch.from_numpy(ellipsoids(gen, n)))
+
+
+def check_small_victims(dev) -> None:
+    """Each victim on a small batch (B=4, N=1024), CUDA (B5/B6 kernels, TF32
+    off) against the port's CPU path (the plain versions), same weights,
+    unmasked and masked (~90 % valid, the last cloud's first 100 points
+    invalid): logits within atol VICTIM_TOL of the largest magnitude and
+    rtol VICTIM_TOL (f32 sums in other orders; DGCNN's and PointConv's
+    kNN graphs come from distance matmuls whose rounding differs, and can
+    flip a near tie at the k-th neighbour)."""
+    from if_defense_tpu_torch.models import build_model
+
+    pc = victim_clouds(np.random.default_rng(12), 4)
+    mask = torch.from_numpy(np.random.default_rng(13).uniform(
+        size=(4, 1024)) > 0.1)
+    mask[-1, :100] = False
+    for name in VICTIMS:
+        cpu = seeded_victim(name, "cpu", pc)
+        card = build_model(name).to(dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        for tag, m in (("unmasked", None), ("masked", mask)):
+            with torch.no_grad():
+                want, _ = cpu(pc, m)
+                got, _ = card(pc.to(dev), None if m is None else m.to(dev))
+            compare(f"{name} {tag} logits", got.cpu(), want,
+                    VICTIM_TOL * float(want.abs().max()), VICTIM_TOL)
+
+
+def run_inference(dev, tmp: str) -> tuple[dict, dict]:
+    """`cli/inference.py` at full width for each victim: 320 clouds of 1024
+    points (phase 7's ellipsoids in the unit sphere, 40 classes, a target
+    label), batch 32, weights from `seeded_victim` saved through
+    `params_to_jax` as the flat npz the CLI reads. Normal mode first, with
+    the B5/B6 launch counters set to 0 just before and read just after,
+    then target mode (warm: the CLI keeps the loaded victim). -> (clouds/s
+    per victim and mode, host clock around main(); launches per victim)."""
+    from if_defense_tpu_torch.cli import inference
+    from if_defense_tpu_torch.data import save_npz
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+    from if_defense_tpu_torch.utils.checkpoint import save_eval_checkpoint
+    from if_defense_tpu_torch.utils.params_io import params_to_jax
+
+    clouds = victim_clouds(np.random.default_rng(14), VICTIM_CLOUDS)
+    label = np.arange(VICTIM_CLOUDS) % 40
+    data = save_npz(os.path.join(tmp, "victims.npz"), {
+        "test_pc": clouds.numpy(), "test_label": label,
+        "target_label": (label + 7) % 40})
+    counters = (cuda_fps.launches, cuda_ballquery.launches)
+    rates, launches = {}, {}
+    for name in VICTIMS:
+        model = seeded_victim(name, dev, clouds[:VICTIM_B])
+        ckpt = save_eval_checkpoint(os.path.join(tmp, f"{name}.npz"),
+                                    params_to_jax(model.state_dict()),
+                                    {"model": name})
+        del model
+        argv = ["--data", data, "--checkpoint", ckpt, "--batch_size",
+                str(VICTIM_B), "--device", "cuda"]
+        for mode in ("normal", "target"):
+            if mode == "normal":
+                for counter in counters:
+                    for k in counter:
+                        counter[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inference.main(argv + ["--mode", mode])
+            torch.cuda.synchronize()
+            rates[f"{name} {mode}"] = VICTIM_CLOUDS / (
+                time.perf_counter() - t0)
+            if mode == "normal":
+                launches[name] = {k: v for c in counters
+                                  for k, v in c.items()}
+            if (out["n"] != VICTIM_CLOUDS or out["model"] != name
+                    or not 0 <= out["accuracy"] <= 1
+                    or (mode == "target"
+                        and not 0 <= out["target_success"] <= 1)):
+                fail(f"inference {name} {mode}: {out}")
+        hold_inference(dev, data, ckpt, name, out)
+        want = dict(zip(("fps", "ballquery"), VICTIM_LAUNCHES[name]))
+        print(f"  {name}: accuracy {out['accuracy']:.4f}, target success "
+              f"{out['target_success']:.4f}, {rates[f'{name} normal']:.1f} / "
+              f"{rates[f'{name} target']:.1f} clouds/s (first / warm), "
+              f"launches {launches[name]} (want {want})")
+        if launches[name] != want:
+            fail(f"B5/B6 launches {launches[name]} in {name}'s "
+                 f"{VICTIM_CLOUDS}-cloud pass, not {want}")
+    return rates, launches
+
+
+class KnnTap:
+    """Stands in for `ops.knn_points` in the victims that group by kNN
+    (models/dgcnn.py, models/pointconv.py), on one forward at a time. With
+    no graphs given it records each call's k + 1 nearest (indices and
+    distances) and the scale of their rounding; given the graphs that a
+    recording kept, it returns them in place of its own, which it keeps in
+    `own`."""
+
+    def __init__(self, graphs: list | None = None):
+        self.graphs, self.own = graphs, []
+        self.log = []
+
+    def __call__(self, k, xyz, query=None, candidate_mask=None):
+        from if_defense_tpu_torch.ops import knn_points
+
+        q = xyz if query is None else query
+        if self.graphs is None:
+            idx, d = knn_points(k + 1, xyz, q, return_dist=True,
+                                candidate_mask=candidate_mask)
+            scale = (q * q).sum(-1) + (xyz * xyz).sum(-1).amax(
+                -1, keepdim=True)
+            self.log.append((idx, d, scale))
+            return idx[..., :k]
+        self.own.append(knn_points(k, xyz, q, candidate_mask=candidate_mask)
+                        .cpu())
+        return self.graphs[len(self.own) - 1][0][..., :k].to(xyz.device)
+
+    def __enter__(self):
+        from if_defense_tpu_torch.models import dgcnn, pointconv
+
+        self.saved = dgcnn.knn_points
+        dgcnn.knn_points = pointconv.knn_points = self
+        return self
+
+    def __exit__(self, *exc):
+        from if_defense_tpu_torch.models import dgcnn, pointconv
+
+        dgcnn.knn_points = pointconv.knn_points = self.saved
+
+
+def regraphed(cpu: list, card: list) -> torch.Tensor:
+    """Clouds whose kNN graph on the card (each call on the replayed
+    graph's inputs) differs from the CPU's; fails unless each differing
+    row is a near tie by the CPU's distances: its (k+1)-th nearest within
+    KNN_TIE of the k-th, and every CPU neighbour the card left out within
+    it too. -> [B] bool."""
+    out = None
+    for (idx, d, scale), own in zip(cpu, card):
+        k = own.shape[-1]
+        rows = (idx[..., :k].sort(-1).values != own.sort(-1).values).any(-1)
+        tol = KNN_TIE * scale
+        left_out = ~(idx[..., :k, None] == own[..., None, :]).any(-1)
+        tie = (d[..., k] - d[..., k - 1] <= tol) & (
+            ~left_out | (d[..., :k] >= (d[..., k - 1] - tol)[..., None])
+        ).all(-1)
+        if bool((rows & ~tie).any()):
+            fail(f"kNN on the card chose other neighbours than on the CPU "
+                 f"in {int((rows & ~tie).sum())} rows that are no near tie")
+        out = rows.any(-1) if out is None else out | rows.any(-1)
+    return out
+
+
+def hold_inference(dev, data: str, ckpt: str, name: str, got: dict) -> None:
+    """The card's target-mode run of `cli/inference.py` (`got`) against the
+    port's CPU path on the same npz and checkpoint, through the CLI's loader
+    (`load_eval_model`) and batches (`ModelNet40Attack`, batch VICTIM_B, the
+    last padded). A kNN graph's rows can flip at a near tie between the
+    card's and the CPU's rounding, so the card first runs each batch on
+    the CPU's graphs (`KnnTap`): every cloud's logits within
+    `check_small_victims`' tolerance, and its own graphs equal to the CPU's
+    but at near ties (`regraphed`). Then on its own graphs: predictions
+    equal to the CPU's but for clouds whose graph differs or whose two best
+    CPU logits lie within 2 atol of each other, and the CLI's counts of
+    correct and targeted clouds equal the CPU's but for the clouds whose
+    predictions differ."""
+    from if_defense_tpu_torch.cli.inference import load_eval_model
+    from if_defense_tpu_torch.data import ModelNet40Attack, batch_iterator
+    from if_defense_tpu_torch.training import make_eval_step
+
+    cpu_step = make_eval_step(load_eval_model(ckpt)[0])
+    card_step = make_eval_step(load_eval_model(ckpt)[0].to(dev))
+    want, replayed, logits, moved, label, target = [], [], [], [], [], []
+    t0 = time.perf_counter()
+    for batch, valid in batch_iterator(ModelNet40Attack(data, 1024, False),
+                                       VICTIM_B, pad_last=True):
+        pc = torch.from_numpy(batch[0].astype(np.float32))
+        with KnnTap() as cpu:
+            want.append(cpu_step(pc)[:valid])
+        with KnnTap(cpu.log) as card:
+            replayed.append(card_step(pc.to(dev)).cpu()[:valid])
+        moved.append(regraphed(cpu.log, card.own)[:valid] if cpu.log
+                     else torch.zeros(valid, dtype=torch.bool))
+        logits.append(card_step(pc.to(dev)).cpu()[:valid])
+        label.append(torch.from_numpy(batch[1][:valid]).long())
+        target.append(torch.from_numpy(batch[2][:valid]).long())
+    want, replayed, logits = (torch.cat(x) for x in (want, replayed, logits))
+    moved, label, target = (torch.cat(x) for x in (moved, label, target))
+    atol = VICTIM_TOL * float(want.abs().max())
+    compare(f"{name}, the CLI's {len(want)} clouds at batch {VICTIM_B}, "
+            "card on the CPU's kNN graphs vs CPU, logits", replayed, want,
+            atol, VICTIM_TOL)
+    top2 = want.topk(2, -1).values
+    near = top2[:, 0] - top2[:, 1] <= 2 * atol
+    pred = want.argmax(-1)
+    flips = pred != logits.argmax(-1)
+    counts = {k: (round(got[key] * got["n"]), int((pred == cls).sum()))
+              for k, key, cls in (("correct", "accuracy", label),
+                                  ("targeted", "target_success", target))}
+    print(f"  {name}: CLI n {got['n']}, (card CLI, CPU) counts {counts}; "
+          f"{int(moved.sum())} clouds' kNN graphs differ at near ties; "
+          f"{int(flips.sum())} predictions differ, {int(near.sum())} clouds "
+          f"within 2 atol of a tie; CPU path "
+          f"{time.perf_counter() - t0:.1f} s")
+    if got["n"] != len(want) or bool((flips & ~near & ~moved).any()) or any(
+            abs(c - r) > int(flips.sum()) for c, r in counts.values()):
+        fail(f"inference {name} on the card disagrees with the CPU path")
+
+
+def profile_victims(dev) -> dict:
+    """torch.profiler over one warm batch (B=32, N=1024) of PointNet++ and
+    of DGCNN: wall ms, device ms, busy share, B5 + B6's share and the
+    device operations that take the most time. -> {victim: numbers}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = victim_clouds(np.random.default_rng(15), VICTIM_B).to(dev)
+    out = {}
+    for name in ("pointnet2", "dgcnn"):
+        model = seeded_victim(name, dev, x)
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        if not events:
+            print(f"  {name}: wall {wall:.3f} ms; device time not measured "
+                  "(the profiler saw no CUDA kernel)")
+            continue
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        ours = sum(e.self_device_time_total for e in events
+                   if "fps_kernel" in e.key or "ballquery_kernel" in e.key
+                   ) / 1e3
+        out[name] = dict(wall_ms=wall, device_ms=busy, busy=busy / wall,
+                         b5_b6_ms=ours, operations=sum(e.count
+                                                       for e in events))
+        print(f"  {name}, one batch of {VICTIM_B}: wall {wall:.3f} ms, "
+              f"device {busy:.3f} ms (busy share {busy / wall:.3f}, "
+              f"{out[name]['operations']} device operations), B5 + B6 "
+              f"{ours:.4f} ms ({ours / busy:.4f} of device time)")
+        print_top(events, 8)
+    return out
+
+
+def check_repulsion_any_k(dev) -> None:
+    """B1-B3 above k = 8, where the kernels scan for each row's k-th
+    smallest distance: k = 9, 16 and 33 at B = 4 and 48, N = 1024, on
+    random points with duplicates (B3 at points moved by ~1e-3) and on the
+    16x8x8 lattice, f32 and bf16, against their plain versions with
+    `check_repulsion`'s tolerances (B2 bit-equal). Then device times at
+    B = 48 (B1 forward + backward, B2 f32), k = 5 beside them."""
+    from if_defense_tpu_torch.ops import cuda_repulsion
+
+    gen = np.random.default_rng(16)
+    for b in (4, B):
+        pts = gen.uniform(-0.45, 0.45, (b, N, 3)).astype(np.float32)
+        pts[:, N - 24:] = pts[:, :24]
+        pts = torch.from_numpy(pts).to(dev)
+        moved = pts + torch.from_numpy(gen.normal(
+            scale=1e-3, size=pts.shape).astype(np.float32)).to(dev)
+        lat = torch.from_numpy(lattice(gen, b, (16, 8, 8))).to(dev)
+        w = torch.from_numpy(gen.uniform(0.5, 1.5, b).astype(
+            np.float32)).to(dev)
+        for k in REPULSION_KS:
+            check_repulsion(f"random B={b} k={k}", pts, moved, w, k)
+            check_repulsion(f"lattice B={b} k={k}", lat, lat, w, k)
+    def timed(fn, names) -> str:
+        got = device_ms(fn, names)       # graph replay where the profiler
+        return (f"{got[0]:.4f} ms (profiler)" if got     # saw no kernel
+                else f"{graph_ms(fn):.4f} ms (graph replay)")
+
+    for k in (5,) + REPULSION_KS:
+        loss = timed(lambda: bare_grad(cuda_repulsion.repulsion_loss_cuda,
+                                       pts, w, k),
+                     ("rep_fwd", "rows_to_loss", "rep_bwd"))
+        mask = timed(lambda: cuda_repulsion.repulsion_mask_cuda(pts, k),
+                     ("rep_mask",))
+        print(f"  k={k}, B={B}, N={N}, f32, device time a call: B1 fwd + "
+              f"bwd {loss}, B2 {mask}")
+
+
 def profile_step():
     """The module `tools/profile_defense_step.py` (a script, not a
     package)."""
@@ -1363,6 +1715,7 @@ def main() -> int:
         save_params_npz,
     )
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1496,19 +1849,38 @@ def main() -> int:
         onet_rates["warm"] = run_cli(tmp, "onet", ["--variant", "onet"],
                                      weights)["clouds_per_sec"]
 
-    # a row's launches: the counters of its wrapper's launches in its form
+    print(f"phase 12: the victims, small CUDA vs CPU, then cli/inference.py "
+          f"at full width ({VICTIM_CLOUDS} clouds, batch {VICTIM_B}), a "
+          "profile, and B1-B3 at k > 8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t12 = time.perf_counter()
+    check_small_victims(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        victim_rates, per_victim = run_inference(dev, tmp)
+    launches["victims"] = {k: sum(v[k] for v in per_victim.values())
+                           for k in ("fps", "ballquery")}
+    victim_profiles = profile_victims(dev)
+    check_repulsion_any_k(dev)
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # a row's launches: the counters of its wrapper's launches in its form,
+    # summed over the paths that launch it
     used_in = {"repulsion_loss": ("reference", ("repulsion_loss",)),
                "plane_features": ("reference", ("plane_features",
                                                 "plane_features_dp")),
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup", ("fps",)), "ballquery": ("dup", ("ballquery",)),
+               "fps": ("dup victims", ("fps",)),
+               "ballquery": ("dup victims", ("ballquery",)),
                "plane_features_dplane": ("train", ("plane_features",
                                                    "plane_features_dplane"))}
     for row in rows:
         mode, names = used_in[row["name"]]
-        row["launches"] = sum(launches[mode][n] for n in names)
+        row["launches"] = sum(launches[m][n] for m in mode.split()
+                              for n in names)
         if row["launches"] <= 0:
             fail(f"{row['name']} was not launched in the {mode} mode")
     print("clouds/s: " + json.dumps(rates))
@@ -1517,6 +1889,9 @@ def main() -> int:
     print("train_implicit steps/s: " + json.dumps(train_rates) + f" on {card}")
     print("DUP-Net clouds/s (defend_npz, host clock around main()): "
           + json.dumps(dup_rates) + f" on {card}")
+    print("victims clouds/s (cli/inference.py, host clock around main()): "
+          + json.dumps(victim_rates) + f" on {card}")
+    print("victim batch profiles: " + json.dumps(victim_profiles))
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

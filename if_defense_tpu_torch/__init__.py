@@ -16,16 +16,22 @@ Subpackages
 -----------
 - ``ops``       normalisation, point ops (kNN, FPS, ball query), scatter,
                 plane sampling and the CUDA kernel wrappers
-- ``data``      the npz interchange schema
+- ``data``      the npz interchange schema, the ModelNet40 dataset
+                variants and `batch_iterator`
+- ``models``    the victim classifiers: PointNet, PointNet++ (SSG),
+                DGCNN, PointConv and RS-CNN, and `build_model`
+- ``training``  the victims' eval step
 - ``implicit``  ConvONet (encoder, UNet, decoder), ONet (encoder, CBN
                 decoder) and occupancy training
 - ``defense``   SRS, SOR, DUP-Net (PU-Net), repulsion and the ConvONet-Opt
                 and ONet-Opt restoration loop
 - ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense`,
-                `python -m if_defense_tpu_torch.cli.defend_npz` and
-                `python -m if_defense_tpu_torch.cli.train_implicit`
+                `python -m if_defense_tpu_torch.cli.defend_npz`,
+                `python -m if_defense_tpu_torch.cli.train_implicit` and
+                `python -m if_defense_tpu_torch.cli.inference`
 - ``utils``     flat-npz params, the flax-to-torch layout map both ways,
-                seeded init, the metrics sink
+                seeded init, victim checkpoints (flat npz), the checkpoint
+                registry, `BoundedCache`, the metrics sink
 """
 
 __version__ = "0.1.0"

@@ -58,6 +58,17 @@
 // deterministic). The only limit left is the [B, N, N] mask of B2/B3, which
 // the wrapper allocates.
 //
+// Any k. Up to k = 8 the selection above keeps a sorted top-k in registers
+// (k a template parameter). Above, B1's forward and B2 take K = 0 and find
+// each row's threshold by the Pallas kernels' scan (row_threshold_scan,
+// walk_threshold_scan): rounds of a warp min over the distances above the
+// last threshold, each adding the count of that min, until the count reaches
+// k; the same k-th order statistic with multiplicity, so the rows, weights
+// and losses follow as for k <= 8. A round is one pass over the row (32
+// registers a lane up to 1024 points, a walk over the staged chunks above),
+// so the threshold costs up to k passes where the top-k costs one. B1's
+// backward and B3 take any k as they are (k only scales the loss).
+//
 // B1 backward (rep_bwd). Bound: issue, one distance per pair. A warp per
 // point m, lanes over j; a pair carries weight only where d2 <= max(t_m,
 // t_j) (the thresholds sit in shared memory beside the cloud), and those
@@ -308,6 +319,110 @@ __device__ __forceinline__ float walk_threshold(const T* pb, int N, float* s,
   return warp_kth<K>(top, lane);
 }
 
+// k above the register top-K's reach (K == 0 in the kernels' templates, k
+// given at run time): the row's k-th smallest distance with multiplicity by
+// the Pallas kernels' scan (pallas_repulsion.py:71-88), a warp per row:
+// rounds of a warp min over the distances above the last threshold, each
+// adding the count of that min, until the count reaches k. A round is one
+// pass over the row; at most k rounds, fewer where distances tie. A lane
+// folds each distance v > t into its (min, count of the min).
+struct ScanRound {
+  float t, lm;
+  int c;
+  __device__ __forceinline__ void add(float v) {
+    const bool above = v > t;
+    const bool lt = above && v < lm;
+    c = lt ? 1 : c + (above && v == lm);
+    lm = lt ? v : lm;
+  }
+  // the round's warp min and its count over the warp; false where no finite
+  // distance is left (the row's points not finite)
+  __device__ __forceinline__ bool close(int& cnt) {
+    const float m =
+        __uint_as_float(__reduce_min_sync(kFull, __float_as_uint(lm)));
+    if (m == inf_f()) return false;
+    cnt += __reduce_add_sync(kFull, lm == m ? c : 0);
+    t = m;
+    return true;
+  }
+};
+
+// The scan over a lane's PER distances in registers (rep_fwd, rep_mask).
+template <int PER>
+__device__ __forceinline__ float row_threshold_scan(const float (&d)[PER],
+                                                    int k) {
+  ScanRound r{-1.f};  // t below every distance (d2 >= 0)
+  int cnt = 0;
+  while (cnt < k) {
+    r.lm = inf_f();
+    r.c = 0;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) r.add(d[q]);
+    if (!r.close(cnt)) return inf_f();
+  }
+  return r.t;
+}
+
+// The scan above kRegN points, a round a walk over the staged chunks. Every
+// warp of the block takes the rounds together (the walks synchronise the
+// block) until each has its threshold; a warp whose row is past N gets +inf.
+template <typename T>
+__device__ __forceinline__ float walk_threshold_scan(const T* pb, int N,
+                                                     float* s, int i,
+                                                     bool valid, int lane,
+                                                     float xi, float yi,
+                                                     float zi, int k) {
+  const float *sx = s, *sy = s + kRegN, *sz = s + 2 * kRegN;
+  ScanRound r{-1.f};
+  int cnt = valid ? 0 : k;
+  bool finite = valid;
+  while (__syncthreads_or(cnt < k)) {
+    r.lm = inf_f();
+    r.c = 0;
+    const bool open = cnt < k;  // the same for the whole warp
+    walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
+      if (open)
+        for (int jj = lane; jj < n; jj += 32)
+          if (j0 + jj != i) r.add(d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]));
+    });
+    if (open && !r.close(cnt)) {
+      finite = false;
+      cnt = k;
+    }
+  }
+  return finite ? r.t : inf_f();
+}
+
+// The threshold of a row whose distances sit in registers (rep_fwd,
+// rep_mask): the lanes' top-K through the warp's list for K > 0, `n` as
+// row_threshold sets it; else the scan for k, with n = kList + 1 (the list
+// holds nothing: the caller reads the registers).
+template <int K, int PER>
+__device__ __forceinline__ float register_threshold(const float (&d)[PER],
+                                                    int lane, float* list,
+                                                    int& n, int k) {
+  if constexpr (K > 0) {
+    return row_threshold<K>(d, lane, list, n);
+  } else {
+    n = kList + 1;
+    return row_threshold_scan(d, k);
+  }
+}
+
+// The threshold of row i above kRegN points: the lanes' top-K for K > 0,
+// else the scan for k
+template <int K, typename T>
+__device__ __forceinline__ float chunked_threshold(const T* pb, int N,
+                                                   float* s, int i,
+                                                   bool valid, int lane,
+                                                   float xi, float yi,
+                                                   float zi, int k) {
+  if constexpr (K > 0)
+    return walk_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi);
+  else
+    return walk_threshold_scan(pb, N, s, i, valid, lane, xi, yi, zi, k);
+}
+
 // A row's tally of the distances v <= t: count and term sum below t and
 // at it
 struct Tally {
@@ -370,7 +485,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       d[c] = (j < N && j != i) ? v : inf_f();
     }
     int n;
-    const float t = row_threshold<K>(d, lane, list, n);
+    const float t = register_threshold<K>(d, lane, list, n, P.k);
     Tally tl;
     if (n <= kList) {  // the list holds every distance <= t
       for (int q = lane; q < n; q += 32) tl.add(list[q], t, P);
@@ -379,7 +494,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int c = 0; c < PER; ++c) tl.add(d[c], t, P);
     }
     __syncwarp();  // the list is read before the next row writes it
-    tl.write(K, t, (long)b * N + i, lane, row_loss, thr, frac);
+    tl.write(K > 0 ? K : P.k, t, (long)b * N + i, lane, row_loss, thr, frac);
   }
 }
 
@@ -404,7 +519,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     const bool valid = i < N;
     float xi = 0.f, yi = 0.f, zi = 0.f;
     if (valid) point_of(pb, i, xi, yi, zi);
-    const float t = walk_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi);
+    const float t =
+        chunked_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi, P.k);
     Tally tl;
     walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
       if (valid)
@@ -412,7 +528,8 @@ __global__ void __launch_bounds__(kWarps * 32)
           if (j0 + jj != i)
             tl.add(d2_of(xi, yi, zi, sx[jj], sy[jj], sz[jj]), t, P);
     });
-    if (valid) tl.write(K, t, (long)b * N + i, lane, row_loss, thr, frac);
+    if (valid)
+      tl.write(K > 0 ? K : P.k, t, (long)b * N + i, lane, row_loss, thr, frac);
   }
 }
 
@@ -617,7 +734,7 @@ __global__ void __launch_bounds__(kWarps * 32, 4)
       d[c] = (j < N && j != i) ? v : inf_f();
     }
     int n;
-    const float t = row_threshold<K>(d, lane, list, n);
+    const float t = register_threshold<K>(d, lane, list, n, P.k);
     __syncwarp();  // the list is read before the next row writes it
     MaskRow out{mask + ((long)b * N + i) * N, N, lane, vec};
 #pragma unroll
@@ -646,7 +763,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     const bool valid = i < N;
     float xi = 0.f, yi = 0.f, zi = 0.f;
     if (valid) point_of(pb, i, xi, yi, zi);
-    const float t = walk_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi);
+    const float t =
+        chunked_threshold<K>(pb, N, s, i, valid, lane, xi, yi, zi, P.k);
     walk_chunks(pb, N, kRegN, s, [&](int j0, int n) {
       if (!valid) return;
       MaskRow out{mask + ((long)b * N + i) * N + j0, n, lane, vec};
@@ -1029,7 +1147,8 @@ int masked_bwd_impl(const void* pts, const int8_t* mask, Params P,
   return 0;
 }
 
-// k is a template parameter (the top-K lives in registers); 1 <= k <= 8
+// k <= 8 is a template parameter (the top-K lives in registers); above, the
+// kernels take K = 0 and scan for the threshold with k given at run time
 #define IFDEF_DISPATCH_K(k, call)                                            \
   switch (k) {                                                               \
     case 1: return call(1);                                                  \
@@ -1040,7 +1159,7 @@ int masked_bwd_impl(const void* pts, const int8_t* mask, Params P,
     case 6: return call(6);                                                  \
     case 7: return call(7);                                                  \
     case 8: return call(8);                                                  \
-    default: return (int)cudaErrorInvalidValue;                              \
+    default: return k > 8 ? call(0) : (int)cudaErrorInvalidValue;            \
   }
 
 }  // namespace

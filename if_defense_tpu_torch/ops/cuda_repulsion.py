@@ -12,7 +12,8 @@ points' type. The forward of B1 keeps each row's threshold and tie weight
 for its backward, so the backward does no selection. Any N: the kernels
 walk the partners in chunks staged in shared memory; only the `[B, N, N]`
 int8 mask of B2/B3 grows with N^2, and `torch.empty` reports where it does
-not fit.
+not fit. Any k in [1, N): up to 8 the kernels keep a sorted top-k in
+registers, above they scan for each row's k-th smallest distance.
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ import ctypes
 import torch
 
 from if_defense_tpu_torch.ops import _build
-
-MAX_K = 8        # the kernels keep a sorted top-k in registers
 
 # kernel launches, counted where they happen (forward and backward)
 launches = {"repulsion_loss": 0, "repulsion_mask": 0,
@@ -46,8 +45,8 @@ def _check_points(pc: torch.Tensor, k: int) -> None:
     if not pc.is_contiguous():
         raise ValueError("points must be contiguous")
     n = pc.shape[1]
-    if not 1 <= k <= MAX_K or k >= n:
-        raise ValueError(f"k={k} must be in [1, {MAX_K}] and below N={n}")
+    if not 1 <= k < n:
+        raise ValueError(f"k={k} must be at least 1 and below N={n}")
 
 
 def _check_mask(pc: torch.Tensor, mask: torch.Tensor) -> None:

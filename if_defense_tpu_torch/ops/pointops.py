@@ -51,12 +51,15 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def knn_points(k: int, xyz: torch.Tensor, query: torch.Tensor | None = None,
-               exclude_self: bool = False, return_dist: bool = False):
+               exclude_self: bool = False, return_dist: bool = False,
+               candidate_mask: torch.Tensor | None = None):
     """Exact k-nearest-neighbour indices of `query` within `xyz`.
 
     The JAX package's `method="sort"`: a stable sort of the expansion-form
     distances, so ties go to the lower index as with `lax.top_k`.
-    `exclude_self` drops the first hit (self, at distance ~0).
+    `exclude_self` drops the first hit (self, at distance ~0). Points where
+    the optional [B, N] `candidate_mask` is not > 0 sit at +inf and are
+    never chosen while k valid points remain (fixed-shape masked forwards).
 
     Returns:
         idx [B, Q, k] (int64), optionally (idx, sqdist [B, Q, k]).
@@ -64,6 +67,8 @@ def knn_points(k: int, xyz: torch.Tensor, query: torch.Tensor | None = None,
     if query is None:
         query = xyz
     d = square_distance(query, xyz)                          # [B, Q, N]
+    if candidate_mask is not None:
+        d = d.masked_fill(~(candidate_mask > 0)[:, None, :], torch.inf)
     kk = k + 1 if exclude_self else k
     vals, idx = torch.sort(d, dim=-1, stable=True)
     vals, idx = vals[..., :kk], idx[..., :kk]

@@ -19,7 +19,9 @@ masked and not; B6 also at the victims' radii with 48-128 slots that
 centres fill (slots past those a block keeps in shared memory too), at
 ragged N and S, at shapes where the kernel sets 1, 2, 4 and 8 warps on
 a group of centres, and at B = 65536; B2, B5 and B6 bit-identical from one launch
-to the next.
+to the next. B1-B3 also at k = 9, 16 and 33 (the threshold scan above the
+register top-k). The five victims on the card against their CPU path:
+logits within rtol 1e-3 and atol 1e-3 of the largest magnitude.
 """
 
 import numpy as np
@@ -470,8 +472,10 @@ def test_cuda_wrappers_refuse(cuda):
     from if_defense_tpu_torch.ops.cuda_interp import plane_features_cuda
     from if_defense_tpu_torch.ops.cuda_repulsion import repulsion_loss_cuda
 
-    with pytest.raises(ValueError, match="k=9"):
-        repulsion_loss_cuda(torch.zeros(1, 4097, 3, device=cuda), 9)
+    with pytest.raises(ValueError, match="k=16"):
+        repulsion_loss_cuda(torch.zeros(1, 16, 3, device=cuda), 16)
+    with pytest.raises(ValueError, match="k=0"):
+        repulsion_loss_cuda(torch.zeros(1, 16, 3, device=cuda), 0)
     p = torch.zeros(1, 3, 3, device=cuda)
     with pytest.raises(TypeError, match="all be float32 or all bfloat16"):
         plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 4, device=cuda,
@@ -495,3 +499,79 @@ def test_cuda_wrappers_refuse(cuda):
         fps_cuda(torch.zeros(1, 3, 16, device=cuda).transpose(1, 2), 8)
     with pytest.raises(TypeError, match="float32"):
         fps_cuda(torch.zeros(1, 16, 3, device=cuda, dtype=torch.float64), 8)
+
+
+@pytest.mark.parametrize("n", [300, 1024, 4097])
+@pytest.mark.parametrize("k", [9, 16, 33])
+def test_cuda_repulsion_kernels_any_k(cuda, k, n):
+    """B1, B2 and B3 above the register top-k's k <= 8, where the kernels
+    scan for each row's k-th smallest distance (up to 1024 points from
+    registers, above over staged chunks): against the plain versions on a
+    lattice (ties at every threshold) and on random points with duplicates,
+    f32 and bf16, the B2 mask bit-equal; two launches bit-identical."""
+    from if_defense_tpu_torch.ops import cuda_repulsion as cr
+
+    w = torch.tensor([1.0, 2.0], device=cuda)
+    for pts in (_lattice(n, n + k), _points(n + k, n)):
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0**-7)):
+            pc = torch.from_numpy(pts).to(cuda, dtype)
+            mask = cr.repulsion_mask_cuda(pc, k)
+            assert torch.equal(mask, repulsion_mask(pc, k))
+            assert torch.equal(mask, cr.repulsion_mask_cuda(pc, k))
+            assert int(mask.sum(-1).min()) >= k
+            pairs = (
+                (lambda x: cr.repulsion_loss_cuda(x, k),
+                 lambda x: repulsion_loss_threshold(x, k)),
+                (lambda x: cr.repulsion_loss_masked_cuda(x, mask, k),
+                 lambda x: repulsion_loss_masked(x, mask, k)))
+            for kern, plain in pairs:
+                lk, gk = _value_grad(kern, pc, w)
+                lk2, gk2 = _value_grad(kern, pc, w)
+                assert torch.equal(lk, lk2) and torch.equal(gk, gk2)
+                lp, gp = _value_grad(plain, pc, w)
+                torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-9)
+                _grad_close(gk, gp, rtol)
+
+
+def _victim_clouds(b, n, seed):
+    """Clouds on ellipsoid surfaces in the unit ball, a validity mask with
+    ~90 % valid points (cloud 0's first point invalid)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(b, n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pc = (d * rng.uniform(0.3, 1.0, (b, 1, 3))).astype(np.float32)
+    mask = rng.uniform(size=(b, n)) > 0.1
+    mask[0, 0] = False
+    return torch.from_numpy(pc), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("name", ["pointnet", "pointnet2", "dgcnn",
+                                  "pointconv", "rscnn"])
+def test_cuda_victim_matches_cpu(cuda, name):
+    """Each victim at its published widths on the card (B5/B6 kernels, TF32
+    off) against its CPU path (the plain versions), same seeded weights with
+    calibrated batch-norm statistics, B = 2, N = 1024, unmasked and masked:
+    logits within atol 1e-3 of the largest magnitude and rtol 1e-3 (f32
+    sums in other orders, and the kNN graphs of DGCNN's features may flip a
+    near tie at the k-th neighbour)."""
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.models.common import calibrate_batch_norm
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc, mask = _victim_clouds(2, 1024, 3)
+    torch.manual_seed(0)
+    model = calibrate_batch_norm(build_model(name), pc, 1)
+    on_card = build_model(name).to(cuda).eval()
+    on_card.load_state_dict(model.state_dict())
+    launches = cuda_fps.launches["fps"] + cuda_ballquery.launches["ballquery"]
+    for m in (None, mask):
+        with torch.no_grad():
+            want, _ = model(pc, m)
+            got, _ = on_card(pc.to(cuda), None if m is None else m.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                                   atol=1e-3 * float(want.abs().max()))
+    grouped = cuda_fps.launches["fps"] + cuda_ballquery.launches["ballquery"]
+    assert (grouped > launches) == (name in ("pointnet2", "pointconv",
+                                             "rscnn"))

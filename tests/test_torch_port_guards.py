@@ -1,7 +1,7 @@
 """Guards of the PyTorch port (`if_defense_tpu_torch`): it never imports
-JAX, its seeded weights have the flax model's keys and shapes, the flax
-tree loads into its modules with no key left over, and its npz schema
-round-trips with the JAX package's."""
+JAX, flax, optax, orbax or the JAX package, its seeded weights have the
+flax model's keys and shapes, the flax tree loads into its modules with no
+key left over, and its npz schema round-trips with the JAX package's."""
 
 import os
 import subprocess
@@ -32,11 +32,14 @@ import pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
+sys.modules["orbax"] = None
+sys.modules["if_defense_tpu"] = None
 import if_defense_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     __import__(name)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "if_defense_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
@@ -44,12 +47,28 @@ print(len(names))
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax/flax/optax blocked."""
+    """Every module of the port imports with jax/flax/optax/orbax and the
+    JAX package blocked."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 32      # every module was walked
+    assert int(out.stdout.split()[-1]) >= 46      # every module was walked
+
+
+def test_port_sources_import_no_jax():
+    """No source of the port imports those packages anywhere, not even
+    inside a function (which the import walk above does not run)."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
+                         r"if_defense_tpu)\b(?!_torch)", re.M)
+    files = sorted(Path(ROOT, "if_defense_tpu_torch").rglob("*.py"))
+    assert len(files) >= 46
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
+           for m in pattern.finditer(f.read_text())]
+    assert not bad, bad
 
 
 def _flax_params(**cfg):

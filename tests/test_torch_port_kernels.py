@@ -10,9 +10,9 @@ The CUDA kernels are held to these plain versions on the card by
 `tests/test_torch_port_cuda.py` and `chip_smoke.py`.
 
 B1-B3 are also held to them on a lattice whose rows tie at their k-th
-smallest distance (every d2 exact), for k in {1, 5, 8}: the case the
-kernels' selection (a per-lane top-k merged across a warp) must count with
-multiplicity.
+smallest distance (every d2 exact), for k in {1, 5, 8, 9, 16}: the case the
+kernels' selection (a per-lane top-k merged across a warp up to k = 8, a
+scan of warp-min rounds above) must count with multiplicity.
 
 Tolerances: losses rtol 1e-5 (atol 1e-9); gradients rtol 1e-4 with atol
 1e-5 of the largest entry (pair terms summed in other orders); the B2 mask
@@ -181,7 +181,7 @@ def test_b4_plain_matches_jax(reference):
     assert np.abs(np.asarray(want_dp)[:, 0, 0]).sum() > 0   # border cells hit
 
 
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 16])
 def test_b1_plain_matches_pallas_on_ties(k):
     pc = _lattice(10 + k)
     assert _max_ties(pc, k) > 1
@@ -193,7 +193,7 @@ def test_b1_plain_matches_pallas_on_ties(k):
     _grad_close(gt, gj)
 
 
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 16])
 def test_b2_plain_mask_equals_pallas_on_ties(k):
     pc = _lattice(20 + k)
     got = repulsion_mask(torch.from_numpy(pc), k).numpy()
@@ -202,7 +202,7 @@ def test_b2_plain_mask_equals_pallas_on_ties(k):
     assert (got.sum(-1) > k).any()          # tied rows keep every tie
 
 
-@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 16])
 def test_b3_plain_matches_pallas_on_ties(k):
     pc = _lattice(30 + k)
     mask = np.array(fused_repulsion_mask(jnp.asarray(pc), k))
