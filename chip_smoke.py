@@ -97,10 +97,32 @@ Phases, in order; any failure exits non-zero and prints no result:
      (d) B1-B3 at k = 9, 16 and 33 (above the register top-k; B = 4 and 48,
      N = 1024, random points and the lattice, f32 and bf16) against their
      plain versions with phase 2's tolerances, and their device times at
-     B = 48 beside k = 5's.
-The last lines are the rates, the defense step and victim batch profiles,
-the card's name and power limit, one JSON line of the kernels, and
-`{"ok": true, "device": {...}}`.
+     B = 48 beside k = 5's;
+ 13. the attacks (`if_defense_tpu_torch.attack`, `cli/attack.py`), under
+     deterministic algorithms as the CLI runs them: (a) every family for 5
+     iterations on PointNet++ and PointNet (B=4, N=1024, weights calibrated
+     on 32 clouds) and Drop masked on PointNet++, on the card against the
+     port's CPU path with the same weights and draws: each victim's input
+     gradients in direction (cosine >= 0.999 a cloud), every output finite
+     and shaped, and where no max-pool ties by construction (PointNet's
+     families but the two that start at clean points, Drop's mask) >= 99.9
+     % of coordinates within 1e-4 and success masks equal but at near ties;
+     (b) `cli/attack.py` at batch 32 and 1024 points on seeded PointNet++
+     and DGCNN: perturb at its defaults (10 x 500; B5/B6 launch counters
+     set to 0 just before and read just after, 10,000 each), then add,
+     add_cluster, add_object (1 x 50), kNN on DGCNN with the ellipsoids'
+     normals (50), FGM, I-FGM, MI-FGM, PGD (50), Drop (200 points) and a
+     mixed perturb (1 x 50), each checked for its shape and budget; a
+     --resume run stopped after one of two batches and completed,
+     bit-identical to an uninterrupted one; `cli/inference.py` rescoring the
+     perturb output (its targeted count equal to the attack's but for near
+     ties and failed clouds); clouds/s by the host clock around main(); (c)
+     a profile of one warm CW iteration on PointNet++ at batch 32
+     (`tools/profile_cw_iteration.py`), with and without deterministic
+     algorithms in turns.
+The last lines are the rates, the defense step, victim batch and CW
+iteration profiles, the card's name and power limit, one JSON line of the
+kernels, and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -153,7 +175,13 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+# cuBLAS's deterministic workspace, which the attack CLI's deterministic
+# algorithms need: it takes effect only where set before the process's
+# first cuBLAS handle, and phases 2-12 create one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 B, N, R, C = 48, 1024, 64, 32
 LR, SMALL_ITERS = 1e-3, 5
@@ -174,6 +202,36 @@ KNN_TIE = 1e-5        # a near tie of kNN, of |q|^2 + max |x|^2 in the row
 VICTIM_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (20, 20),
                    "dgcnn": (0, 0), "pointconv": (20, 0), "rscnn": (20, 20)}
 REPULSION_KS = (9, 16, 33)               # above the register top-k's 8
+# phase 13: (a) small attacks, B clouds of 1024 points, a few iterations,
+# held to phase 3's bound (a share of coordinates within ATTACK_TOL);
+# (b) cli/attack.py at its batch of 32, beside perturb at its defaults:
+# (attack, victim, flags) at reduced iterations, widths and batch as
+# published
+ATTACK_SMALL_B, ATTACK_SMALL_ITERS = 4, 5
+ATTACK_TOL, ATTACK_SHARE, GRAD_COS = 1e-4, 0.999, 0.999
+# the (victim, family) runs of (a) held to the bound: no max-pool of the
+# victim ties by construction (see check_small_attacks)
+ATTACK_BOUND = {("pointnet", f) for f in (
+    "perturb", "add_object", "knn", "fgm", "ifgm", "mifgm", "pgd")} | {
+    ("pointnet2", "drop (masked)")}
+ATTACK_B = 32
+ATTACK_RUNS = (
+    ("add", "pointnet2", ["--binary_step", "1", "--num_iter", "50"]),
+    ("add_cluster", "pointnet2", ["--binary_step", "1", "--num_iter", "50"]),
+    ("add_object", "pointnet2", ["--binary_step", "1", "--num_iter", "50"]),
+    ("knn", "dgcnn", ["--num_iter", "50"]),
+    ("fgm", "pointnet2", []),
+    ("ifgm", "pointnet2", []),
+    ("mifgm", "pointnet2", []),
+    ("pgd", "pointnet2", []),
+    ("drop", "pointnet2", []),
+    ("perturb", "pointnet2", ["--binary_step", "1", "--num_iter", "50",
+                              "--victim_dtype", "mixed"]),
+)
+# points a cloud of each attack's output (K = 1024): Add appends 512,
+# Add-Cluster 3 x 32, Add-Object 3 x 64; Drop removes 200
+ATTACK_POINTS = {"add": 1536, "add_cluster": 1120, "add_object": 1216,
+                 "drop": 824}
 NEAR_FACTOR = 1.5
 PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
 TB, TQ = 32, 2048                        # train_implicit's batch and queries
@@ -391,11 +449,21 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 def ellipsoids(gen, n: int) -> np.ndarray:
     """n clouds of 1024 points on ellipsoid surfaces, 8 outliers each (SOR
     has work to do), f32."""
+    return ellipsoids_and_normals(gen, n)[0]
+
+
+def ellipsoids_and_normals(gen, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """`ellipsoids`' clouds (the same draws) and their surfaces' unit
+    normals, the gradient of x^2/a^2 + y^2/b^2 + z^2/c^2 (the outliers get
+    their directions' normals)."""
     d = gen.normal(size=(n, 1024, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    pc = d * gen.uniform(0.3, 1.0, (n, 1, 3))
+    axes = gen.uniform(0.3, 1.0, (n, 1, 3))
+    pc = d * axes
     pc[:, :8] *= 3.0
-    return pc.astype(np.float32)
+    normal = d / axes
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    return pc.astype(np.float32), normal.astype(np.float32)
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float,
@@ -1690,14 +1758,386 @@ def check_repulsion_any_k(dev) -> None:
               f"bwd {loss}, B2 {mask}")
 
 
-def profile_step():
-    """The module `tools/profile_defense_step.py` (a script, not a
-    package)."""
+def attack_draws(gen: torch.Generator, b: int, n: int) -> dict:
+    """The random draws of phase 13 (a)'s attacks, made once on the CPU
+    from `gen` so that the card and the CPU start from the same ones."""
+    def normal(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen)
+
+    return {"perturb": normal(2, b, n, 3), "add": normal(1, b, 32, 3),
+            "add_cluster": normal(1, b, 96, 3),
+            "add_object": (normal(1, b, 3, 64, 3), normal(1, b, 3, 3),
+                           uniform(1, b, 3, 3)),
+            "knn": normal(b, n, 3), "ifgm": normal(b, n, 3),
+            "mifgm": normal(b, n, 3), "pgd": (uniform(b, n, 3),
+                                              normal(b, n, 3))}
+
+
+def attack_calls(logits_fn, pc, normal, target, draws) -> dict:
+    """{family: call -> (adv, success)} of every attack of the library at
+    phase 13 (a)'s few iterations, on one device's tensors and draws."""
+    import importlib
+
+    from if_defense_tpu_torch.attack import (
+        chamfer_dist,
+        chamfer_knn_dist,
+        cw_add,
+        cw_add_cluster,
+        cw_add_object,
+        cw_knn,
+        cw_perturb,
+    )
+
+    fgm = importlib.import_module("if_defense_tpu_torch.attack.fgm")
+    it = ATTACK_SMALL_ITERS
+    budget = 0.08 * np.sqrt(pc.shape[1] * 3)
+
+    def cw(fn, *args, **kw):
+        return lambda: fn(logits_fn, pc, target, None, *args,
+                          num_iter=it, **kw)[1:]
+
+    return {
+        "perturb": cw(cw_perturb, binary_step=2, draws=draws["perturb"]),
+        "add": cw(cw_add, chamfer_dist, num_add=32, binary_step=1,
+                  draws=draws["add"]),
+        "add_cluster": cw(cw_add_cluster, binary_step=1,
+                          draws=draws["add_cluster"]),
+        "add_object": cw(cw_add_object, binary_step=1,
+                         draws=draws["add_object"]),
+        "knn": lambda: cw_knn(logits_fn, pc, target, None, chamfer_knn_dist,
+                              normal=normal, num_iter=it,
+                              draws=draws["knn"]),
+        "fgm": lambda: fgm.fgm(logits_fn, pc, target, budget),
+        **{name: (lambda name=name: getattr(fgm, name)(
+            logits_fn, pc, target, budget, budget / it, it,
+            draws=draws[name])) for name in ("ifgm", "mifgm", "pgd")},
+    }
+
+
+def target_margins(logits: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    """logits[cls] minus the best other logit, per row."""
+    own = logits.gather(-1, cls[:, None])[:, 0]
+    return own - logits.scatter(-1, cls[:, None], -torch.inf).amax(-1)
+
+
+def input_grads(fn, pc: torch.Tensor, cls: torch.Tensor, loss: str):
+    """The gradient to the clouds of the margin loss toward `cls` (every
+    targeted attack's adversarial term) or of the cross entropy toward it
+    (Drop's saliency, the adding attacks' critical points)."""
+    from if_defense_tpu_torch.attack.losses import (
+        cross_entropy_adv_loss,
+        logits_adv_loss,
+    )
+
+    x = pc.detach().requires_grad_(True)
+    adv = logits_adv_loss if loss == "margin" else cross_entropy_adv_loss
+    return torch.autograd.grad(adv(fn(x), cls).sum(), x)[0]
+
+
+def check_small_attacks(dev) -> None:
+    """Every attack family of the library for a few iterations on PointNet++
+    and PointNet (B = 4 clouds of 1024 points, seeded weights calibrated on
+    32 clouds), and Drop masked on PointNet++ (20 points in 4 rounds), on
+    the card against the port's CPU path with the same weights and draws.
+
+    First each victim's backward on the same clouds: the gradients of the
+    margin loss toward the target and of the cross entropy toward the label
+    agree in direction, cosine >= GRAD_COS a cloud. Then every run gives
+    finite clouds of the CPU run's shape, and the runs in ATTACK_BOUND are
+    held to phase 3's bound: >= 99.9 % of the adversarial coordinates (of
+    Drop, of the keep mask) within 1e-4, with success masks equal but where
+    a cloud's margin of the target (Drop: of the label) is a near tie on
+    either output, within VICTIM_TOL of the largest logit. The other runs
+    print the same numbers: a max-pool whose two best entries lie within
+    rounding of each other sends a gradient to another point on the card
+    than on the CPU, and the attacks' steps (Adam's first ones move every
+    coordinate by about lr, FGM's by up to the budget) carry the difference
+    on, so that their trajectories part. PointNet++ pools groups of 32 and
+    64 points around 640 centres a cloud, so such near ties come up on
+    every forward; an adding attack starts its points 1e-7 from clean
+    points, which the victim's pools then tie with. Deterministic
+    algorithms on, as in the CLI, so that the card's runs repeat.
+    """
+    from if_defense_tpu_torch.attack.drop import saliency_drop_masked
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.ops import normalize_unit_sphere
+
+    pts, nrm = ellipsoids_and_normals(np.random.default_rng(17), VICTIM_B)
+    calib = normalize_unit_sphere(torch.from_numpy(pts))
+    b = ATTACK_SMALL_B
+    pc, normal = calib[:b].contiguous(), torch.from_numpy(nrm[:b])
+    label = torch.arange(b) % 40
+    target = (label + 7) % 40
+    draws = attack_draws(torch.Generator().manual_seed(18), b, 1024)
+
+    def on(x, d):
+        if isinstance(x, dict):
+            return {k: on(v, d) for k, v in x.items()}
+        return tuple(on(y, d) for y in x) if isinstance(x, tuple) else x.to(d)
+
+    for name in ("pointnet2", "pointnet"):
+        cpu = seeded_victim(name, "cpu", calib)
+        card = build_model(name).to(dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        for m in (cpu, card):
+            for p in m.parameters():
+                p.requires_grad_(False)
+        fns = {d: (lambda x, m=m: m(x)[0], lambda x, k, m=m: m(x, k)[0])
+               for d, m in (("cpu", cpu), (dev, card))}
+        for loss, cls in (("margin", target), ("cross entropy", label)):
+            want = input_grads(fns["cpu"][0], pc, cls, loss)
+            got = input_grads(fns[dev][0], pc.to(dev), cls.to(dev),
+                              loss).cpu()
+            cos = (got * want).sum((1, 2)) / (
+                got.norm(dim=(1, 2)) * want.norm(dim=(1, 2)))
+            print(f"  {name} input gradient of the {loss}: cosine "
+                  f"{float(cos.min()):.7f} (worst cloud), max abs err "
+                  f"{float((got - want).abs().max()):.3e} of "
+                  f"{float(want.abs().max()):.3e}")
+            if float(cos.min()) < GRAD_COS:
+                fail(f"{name}'s {loss} gradient on the card disagrees with "
+                     "the CPU's")
+        want = attack_calls(fns["cpu"][0], pc, normal, target, draws)
+        got = attack_calls(fns[dev][0], pc.to(dev), normal.to(dev),
+                           target.to(dev), on(draws, dev))
+        runs = [(family, got[family], want[family], target)
+                for family in want]
+        if name == "pointnet2":
+            runs.append(("drop (masked)", lambda: saliency_drop_masked(
+                fns[dev][1], pc.to(dev), label.to(dev), 20)[1:],
+                lambda: saliency_drop_masked(fns["cpu"][1], pc, label,
+                                             20)[1:], label))
+        for family, card_run, cpu_run, cls in runs:
+            t0 = time.perf_counter()
+            (g, g_succ), (w, w_succ) = card_run(), cpu_run()
+            g, g_succ, w = g.detach().cpu(), g_succ.cpu(), w.detach()
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"{name} {family}: shape {tuple(g.shape)} vs "
+                     f"{tuple(w.shape)} or non-finite values")
+            err = (g - w).abs()
+            share = float((err <= ATTACK_TOL).float().mean())
+            flips = g_succ != w_succ
+            if family.startswith("drop"):
+                logits = [fns["cpu"][1](pc, k) for k in (g, w)]
+            else:
+                logits = [fns["cpu"][0](x) for x in (g, w)]
+            tol = VICTIM_TOL * max(float(x.abs().max()) for x in logits)
+            near = torch.stack([target_margins(x, cls).abs() <= tol
+                                for x in logits]).any(0)
+            held = (name, family) in ATTACK_BOUND
+            print(f"  {name} {family}: {share:.5f} of "
+                  f"{'mask entries' if family.startswith('drop') else 'coordinates'}"
+                  f" within {ATTACK_TOL:g}, max {float(err.max()):.3e}; "
+                  f"success card {g_succ.int().tolist()} / CPU "
+                  f"{w_succ.int().tolist()}, {int(near.sum())} near ties"
+                  f"{' (held)' if held else ''}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if held and (share < ATTACK_SHARE or bool((flips & ~near).any())):
+                fail(f"small {family} on {name}: the card disagrees with "
+                     "the CPU path")
+
+
+def attack_cli(argv: list[str]) -> dict:
+    """One `cli/attack.py` run on the card, the B5/B6 launch counters set
+    to 0 just before and read just after. -> {out, rate, seconds,
+    launches}."""
+    from if_defense_tpu_torch.cli import attack
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+
+    counters = (cuda_fps.launches, cuda_ballquery.launches)
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, rate = attack.main(argv + ["--batch_size", str(ATTACK_B),
+                                    "--device", "cuda"])
+    torch.cuda.synchronize()
+    return dict(out=out, rate=rate, seconds=time.perf_counter() - t0,
+                launches={k: v for c in counters for k, v in c.items()})
+
+
+def check_attack_output(tag: str, run: dict, attack: str, data: str,
+                        n: int) -> np.ndarray:
+    """The output npz of one run: n clouds, finite, the attack's point
+    count, labels as given, and its budget against the clean clouds as the
+    CLI read them (normalised): kNN's offset a point <= --knn_budget 0.1,
+    FGM's, I-FGM's and MI-FGM's global L2 <= 0.08 sqrt(3 K) (PGD's <= twice
+    that: its ball is centred on its start, itself within it), the adding
+    attacks' clean part unchanged. -> the adversarial clouds."""
+    from if_defense_tpu_torch.data import (
+        ModelNet40Attack,
+        ModelNet40NormalAttack,
+        load_npz,
+    )
+
+    out = load_npz(run["out"])
+    adv = out.test_pc
+    variant = ModelNet40NormalAttack if attack == "knn" else ModelNet40Attack
+    clean = np.stack([x[0][:, :3] for x in variant(data, 1024)])
+    points = ATTACK_POINTS.get(attack, 1024)
+    if adv.shape != (n, points, 3) or not np.isfinite(adv).all():
+        fail(f"{tag}: output {adv.shape} (want {(n, points, 3)}) or "
+             "non-finite values")
+    if not (np.array_equal(out.test_label, load_npz(data).test_label)
+            and 0 <= run["rate"] <= 1):
+        fail(f"{tag}: labels or success rate {run['rate']}")
+    budget = 0.08 * np.sqrt(3 * 1024)
+    if attack == "knn":
+        worst, limit = np.sqrt(((adv - clean) ** 2).sum(-1)).max(), 0.1
+    elif attack in ("fgm", "ifgm", "mifgm", "pgd"):
+        worst = np.sqrt(((adv - clean) ** 2).sum((1, 2))).max()
+        limit = budget * (2 if attack == "pgd" else 1)
+    elif attack.startswith("add"):
+        worst, limit = np.abs(adv[:, :1024] - clean).max(), 0.0
+    else:
+        worst = limit = None
+    if worst is not None and worst > limit * (1 + 1e-5):
+        fail(f"{tag}: {worst} beyond its budget {limit}")
+    print(f"  {tag}: {adv.shape}, success {run['rate']:.4f}, "
+          f"{n / run['seconds']:.2f} clouds/s ({run['seconds']:.1f} s), "
+          f"launches {run['launches']}"
+          + ("" if worst is None else f", budget {worst:.6f} <= {limit:.6f}"))
+    return adv
+
+
+def run_attacks(dev, tmp: str) -> tuple[dict, dict]:
+    """`cli/attack.py` on the card at batch 32 and 1024 points (phase 13
+    (b)): perturb at its defaults (10 x 500) on PointNet++, then each other
+    family at reduced iterations (ATTACK_RUNS; kNN on DGCNN, with normals),
+    each checked by `check_attack_output`; B5 and B6 exactly 2 x 10 x 500
+    launches each in the perturb run. A --resume run stopped after one of
+    two batches and completed, bit-identical to an uninterrupted one.
+    `cli/inference.py` rescores the perturb output in target mode: its
+    count of targeted clouds may differ from the attack's only by the
+    clouds whose target margin is a near tie (VICTIM_TOL of the largest
+    logit) and those the attack counts failed (their cloud is the last
+    iterate). -> (clouds/s per run, B5/B6 launches summed over the runs)."""
+    from if_defense_tpu_torch.cli import inference
+    from if_defense_tpu_torch.cli.inference import load_eval_model
+    from if_defense_tpu_torch.data import load_npz, save_npz
+    from if_defense_tpu_torch.ops import normalize_unit_sphere
+    from if_defense_tpu_torch.training import make_eval_step
+    from if_defense_tpu_torch.utils.checkpoint import save_eval_checkpoint
+    from if_defense_tpu_torch.utils.params_io import params_to_jax
+
+    n2 = 2 * ATTACK_B
+    pts, nrm = ellipsoids_and_normals(np.random.default_rng(19), n2)
+    label = np.arange(n2) % 40
+    labels = {"test_label": label, "target_label": (label + 7) % 40}
+    one = {k: v[:ATTACK_B] for k, v in labels.items()}
+    data = save_npz(os.path.join(tmp, "clouds.npz"),
+                    {"test_pc": pts[:ATTACK_B], **one})
+    two = save_npz(os.path.join(tmp, "clouds64.npz"),
+                   {"test_pc": pts, **labels})
+    normals = save_npz(os.path.join(tmp, "normals.npz"), {
+        "test_pc": np.concatenate([pts, nrm], -1)[:ATTACK_B], **one})
+    calib = normalize_unit_sphere(torch.from_numpy(pts[:ATTACK_B]))
+    ckpt = {}
+    for name in ("pointnet2", "dgcnn"):
+        model = seeded_victim(name, dev, calib)
+        ckpt[name] = save_eval_checkpoint(os.path.join(tmp, f"{name}.npz"),
+                                          params_to_jax(model.state_dict()),
+                                          {"model": name})
+        del model
+
+    def argv(attack, victim, src, out, extra):
+        return ["--attack", attack, "--data", src, "--checkpoint",
+                ckpt[victim], "--output", os.path.join(tmp, out), *extra]
+
+    rates, total = {}, {"fps": 0, "ballquery": 0}
+    perturb = attack_cli(argv("perturb", "pointnet2", data, "perturb.npz",
+                              []))
+    check_attack_output("perturb 10 x 500, PointNet++", perturb, "perturb",
+                        data, ATTACK_B)
+    want = 2 * 10 * 500
+    if perturb["launches"] != {"fps": want, "ballquery": want}:
+        fail(f"B5/B6 launches {perturb['launches']} in perturb 10 x 500 on "
+             f"PointNet++, not {want} each")
+    runs = {"perturb": perturb}
+    for attack, victim, extra in ATTACK_RUNS:
+        tag = f"{attack} {' '.join(extra)} {victim}".replace("  ", " ")
+        src = normals if attack == "knn" else data
+        runs[tag] = attack_cli(argv(attack, victim, src,
+                                    f"{attack}-{len(runs)}.npz", extra))
+        check_attack_output(tag, runs[tag], attack, src, ATTACK_B)
+    for tag, run in runs.items():
+        rates[tag] = ATTACK_B / run["seconds"]
+        for k in total:
+            total[k] += run["launches"][k]
+
+    # resume: perturb 2 x 25 over two batches, stopped after the first
+    flags = ["--binary_step", "2", "--num_iter", "25"]
+    full = attack_cli(argv("perturb", "pointnet2", two, "full.npz", flags))
+    part = argv("perturb", "pointnet2", two, "resumed.npz",
+                flags + ["--resume"])
+    stopped = attack_cli(part + ["--stop_after_batches", "1"])
+    resumed = attack_cli(part)
+    got, want_ = load_npz(resumed["out"]), load_npz(full["out"])
+    same = all(np.array_equal(getattr(got, k), getattr(want_, k))
+               for k in ("test_pc", "test_label", "target_label"))
+    print(f"  resume: stopped {stopped['out']} after 1 batch, resumed run "
+          f"{'bit-identical' if same else 'DIFFERENT'} to the uninterrupted "
+          f"one (success {resumed['rate']:.4f} / {full['rate']:.4f}; "
+          f"{full['seconds']:.1f} s for {n2} clouds)")
+    if not same or stopped["out"] is not None or (
+            resumed["rate"] != full["rate"]):
+        fail("a resumed attack run differs from an uninterrupted one")
+    for run in (full, stopped, resumed):
+        for k in total:
+            total[k] += run["launches"][k]
+
+    # inference rescores the perturb output, target mode
+    scored = inference.main(["--data", perturb["out"], "--checkpoint",
+                             ckpt["pointnet2"], "--mode", "target",
+                             "--batch_size", str(ATTACK_B), "--device",
+                             "cuda"])
+    step = make_eval_step(load_eval_model(ckpt["pointnet2"])[0].to(dev))
+    adv = torch.from_numpy(load_npz(perturb["out"]).test_pc).to(dev)
+    logits = step(adv)
+    margin = target_margins(logits, torch.from_numpy(
+        one["target_label"]).long().to(dev))
+    near = int((margin.abs() <= VICTIM_TOL * float(
+        logits.abs().max())).sum())
+    attacked = round(perturb["rate"] * ATTACK_B)
+    rescored = round(scored["target_success"] * scored["n"])
+    print(f"  inference rescoring perturb: {rescored} of {scored['n']} "
+          f"targeted (the attack: {attacked}); {near} near ties, "
+          f"{ATTACK_B - attacked} failed clouds")
+    if scored["n"] != ATTACK_B or abs(rescored - attacked) > (
+            near + ATTACK_B - attacked):
+        fail("cli/inference.py's targeted count of the perturb output "
+             "differs from the attack's beyond its near ties")
+    return rates, total
+
+
+def check_attacks(dev) -> tuple[dict, dict, dict]:
+    """Phase 13: (a) `check_small_attacks`, (b) `run_attacks`, then a
+    profile of one warm CW iteration on PointNet++ at batch 32, with and
+    without deterministic algorithms. -> (clouds/s, B5/B6 launches of
+    (b), the profile)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        check_small_attacks(dev)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    with tempfile.TemporaryDirectory() as tmp:
+        rates, launches = run_attacks(dev, tmp)
+    print("  a CW iteration on PointNet++, profiled "
+          "(tools/profile_cw_iteration.py):")
+    return rates, launches, tool("profile_cw_iteration").profile(dev)
+
+
+def tool(name: str):
+    """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "profile_defense_step",
-        os.path.join(ROOT, "tools", "profile_defense_step.py"))
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -1780,7 +2220,7 @@ def main() -> int:
             rates[name + " warm"] = run_cli(tmp, name, extra)["clouds_per_sec"]
     print("  a step of the reference mode, profiled "
           "(tools/profile_defense_step.py):")
-    step_profiles = [profile_step().profile(dev, v, steps=5)
+    step_profiles = [tool("profile_defense_step").profile(dev, v, steps=5)
                      for v in ("convonet", "onet")]
 
     dup_clouds = ellipsoids(np.random.default_rng(7), DUP_CLOUDS)
@@ -1865,6 +2305,15 @@ def main() -> int:
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
+    print(f"phase 13: the attacks, small CUDA vs CPU, then cli/attack.py at "
+          f"full width (batch {ATTACK_B}), a resumed run, rescoring and a "
+          "CW iteration's profile")
+    t13 = time.perf_counter()
+    attack_rates, launches["attack"], cw_profile = check_attacks(dev)
+    print(f"  B5/B6 launches on the attack path: {launches['attack']}")
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
     used_in = {"repulsion_loss": ("reference", ("repulsion_loss",)),
@@ -1873,8 +2322,8 @@ def main() -> int:
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup victims", ("fps",)),
-               "ballquery": ("dup victims", ("ballquery",)),
+               "fps": ("dup victims attack", ("fps",)),
+               "ballquery": ("dup victims attack", ("ballquery",)),
                "plane_features_dplane": ("train", ("plane_features",
                                                    "plane_features_dplane"))}
     for row in rows:
@@ -1892,6 +2341,9 @@ def main() -> int:
     print("victims clouds/s (cli/inference.py, host clock around main()): "
           + json.dumps(victim_rates) + f" on {card}")
     print("victim batch profiles: " + json.dumps(victim_profiles))
+    print("attacked clouds/s (cli/attack.py, host clock around main()): "
+          + json.dumps(attack_rates) + f" on {card}")
+    print("CW iteration profile: " + json.dumps(cw_profile))
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

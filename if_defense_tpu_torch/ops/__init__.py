@@ -5,6 +5,10 @@ The kernel wrappers (`cuda_interp`, `cuda_repulsion`, `cuda_fps`,
 on first use, on a machine with `nvcc` and a card.
 """
 
+from if_defense_tpu_torch.ops.distances import (
+    chamfer_distance,
+    hausdorff_distance,
+)
 from if_defense_tpu_torch.ops.interp import (
     bilinear_plane_sample,
     cached_bilinear_sample,
@@ -12,6 +16,7 @@ from if_defense_tpu_torch.ops.interp import (
     plane_corner_features,
     plane_features,
 )
+from if_defense_tpu_torch.ops.metrics3d import compute_iou
 from if_defense_tpu_torch.ops.normalize import (
     normalize_unit_cube,
     normalize_unit_sphere,
@@ -30,6 +35,9 @@ from if_defense_tpu_torch.ops.pointops import (
 from if_defense_tpu_torch.ops.scatter import pooled_max_by_cell, scatter_mean_2d
 
 __all__ = [
+    "chamfer_distance",
+    "hausdorff_distance",
+    "compute_iou",
     "bilinear_plane_sample",
     "cached_bilinear_sample",
     "normalize_coordinate",

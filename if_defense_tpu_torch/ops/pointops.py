@@ -165,11 +165,19 @@ def query_ball_point_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.where(idx == N, 0, idx)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """bf16 points as f32, which holds every bf16 value exactly; other
+    types as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           start_idx: torch.Tensor | None = None,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
     """Farthest point sampling: kernel B5 for CUDA tensors, the plain
-    version for CPU tensors. [B, N, 3] -> [B, npoint] int32."""
+    version for CPU tensors. [B, N, 3] -> [B, npoint] int32. bf16 points
+    (a mixed-precision victim's) select in f32, on their exact upcast."""
+    xyz = _f32(xyz)
     if xyz.is_cuda:
         from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
 
@@ -181,7 +189,9 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor,
                      mask: torch.Tensor | None = None) -> torch.Tensor:
     """Ball query: kernel B6 for CUDA tensors, the plain version for CPU
-    tensors. -> [B, S, nsample] int32."""
+    tensors. -> [B, S, nsample] int32. bf16 points and centres select in
+    f32, on their exact upcast."""
+    xyz, new_xyz = _f32(xyz), _f32(new_xyz)
     if xyz.is_cuda:
         from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
 

@@ -21,7 +21,9 @@ ragged N and S, at shapes where the kernel sets 1, 2, 4 and 8 warps on
 a group of centres, and at B = 65536; B2, B5 and B6 bit-identical from one launch
 to the next. B1-B3 also at k = 9, 16 and 33 (the threshold scan above the
 register top-k). The five victims on the card against their CPU path:
-logits within rtol 1e-3 and atol 1e-3 of the largest magnitude.
+logits within rtol 1e-3 and atol 1e-3 of the largest magnitude. FPS and
+ball query on bf16 points bit-equal to the plain versions on their f32
+upcast; PointNet with a bf16 trunk within 2 % of its f32 logits.
 """
 
 import numpy as np
@@ -575,3 +577,48 @@ def test_cuda_victim_matches_cpu(cuda, name):
     grouped = cuda_fps.launches["fps"] + cuda_ballquery.launches["ballquery"]
     assert (grouped > launches) == (name in ("pointnet2", "pointconv",
                                              "rscnn"))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_dispatch_takes_bf16_points(cuda, masked):
+    """FPS and ball query on bf16 points (a mixed-precision victim's) on
+    the card select what B5 and B6 select on their exact f32 upcast, which
+    is what the plain versions select on the CPU."""
+    from if_defense_tpu_torch.ops import (
+        farthest_point_sample,
+        index_points,
+        query_ball_point,
+    )
+
+    xyz = torch.from_numpy(_points(17, 1024)).to(torch.bfloat16)
+    mask = (torch.from_numpy(np.random.default_rng(18).uniform(
+        size=(2, 1024)) > 0.2) if masked else None)
+    on = (lambda t: None if t is None else t.to(cuda))
+    fps = farthest_point_sample(xyz.to(cuda), 512, mask=on(mask))
+    want = farthest_point_sample_plain(xyz.float(), 512, mask=mask)
+    assert torch.equal(fps.cpu(), want)
+    new = index_points(xyz, want.long())
+    got = query_ball_point(0.2, 32, xyz.to(cuda), new.to(cuda), on(mask))
+    assert torch.equal(got.cpu(), query_ball_point_plain(
+        0.2, 32, xyz.float(), new.float(), mask))
+
+
+def test_cuda_mixed_victim_close_to_f32(cuda):
+    """PointNet (8 classes, seeded init) with a bf16 trunk and an f32 head
+    on the card, as `tests/test_attack.py:153` holds JAX's: logits f32,
+    within 2 % of the f32 victim's largest logit. (PointNet++ selects its
+    groups on the bf16-rounded points, which alone moves a calibrated
+    victim's logits by tenths of the largest: no such bound holds there.)"""
+    from if_defense_tpu_torch.attack.mixed import make_mixed_logits_fn
+    from if_defense_tpu_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pc = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 64, 3)).astype(np.float32)).to(cuda)
+    torch.manual_seed(0)
+    model = build_model("pointnet", num_classes=8).to(cuda).eval()
+    with torch.no_grad():
+        want, _ = model(pc)
+        got = make_mixed_logits_fn(model, 8)(pc)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max() / want.abs().max()) < 0.02
