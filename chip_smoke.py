@@ -119,10 +119,39 @@ Phases, in order; any failure exits non-zero and prints no result:
      ties and failed clouds); clouds/s by the host clock around main(); (c)
      a profile of one warm CW iteration on PointNet++ at batch 32
      (`tools/profile_cw_iteration.py`), with and without deterministic
-     algorithms in turns.
-The last lines are the rates, the defense step, victim batch and CW
-iteration profiles, the card's name and power limit, one JSON line of the
-kernels, and `{"ok": true, "device": {...}}`.
+     algorithms in turns;
+ 14. victim training (`training.py`, `cli/train.py`, `cli/hybrid_train.py`;
+     TF32 off, deterministic algorithms off as the train CLI runs): (a)
+     each victim, and PointNet with the feature transform, 3 train steps
+     at B=4, N=1024 on the card and on the port's CPU path from the same
+     `flax_init_params(0)` values, batches and dropout masks (drawn on the
+     CPU, fed to both through the `draw` seam), DGCNN and PointConv on the
+     CPU's kNN graphs (`KnnTap`), each step from the CPU's state: loss
+     rtol 1e-4, every gradient in the CPU's direction (cosine >= 0.999 a
+     tensor; the biases that feed a batch norm, 0 but for rounding, below
+     1e-3 of the largest entry, and a tensor below 1e-4 of it within that),
+     the batch statistics within 1e-4 of their scale; (b)
+     `cli/train.py` at its defaults (batch 32, 1024 points, lr 1e-3, wd
+     1e-4) for 2 epochs with `--eval_every 1` on `tools/synthetic_dataset.py`'s
+     hard family (8 classes, 320 train and 80 test clouds) for each
+     victim, then PointNet with `--feature_transform`, B5/B6 launch
+     counters set to 0 just before each run and read just after: 20 train
+     steps and 2 x 3 padded eval batches are 26 forwards, so PointNet++
+     and RS-CNN 52 and 52, PointConv 52 and 0, PointNet and DGCNN none;
+     `cli/inference.py` scoring each victim's best checkpoint through
+     `registry:synth` at the accuracy the run recorded for it, but for
+     near ties (printed); `cli/hybrid_train.py` on PointNet++ with a
+     jittered copy as `--def_data` (40 steps and 2 x 6 eval batches: 104
+     and 104), its best.npz the epoch of the highest def_test_acc; a
+     PointNet++ run of 1 epoch then `--resume` to epoch 2 (26 and 26 each),
+     resumed at step 10 with Adam's moments as saved; steps/s by epoch
+     from metrics.jsonl's epoch_time (an epoch's steps and its test pass);
+     (c) a profile of one warm PointNet++ and one warm DGCNN train step at
+     batch 32 (`tools/profile_train_step.py`, also alone on the card).
+     B5 over (b): 312 launches, B6: 260.
+The last lines are the rates, the defense step, victim batch, CW
+iteration and train step profiles, the card's name and power limit, one
+JSON line of the kernels, and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -238,6 +267,19 @@ TB, TQ = 32, 2048                        # train_implicit's batch and queries
 TRAIN_STEPS, TRAIN_LR = 100, 1e-3
 DEVICE_REPS, GRAPH_REPS = 20, 50          # calls per device-time reading
 PLANE_NAMES = ("xz", "xy", "yz")
+# phase 14: victim training. (a) small steps, CUDA vs CPU; (b) the train
+# CLIs at their defaults (batch 32, 1024 points) on 8 classes x (40 train,
+# 10 test) clouds; B5/B6 launches of one forward (two sampled levels;
+# PointConv groups by kNN, PointNet and DGCNN sample nothing)
+TRAIN_VICTIMS = (("pointnet", {}), ("pointnet", {"feature_transform": True}),
+                 ("pointnet2", {}), ("dgcnn", {}), ("pointconv", {}),
+                 ("rscnn", {}))
+TRAIN_SMALL_B, TRAIN_SMALL_STEPS = 4, 3
+TRAIN_LOSS_RTOL, TRAIN_STATS_TOL = 1e-4, 1e-4
+TRAIN_B, TRAIN_EPOCHS, TRAIN_PER_CLASS = 32, 2, (40, 10)
+TRAIN_FORWARD_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (2, 2),
+                          "dgcnn": (0, 0), "pointconv": (2, 0),
+                          "rscnn": (2, 2)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2132,6 +2174,332 @@ def check_attacks(dev) -> tuple[dict, dict, dict]:
     return rates, launches, tool("profile_cw_iteration").profile(dev)
 
 
+def train_draw(gen: torch.Generator, masks: list):
+    """A dropout draw from `gen` that keeps each mask it draws in `masks`."""
+    from if_defense_tpu_torch.models.common import generator_draw
+
+    draw = generator_draw(gen)
+
+    def record(shape, rate):
+        masks.append(draw(shape, rate))
+        return masks[-1]
+
+    return record
+
+
+def step_differs(cpu, card) -> tuple[str | None, float, float]:
+    """A train step on the card (`card`, after backward) against the same
+    step on the CPU (`cpu`): (what is out of phase 14 (a)'s bounds or None,
+    the least gradient cosine, the largest batch-statistics error of its
+    scale). Gradients: the
+    biases that feed a batch norm (`batch_norm_fed_biases`: 0 but for
+    rounding) below 1e-3 of the largest gradient entry on both; a tensor
+    whose CPU gradient lies below 1e-4 of it within that of the CPU's;
+    every other tensor at cosine >= GRAD_COS. Batch statistics within
+    TRAIN_STATS_TOL of their scale: a variance's largest entry; a mean's
+    largest entry or the root of its variance's, the larger (the victims'
+    first norms see centred clouds, whose means are 0 but for rounding)."""
+    from if_defense_tpu_torch.models.common import batch_norm_fed_biases
+
+    grads = {n: p.grad.double() for n, p in cpu.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    least, worst = 1.0, 0.0
+    zero = batch_norm_fed_biases(cpu)
+    for n, p in card.named_parameters():
+        g, w = p.grad.cpu().double(), grads[n]
+        if n in zero:
+            if max(float(g.abs().max()), float(w.abs().max())) > 1e-3 * top:
+                return f"gradient of {n}, 0 but for rounding, is not", 0, 0
+        elif float(w.abs().max()) < 1e-4 * top:
+            if float((g - w).abs().max()) > 1e-4 * top:
+                return (f"gradient of {n} (below 1e-4 of the largest)",
+                        0, 0)
+        else:
+            cos = float((g * w).sum() / (g.norm() * w.norm()))
+            least = min(least, cos)
+            if not cos >= GRAD_COS:
+                return (f"gradient of {n} at cosine {cos:.6f} to the "
+                        "CPU's", least, 0)
+    stats = dict(cpu.named_buffers())
+    for n, g in card.named_buffers():
+        w = stats[n]
+        scale = float(w.abs().max())
+        if n.endswith(".mean"):
+            scale = max(scale, float(stats[n[:-4] + "var"].max()) ** 0.5)
+        err = float((g.cpu() - w).abs().max()) / scale
+        worst = max(worst, err)
+        if err > TRAIN_STATS_TOL:
+            return (f"batch statistics {n} {err:.2e} of their scale off",
+                    least, worst)
+    return None, least, worst
+
+
+def check_small_victim_training(dev) -> None:
+    """Phase 14 (a): each victim (and PointNet with the feature transform)
+    for TRAIN_SMALL_STEPS train steps at B=4, N=1024 on the card and on the
+    port's CPU path, from the same `flax_init_params(0)` values, batches
+    and dropout masks (drawn on the CPU, fed to both through the `draw`
+    seam); DGCNN and PointConv replay the CPU's kNN graphs on the card
+    (`KnnTap`). Each step starts from the CPU's state (weights, batch
+    statistics, Adam's moments and count): max-pool near ties send a
+    gradient to another point on the card (PERF.md section 6) and
+    Adam's normalised step moves a weight by the rate for a gradient near
+    0 either way, so trajectories are held step by step, in direction and
+    not in bits. Each step: loss rtol TRAIN_LOSS_RTOL; gradients and batch
+    statistics as `step_differs` holds them."""
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    b, steps = TRAIN_SMALL_B, TRAIN_SMALL_STEPS
+    pc = victim_clouds(np.random.default_rng(16), b * steps)
+    label = torch.from_numpy(np.random.default_rng(17).integers(
+        0, 40, b * steps))
+    for name, kw in TRAIN_VICTIMS:
+        tag = name + (" (feature transform)" if kw else "")
+        weights = params_from_jax(flax_init_params(0, name, **kw))
+        cpu, card = (create_train_state(
+            build_model(name, **kw).to(where), total_epochs=1,
+            steps_per_epoch=steps) for where in ("cpu", dev))
+        for state in (cpu, card):
+            state.model.load_state_dict(weights)
+        fea = 0.001 if kw else 0.0
+        cpu_step = make_train_step(cpu.model, False, fea)
+        card_step = make_train_step(card.model, False, fea)
+        gen = torch.Generator().manual_seed(18)
+        worst = dict(loss=0.0, cos=1.0, stats=0.0)
+        for i in range(steps):
+            if i:
+                card.model.load_state_dict(cpu.model.state_dict())
+                card.optimizer.load_state_dict(cpu.optimizer.state_dict())
+                card.set_step(cpu.step)
+            x, y = pc[i * b:(i + 1) * b], label[i * b:(i + 1) * b]
+            masks = []
+            with KnnTap() as tap:
+                _, want = cpu_step(cpu, x, y, train_draw(gen, masks))
+            replay = iter(masks)
+            with KnnTap(tap.log):
+                _, got = card_step(card, x.to(dev), y.to(dev),
+                                   lambda shape, rate: next(replay))
+            loss = abs(float(got["loss"]) - float(want["loss"])) / abs(
+                float(want["loss"]))
+            worst["loss"] = max(worst["loss"], loss)
+            if loss > TRAIN_LOSS_RTOL:
+                fail(f"{tag} step {i + 1}: loss {float(got['loss'])} on the "
+                     f"card, {float(want['loss'])} on the CPU")
+            err, cos, stats = step_differs(cpu.model, card.model)
+            if err:
+                fail(f"{tag} step {i + 1}: {err}")
+            worst["cos"] = min(worst["cos"], cos)
+            worst["stats"] = max(worst["stats"], stats)
+        print(f"  {tag}: {steps} steps, loss rel {worst['loss']:.2e}, "
+              f"gradient cosine >= {worst['cos']:.7f}, batch statistics "
+              f"{worst['stats']:.2e} of their scale")
+
+
+def train_cli(argv: list[str], hybrid: bool = False) -> dict:
+    """One `cli/train.py` (or `cli/hybrid_train.py`) run on the card with
+    the B5/B6 launch counters set to 0 just before and read just after. ->
+    {seconds (host clock around main()), launches, records}."""
+    from if_defense_tpu_torch.cli import hybrid_train, train
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+
+    counters = (cuda_fps.launches, cuda_ballquery.launches)
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (hybrid_train if hybrid else train).main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = argv[argv.index("--output") + 1]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return dict(seconds=seconds, records=records,
+                launches={k: v for c in counters for k, v in c.items()})
+
+
+def train_data(tmp: str) -> tuple[str, str]:
+    """The classification npz (`tools/synthetic_dataset.py`, hard family:
+    8 classes, 40 train and 10 test clouds each of 1024 points, unit
+    sphere) and a defended-schema copy of it (every cloud's points moved
+    by N(0, 0.01^2) noise) for hybrid training. -> (data, defended)."""
+    data = os.path.join(tmp, "synth.npz")
+    tool("synthetic_dataset").make_classification_npz(
+        data, TRAIN_PER_CLASS[0], TRAIN_PER_CLASS[1], 1024, seed=0,
+        family="hard")
+    with np.load(data) as d:
+        arrays = {k: d[k] for k in d.files}
+    rng = np.random.default_rng(19)
+    for key in ("train_pc", "test_pc"):
+        arrays[key] = arrays[key].copy()
+        arrays[key][..., :3] += 0.01 * rng.normal(
+            size=arrays[key][..., :3].shape).astype(np.float32)
+    defended = os.path.join(tmp, "synth_def.npz")
+    np.savez(defended, **arrays)
+    return data, defended
+
+
+def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
+    """Phase 14 (b); see the module docstring. -> (steps/s per run and
+    epoch, B5/B6 launches summed over the runs)."""
+    from if_defense_tpu_torch.cli import inference, train
+    from if_defense_tpu_torch.cli.inference import load_eval_model
+    from if_defense_tpu_torch.data import ModelNet40, batch_iterator
+    from if_defense_tpu_torch.training import make_eval_step
+    from if_defense_tpu_torch.utils.checkpoint import load_metadata
+    from if_defense_tpu_torch.utils.params_io import (
+        adam_state_to_jax,
+        flatten_params,
+        load_params_npz,
+    )
+
+    data, defended = train_data(tmp)
+    with np.load(data) as d:
+        n_train, n_test = len(d["train_label"]), len(d["test_label"])
+    steps = n_train // TRAIN_B                     # drop_last
+    evals = -(-n_test // TRAIN_B)                  # the last padded
+    rates, total = {}, {"fps": 0, "ballquery": 0}
+
+    def forwards_want(name: str, forwards: int) -> dict:
+        per = TRAIN_FORWARD_LAUNCHES[name]
+        return {"fps": forwards * per[0], "ballquery": forwards * per[1]}
+
+    def check_run(tag: str, run: dict, want: dict) -> None:
+        print(f"  {tag}: {run['seconds']:.1f} s, launches "
+              f"{run['launches']} (want {want})")
+        if run["launches"] != want:
+            fail(f"B5/B6 launches {run['launches']} in {tag}, not {want}")
+        for k in total:
+            total[k] += run["launches"][k]
+        for r in run["records"]:
+            if "train_loss" in r and not np.isfinite(r["train_loss"]):
+                fail(f"{tag}: train loss {r['train_loss']}")
+
+    registry = os.path.join(tmp, "registry.json")
+    best = {}
+    for name, kw in TRAIN_VICTIMS:
+        tag = name + ("_ft" if kw else "")
+        out = os.path.join(tmp, tag)
+        argv = ["--data", data, "--model", name, "--batch_size",
+                str(TRAIN_B), "--epochs", str(TRAIN_EPOCHS),
+                "--eval_every", "1", "--output", out,
+                "--registry", registry if not kw else registry + ".ft"]
+        run = train_cli(argv + (["--feature_transform"] if kw else []))
+        check_run(f"cli/train.py {tag}", run, forwards_want(
+            name, TRAIN_EPOCHS * (steps + evals)))
+        epochs = [r for r in run["records"] if "epoch" in r]
+        if [r["epoch"] for r in epochs] != list(range(1, TRAIN_EPOCHS + 1)):
+            fail(f"{tag}: epochs {[r['epoch'] for r in epochs]}")
+        rates[tag] = [steps / r["epoch_time"] for r in epochs]
+        final = run["records"][-1]
+        if not kw:
+            best[name] = epochs[final["best_epoch"] - 1]["test_acc"]
+        print(f"    test_acc {[r['test_acc'] for r in epochs]}, train_loss "
+              f"{[round(r['train_loss'], 4) for r in epochs]}, steps/s by "
+              f"epoch {[round(x, 2) for x in rates[tag]]}")
+
+    # the registry's best checkpoints score the test split as recorded
+    for name in VICTIMS:
+        out = inference.main(["--data", data, "--checkpoint",
+                              "registry:synth", "--model", name,
+                              "--registry", registry, "--normalize",
+                              "--batch_size", str(TRAIN_B), "--device",
+                              "cuda"])
+        step = make_eval_step(load_eval_model(
+            "registry:synth", name, 1024, registry)[0].to(dev))
+        near = 0
+        for (pc, _), valid in batch_iterator(
+                ModelNet40(data, 1024, partition="test"), TRAIN_B,
+                pad_last=True):
+            logits = step(torch.from_numpy(pc).to(dev)).cpu()[:valid]
+            top2 = logits.topk(2, -1).values
+            near += int((top2[:, 0] - top2[:, 1] <= VICTIM_TOL * float(
+                logits.abs().max())).sum())
+        differ = round(abs(out["accuracy"] - best[name]) * out["n"])
+        print(f"  cli/inference.py {name} (registry:synth): accuracy "
+              f"{out['accuracy']:.4f}, the run's {best[name]:.4f}; "
+              f"{near} clouds within {VICTIM_TOL:g} of a tie")
+        if out["n"] != n_test or differ > near:
+            fail(f"scoring {name}'s best checkpoint: {out}, the run recorded "
+                 f"{best[name]}")
+
+    # hybrid training: best by defended accuracy
+    out = os.path.join(tmp, "hybrid")
+    run = train_cli(["--data", data, "--def_data", defended, "--model",
+                     "pointnet2", "--batch_size", str(TRAIN_B),
+                     "--epochs", str(TRAIN_EPOCHS),
+                     "--eval_every", "1", "--output", out, "--registry",
+                     registry + ".hybrid"], hybrid=True)
+    check_run("cli/hybrid_train.py pointnet2", run, forwards_want(
+        "pointnet2", TRAIN_EPOCHS * (2 * steps + 2 * evals)))
+    def_accs = [r["def_test_acc"] for r in run["records"] if "epoch" in r]
+    meta = load_metadata(os.path.join(out, "best.npz"))
+    print(f"    def_test_acc {def_accs}, best.npz at epoch {meta['epoch']}")
+    if meta["epoch"] != 1 + int(np.argmax(def_accs)):
+        fail(f"hybrid training kept epoch {meta['epoch']} as best, "
+             f"def_test_acc {def_accs}")
+
+    # resume: one epoch, then on to the second from its final checkpoint
+    first = os.path.join(tmp, "resume_first")
+    argv = ["--data", data, "--model", "pointnet2", "--batch_size",
+            str(TRAIN_B), "--eval_every", "1", "--registry",
+            registry + ".resume"]
+    run = train_cli(argv + ["--epochs", "1", "--output", first])
+    check_run("cli/train.py pointnet2, epoch 1", run,
+              forwards_want("pointnet2", steps + evals))
+    saved = load_params_npz(os.path.join(first, "final.npz.opt.npz"))
+    seen = {}
+    restore = train.restore_checkpoint
+
+    def spy(path, state):
+        state, meta = restore(path, state)
+        seen["step"] = state.step
+        seen["adam"] = adam_state_to_jax(state.optimizer.state_dict(),
+                                         state.model)
+        return state, meta
+
+    train.restore_checkpoint = spy
+    try:
+        run = train_cli(argv + ["--epochs", str(TRAIN_EPOCHS), "--output",
+                                os.path.join(tmp, "resumed"), "--resume",
+                                os.path.join(first, "final.npz")])
+    finally:
+        train.restore_checkpoint = restore
+    check_run("cli/train.py pointnet2, --resume to epoch 2", run,
+              forwards_want("pointnet2", steps + evals))
+    epochs = [r["epoch"] for r in run["records"] if "epoch" in r]
+    moments_equal = all(
+        np.array_equal(flatten_params(seen["adam"][k])[p],
+                       flatten_params(saved["opt_state"][k])[p])
+        for k in ("mu", "nu") for p in flatten_params(saved["opt_state"][k]))
+    print(f"    resumed at step {seen['step']}, epochs {epochs}, Adam's "
+          f"moments restored: {moments_equal}")
+    if (seen["step"] != steps or int(saved["step"]) != steps or epochs != [2]
+            or int(seen["adam"]["count"]) != steps or not moments_equal):
+        fail(f"resume: step {seen['step']}, epochs {epochs}")
+    return rates, total
+
+
+def check_victim_training(dev) -> tuple[dict, dict, dict]:
+    """Phase 14: (a) small steps CUDA vs CPU, (b) the train CLIs at full
+    width, (c) a profile of a PointNet++ and a DGCNN train step. ->
+    (steps/s, B5/B6 launches of (b), profiles)."""
+    check_small_victim_training(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        rates, launches = run_train_clis(dev, tmp)
+    profiles = {v: tool("profile_train_step").profile(dev, v, TRAIN_B)
+                for v in ("pointnet2", "dgcnn")}
+    return rates, launches, profiles
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -2314,6 +2682,17 @@ def main() -> int:
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
+    print(f"phase 14: victim training, small CUDA vs CPU, then cli/train.py "
+          f"and cli/hybrid_train.py at full width (batch {TRAIN_B}), a "
+          "resumed run, scoring and a train step's profile")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t14 = time.perf_counter()
+    fit_rates, launches["fit"], fit_profiles = check_victim_training(dev)
+    print(f"  B5/B6 launches on the training path: {launches['fit']}")
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
     used_in = {"repulsion_loss": ("reference", ("repulsion_loss",)),
@@ -2322,8 +2701,8 @@ def main() -> int:
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup victims attack", ("fps",)),
-               "ballquery": ("dup victims attack", ("ballquery",)),
+               "fps": ("dup victims attack fit", ("fps",)),
+               "ballquery": ("dup victims attack fit", ("ballquery",)),
                "plane_features_dplane": ("train", ("plane_features",
                                                    "plane_features_dplane"))}
     for row in rows:
@@ -2344,6 +2723,10 @@ def main() -> int:
     print("attacked clouds/s (cli/attack.py, host clock around main()): "
           + json.dumps(attack_rates) + f" on {card}")
     print("CW iteration profile: " + json.dumps(cw_profile))
+    print("victim training steps/s (cli/train.py, from metrics.jsonl's "
+          "epoch_time, epochs 1 and 2): " + json.dumps(fit_rates)
+          + f" on {card}")
+    print("victim train step profiles: " + json.dumps(fit_profiles))
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

@@ -77,7 +77,10 @@ def load_eval_model(checkpoint: str, model_name: str | None = None,
                     num_points: int = 1024, registry: str | None = None):
     """A checkpoint's victim with its weights loaded (every key, strictly),
     on the CPU; returns (model, meta). `registry:` names resolve via
-    `resolve_checkpoint`."""
+    `resolve_checkpoint`. A PointNet whose params hold the feature
+    transform (`PointNetFeat_0/STN_1`, trained with `--feature_transform`)
+    is built with it; the JAX package's loader builds it without and
+    leaves those params unused."""
     checkpoint = resolve_checkpoint(
         checkpoint, model_name, num_points, registry)
     raw = restore_checkpoint_raw(checkpoint)
@@ -86,7 +89,10 @@ def load_eval_model(checkpoint: str, model_name: str | None = None,
     if name is None:
         raise ValueError(
             "checkpoint has no model metadata; pass --model explicitly")
-    model = build_model(str(name))
+    kwargs = {}
+    if "STN_1" in raw["params"].get("PointNetFeat_0", {}):
+        kwargs["feature_transform"] = True
+    model = build_model(str(name), **kwargs)
     model.load_state_dict(params_from_jax(raw), strict=True)
     return model.eval(), meta
 

@@ -1,10 +1,12 @@
 """Victim classifiers (port of `if_defense_tpu/models/`).
 
-All share one API: `nn.Module`s whose `forward(xyz, mask=None)` takes
-channel-last `[B, N, 3]` clouds (and an optional `[B, N]` validity mask)
-and returns `(logits [B, num_classes], aux dict)`; aux carries PointNet's
-transform matrices for the orthogonality regulariser and is empty for the
-others. Training mode is the module's (`model.train()` / `model.eval()`).
+All share one API: `nn.Module`s whose `forward(xyz, mask=None, draw=None)`
+takes channel-last `[B, N, 3]` clouds (and an optional `[B, N]` validity
+mask) and returns `(logits [B, num_classes], aux dict)`; aux carries
+PointNet's transform matrices for the orthogonality regulariser and is
+empty for the others. Training mode is the module's (`model.train()` /
+`model.eval()`); in training, `draw` gives the dropout layers' keep masks
+(`models.common.dropout`).
 """
 
 from if_defense_tpu_torch.models.dgcnn import DGCNN

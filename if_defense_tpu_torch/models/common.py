@@ -9,17 +9,49 @@ the last axis. Batch norms are the port's flax-semantics `BatchNorm` (eps
 `utils.params_io.params_from_jax` maps a flax variable tree onto them one
 to one. Training mode is the module's (`model.train()` / `model.eval()`),
 where flax passes `train`.
+
+Dropout takes its keep masks from a `draw` callable `(shape, rate) -> keep
+mask`, which each victim's forward accepts and calls once per dropout
+layer in call order (flax draws a mask per `nn.Dropout` from a key folded
+per module); `generator_draw` makes one from a `torch.Generator`.
 """
 
 from __future__ import annotations
 
-from collections.abc import Sequence
+from collections.abc import Callable, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from if_defense_tpu_torch.implicit.layers import BatchNorm
+
+
+Draw = Callable[[tuple, float], torch.Tensor]
+
+
+def generator_draw(gen: torch.Generator) -> Draw:
+    """A `draw` whose keep masks come from `gen`, on `gen`'s device: each
+    entry kept with probability 1 - rate."""
+
+    def draw(shape: tuple, rate: float) -> torch.Tensor:
+        return torch.rand(shape, generator=gen, device=gen.device) >= rate
+
+    return draw
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            draw: Draw | None = None) -> torch.Tensor:
+    """flax's `nn.Dropout(rate)`: in training, `x * keep / (1 - rate)` with
+    the keep mask from `draw` (moved to x's device), or from torch's global
+    generator (`F.dropout`) where no draw is given; x itself in eval mode,
+    where `draw` is never called."""
+    if not training:
+        return x
+    if draw is None:
+        return F.dropout(x, rate, True)
+    keep = draw(tuple(x.shape), rate).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def activation(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
@@ -74,6 +106,25 @@ class DenseBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Dense_0(x)
         return x if self.BatchNorm_0 is None else self.BatchNorm_0(x)
+
+
+def batch_norm_fed_biases(model: nn.Module) -> set[str]:
+    """Names of the Dense biases that feed a batch norm directly (in a
+    `PointwiseMLP` or `DenseBN` with batch norms). In training the norm
+    subtracts the batch mean, so their gradient is 0 in exact arithmetic
+    and rounding noise in practice, noise that differs from one device or
+    summation order to another."""
+    names = set()
+    for prefix, m in model.named_modules():
+        if isinstance(m, PointwiseMLP) and m.use_bn:
+            dense = [f"Dense_{i}" for i in range(m.n)]
+        elif isinstance(m, DenseBN) and m.BatchNorm_0 is not None:
+            dense = ["Dense_0"]
+        else:
+            continue
+        names |= {f"{prefix}.{d}.bias" for d in dense
+                  if getattr(m, d).bias is not None}
+    return names
 
 
 def max_pool_points(x: torch.Tensor, mask: torch.Tensor | None = None

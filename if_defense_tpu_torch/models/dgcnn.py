@@ -15,7 +15,9 @@ from torch.nn import functional as F
 
 from if_defense_tpu_torch.models.common import (
     DenseBN,
+    Draw,
     PointwiseMLP,
+    dropout,
     max_pool_points,
     mean_pool_points,
 )
@@ -56,7 +58,8 @@ class DGCNN(nn.Module):
         self.DenseBN_1 = DenseBN(512, 256, use_bn=use_bn)
         self.Dense_0 = nn.Linear(256, num_classes)
 
-    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None):
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
+                draw: Draw | None = None):
         feats, x = [], xyz
         for i in range(4):
             g = get_graph_feature(x, self.k, mask)           # [B, N, k, 2C]
@@ -66,7 +69,7 @@ class DGCNN(nn.Module):
         x = torch.cat([max_pool_points(x, mask), mean_pool_points(x, mask)],
                       dim=-1)                                # [B, 2048]
         x = F.leaky_relu(self.DenseBN_0(x), SLOPE)
-        x = F.dropout(x, 0.5, self.training)
+        x = dropout(x, 0.5, self.training, draw)
         x = F.leaky_relu(self.DenseBN_1(x), SLOPE)
-        x = F.dropout(x, 0.5, self.training)
+        x = dropout(x, 0.5, self.training, draw)
         return self.Dense_0(x), {}

@@ -17,7 +17,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from if_defense_tpu_torch.models.common import DenseBN, PointwiseMLP
+from if_defense_tpu_torch.models.common import (
+    DenseBN,
+    Draw,
+    PointwiseMLP,
+    dropout,
+)
 from if_defense_tpu_torch.ops import (
     farthest_point_sample,
     gather_neighbors,
@@ -126,13 +131,14 @@ class PointConvDensityClsSsg(nn.Module):
         self.DenseBN_1 = DenseBN(512, 256, use_bn=use_bn)
         self.Dense_0 = nn.Linear(256, num_classes)
 
-    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None):
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
+                draw: Draw | None = None):
         # only level 1 sees the mask: its FPS and kNN select valid points
         # alone, so l1_xyz onward is an all-valid cloud
         l1_xyz, l1 = self.PointConvSetAbstraction_0(xyz, None, mask)
         l2_xyz, l2 = self.PointConvSetAbstraction_1(l1_xyz, l1)
         _, l3 = self.PointConvSetAbstraction_2(l2_xyz, l2)
         x = l3.reshape(l3.shape[0], -1)                          # [B, 1024]
-        x = F.dropout(F.relu(self.DenseBN_0(x)), 0.4, self.training)
-        x = F.dropout(F.relu(self.DenseBN_1(x)), 0.4, self.training)
+        x = dropout(F.relu(self.DenseBN_0(x)), 0.4, self.training, draw)
+        x = dropout(F.relu(self.DenseBN_1(x)), 0.4, self.training, draw)
         return self.Dense_0(x), {}

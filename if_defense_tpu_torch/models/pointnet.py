@@ -16,7 +16,9 @@ from torch.nn import functional as F
 from if_defense_tpu_torch.implicit.layers import BatchNorm
 from if_defense_tpu_torch.models.common import (
     DenseBN,
+    Draw,
     PointwiseMLP,
+    dropout,
     max_pool_points,
 )
 
@@ -82,10 +84,11 @@ class PointNetCls(nn.Module):
         self.BatchNorm_0 = BatchNorm(256) if use_bn else None
         self.Dense_1 = nn.Linear(256, num_classes)
 
-    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None):
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor | None = None,
+                draw: Draw | None = None):
         feat, trans, trans_feat = self.PointNetFeat_0(xyz, mask)
         x = F.relu(self.DenseBN_0(feat))
-        x = F.dropout(self.Dense_0(x), 0.3, self.training)
+        x = dropout(self.Dense_0(x), 0.3, self.training, draw)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         logits = self.Dense_1(F.relu(x))

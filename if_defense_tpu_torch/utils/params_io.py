@@ -19,7 +19,8 @@ with the keys and shapes that `ConvOccupancyNetwork().init` gives and every
 tensor nonzero (flax zero-initialises each block's `fc_1`, which would hide
 half of every ResNet block from a test). `flax_init_params(seed, variant)`
 draws, with numpy alone, from the distributions that flax's `init` draws
-from, with its zeros and ones; it is where training starts.
+from, with its zeros and ones, for ConvONet, ONet and the five victims; it
+is where training starts.
 """
 
 from __future__ import annotations
@@ -50,8 +51,12 @@ def unflatten_params(flat: dict) -> dict:
     return tree
 
 
-def save_params_npz(path: str, tree: dict) -> str:
-    np.savez_compressed(path, **flatten_params(tree))
+def save_params_npz(path: str, tree: dict, compress: bool = True) -> str:
+    """`tree` flattened into the npz at `path`; `compress=False` writes it
+    uncompressed (trained weights and Adam's moments hardly compress, and
+    zlib takes seconds for PointConv's 20M floats)."""
+    (np.savez_compressed if compress else np.savez)(
+        path, **flatten_params(tree))
     return path
 
 
@@ -60,8 +65,9 @@ def load_params_npz(path: str) -> dict:
         return unflatten_params({k: npz[k] for k in npz.files})
 
 
-def _to_torch_layout(path: list[str], value: np.ndarray) -> np.ndarray:
-    value = np.asarray(value, dtype=np.float32)
+def _to_torch_layout(path: list[str], value: np.ndarray,
+                     dtype=np.float32) -> np.ndarray:
+    value = np.asarray(value, dtype=dtype)
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:                                   # Dense
@@ -88,9 +94,10 @@ def _to_flax_layout(path: list[str], value: np.ndarray) -> np.ndarray:
 _STATS = ("mean", "var")                  # batch-norm leaves of batch_stats
 
 
-def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+def params_from_jax(tree: dict, dtype=np.float32) -> dict[str, torch.Tensor]:
     """Flax variables (`{"params": ...}`, optionally with `"batch_stats"`,
-    or a bare param tree) -> PyTorch state dict of the port's modules."""
+    or a bare param tree) -> PyTorch state dict of the port's modules, in
+    `dtype` (None keeps each array's own)."""
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         flat = flatten_params(tree["params"])
         flat.update(flatten_params(tree.get("batch_stats", {})))
@@ -102,7 +109,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         name = ".".join(path[:-1] + ["weight" if path[-1] == "kernel"
                                      else path[-1]])
         out[name] = torch.from_numpy(
-            np.array(_to_torch_layout(path, value), order="C"))
+            np.array(_to_torch_layout(path, value, dtype), order="C"))
     return out
 
 
@@ -119,12 +126,52 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
             continue
         if path[-1] == "weight":
             path[-1] = "kernel"
-        params["/".join(path)] = np.ascontiguousarray(
-            _to_flax_layout(path, value))
+        # a copy: a CPU tensor's .numpy() shares its memory
+        params["/".join(path)] = np.array(_to_flax_layout(path, value),
+                                          order="C")
     out = {"params": unflatten_params(params)}
     if stats:
         out["batch_stats"] = unflatten_params(stats)
     return out
+
+
+def adam_state_to_jax(optimizer_state: dict, model: torch.nn.Module) -> dict:
+    """torch Adam's `state_dict()` over `model.parameters()` -> optax's
+    `ScaleByAdamState` in the flax layout: {"count": int, "mu": ..., "nu":
+    ...}, the moments as flax param trees (`params_to_jax`); zeros before
+    the first step."""
+    state = optimizer_state["state"]
+    count = int(state[0]["step"]) if state else 0
+    out = {"count": np.asarray(count, np.int32)}
+    for key, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        out[key] = params_to_jax({
+            n: state[i][moment] if i in state else torch.zeros_like(p)
+            for i, (n, p) in enumerate(model.named_parameters())
+        })["params"]
+    return out
+
+
+def adam_state_from_jax(opt_state: dict, model: torch.nn.Module,
+                        optimizer_state: dict) -> dict:
+    """The inverse of `adam_state_to_jax`: optax's {"count", "mu", "nu"} in
+    the flax layout -> a torch Adam `state_dict()` for
+    `model.parameters()`, with `optimizer_state`'s param groups (rate,
+    betas, eps, weight decay), to pass to `optimizer.load_state_dict`."""
+    count = float(np.asarray(opt_state["count"]))
+    mu = params_from_jax({"params": opt_state["mu"]}, dtype=None)
+    nu = params_from_jax({"params": opt_state["nu"]}, dtype=None)
+    names = {n for n, _ in model.named_parameters()}
+    if set(mu) != names or set(nu) != names:
+        raise ValueError("Adam moments hold other parameters than the model")
+    state = {}
+    for i, (n, p) in enumerate(model.named_parameters()):
+        if mu[n].shape != p.shape or nu[n].shape != p.shape:
+            raise ValueError(f"Adam moments of {n}: {tuple(mu[n].shape)}, "
+                             f"{tuple(nu[n].shape)}; want {tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(count),
+                    "exp_avg": mu[n].to(p.device, p.dtype),
+                    "exp_avg_sq": nu[n].to(p.device, p.dtype)}
+    return {"state": state, "param_groups": optimizer_state["param_groups"]}
 
 
 def convonet_param_shapes(c_dim: int = 32,
@@ -220,28 +267,43 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return v
 
 
+def victim_param_shapes(name: str, **kwargs) -> dict[str, tuple]:
+    """Flat '/'-keyed shapes of a victim classifier's flax variables, each
+    key led by its collection (`params/...`, `batch_stats/...`), read off
+    the port's module through `params_to_jax`; `kwargs` go to
+    `models.build_model` (e.g. `feature_transform`)."""
+    from if_defense_tpu_torch.models import build_model
+
+    tree = params_to_jax(build_model(name, **kwargs).state_dict())
+    return {k: v.shape for k, v in flatten_params(tree).items()}
+
+
 def flax_init_params(seed: int, variant: str, **config) -> dict:
-    """Seeded flax-layout variables of `variant` ("convonet" or "onet"),
-    numpy only, drawn as flax's `init` draws them (`jax.random` itself
-    cannot be reproduced): `lecun_normal` kernels (normal truncated to 2
-    std, variance 1/fan_in, fan_in the product of all but the last axis),
-    zero biases, zero `fc_1` kernels, the conditional batch norms'
-    `conv_gamma` kernel 0 with bias 1 and `conv_beta` 0, batch-norm scales
-    1, and running means 0 and variances 1. `config` takes the arguments of
-    `convonet_param_shapes` or `onet_param_shapes`."""
+    """Seeded flax-layout variables of `variant` ("convonet", "onet" or a
+    victim's name: "pointnet", "pointnet2", "dgcnn", "pointconv",
+    "rscnn"), numpy only, drawn as flax's `init` draws them (`jax.random`
+    itself cannot be reproduced): `lecun_normal` kernels (normal truncated
+    to 2 std, variance 1/fan_in, fan_in the product of all but the last
+    axis), zero biases, zero `fc_1` kernels, the conditional batch norms'
+    `conv_gamma` kernel 0 with bias 1 and `conv_beta` 0, PointNet's STN's
+    last Dense kernel 0 (`kernel_init=zeros`), batch-norm scales 1, and
+    running means 0 and variances 1. `config` takes the arguments of
+    `convonet_param_shapes` or `onet_param_shapes`, or a victim's model
+    arguments (`victim_param_shapes`)."""
     if variant == "convonet":
         shapes = {f"params/{k}": v
                   for k, v in convonet_param_shapes(**config).items()}
     elif variant == "onet":
         shapes = onet_param_shapes(**config)
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
+    else:                         # a victim; build_model refuses other names
+        shapes = victim_param_shapes(variant, **config)
     rng = np.random.default_rng(seed)
     flat = {}
     for key, shape in shapes.items():
         path = key.split("/")
         if path[-1] == "kernel" and path[-2] not in ("fc_1", "conv_gamma",
-                                                      "conv_beta"):
+                                                      "conv_beta") and not (
+                path[-2] == "Dense_0" and path[-3].startswith("STN_")):
             # truncated to 2 std, whose std is 0.8796: rescale to 1/fan_in
             std = np.sqrt(1.0 / np.prod(shape[:-1])) / .87962566103423978
             v = _truncated_normal(rng, shape) * std

@@ -36,7 +36,7 @@ def register_checkpoint(
     reg.setdefault(dataset, {}).setdefault(str(num_points), {})[model] = (
         os.path.abspath(checkpoint)
     )
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(reg, f, indent=2, sort_keys=True)
     return reg

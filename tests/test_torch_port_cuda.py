@@ -23,7 +23,10 @@ to the next. B1-B3 also at k = 9, 16 and 33 (the threshold scan above the
 register top-k). The five victims on the card against their CPU path:
 logits within rtol 1e-3 and atol 1e-3 of the largest magnitude. FPS and
 ball query on bf16 points bit-equal to the plain versions on their f32
-upcast; PointNet with a bf16 trunk within 2 % of its f32 logits.
+upcast; PointNet with a bf16 trunk within 2 % of its f32 logits. One
+PointNet++ train step on the card launches B5 and B6 and matches the CPU
+step: loss rtol 1e-4, gradients in direction (cosine >= 0.999 per tensor),
+batch statistics within 1e-4 of their scale.
 """
 
 import numpy as np
@@ -622,3 +625,83 @@ def test_cuda_mixed_victim_close_to_f32(cuda):
         got = make_mixed_logits_fn(model, 8)(pc)
     assert got.dtype == torch.float32
     assert float((got - want).abs().max() / want.abs().max()) < 0.02
+
+
+def test_cuda_pointnet2_train_step_matches_cpu(cuda):
+    """One PointNet++ train step at its published widths (flax's init
+    distributions, `flax_init_params(0)`; B = 4, N = 1024; the CPU's
+    dropout masks fed to both) on the card launches B5 and B6 twice each in
+    its forward and matches the CPU step: loss rtol 1e-4, each gradient in
+    the CPU's direction (cosine >= 0.999; the biases that feed a batch
+    norm, whose gradient is 0 but for rounding, below 1e-3 of the largest
+    entry on both, and a tensor whose CPU gradient lies below 1e-4 of it
+    within that of the CPU's), the batch statistics within 1e-4 of their
+    scale (a mean's: the larger of its largest entry and the root of its
+    variance's: the first norms see centred clouds). Max-pool near ties
+    route a gradient to another point on the card, so gradients are held
+    in direction, not in bits."""
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.models.common import (
+        batch_norm_fed_biases,
+        generator_draw,
+    )
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+    from if_defense_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc, _ = _victim_clouds(4, 1024, 5)
+    label = torch.tensor([3, 17, 17, 38])
+    weights = params_from_jax(flax_init_params(0, "pointnet2"))
+    models, losses = [], []
+    masks, draw = [], generator_draw(torch.Generator().manual_seed(6))
+
+    def record(shape, rate):
+        masks.append(draw(shape, rate))
+        return masks[-1]
+
+    for device in ("cpu", cuda):
+        model = build_model("pointnet2")
+        model.load_state_dict(weights)
+        model.to(device)
+        state = create_train_state(model, total_epochs=1, steps_per_epoch=3)
+        before = (cuda_fps.launches["fps"], cuda_ballquery.launches["ballquery"])
+        replayed = iter(masks)
+        _, m = make_train_step(model)(
+            state, pc.to(device), label.to(device),
+            record if device == "cpu" else lambda shape, rate: next(replayed))
+        launched = (cuda_fps.launches["fps"] - before[0],
+                    cuda_ballquery.launches["ballquery"] - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (2, 2))
+        models.append(model)
+        losses.append(float(m["loss"]))
+    assert len(masks) == 2
+    cpu, card = models
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+    grads = {n: p.grad.double() for n, p in cpu.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    zero = batch_norm_fed_biases(cpu)
+    for n, p in card.named_parameters():
+        got, want = p.grad.cpu().double(), grads[n]
+        if n in zero:
+            assert max(float(got.abs().max()),
+                       float(want.abs().max())) <= 1e-3 * top, n
+        elif float(want.abs().max()) < 1e-4 * top:
+            assert float((got - want).abs().max()) <= 1e-4 * top, n
+        else:
+            cos = float((got * want).sum() / (got.norm() * want.norm()))
+            assert cos >= 0.999, (n, cos)
+    stats = dict(cpu.named_buffers())
+    for n, got in card.named_buffers():
+        want = stats[n]
+        scale = float(want.abs().max())
+        if n.endswith(".mean"):
+            scale = max(scale, float(stats[n[:-4] + "var"].max()) ** 0.5)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale, n
