@@ -148,10 +148,34 @@ Phases, in order; any failure exits non-zero and prints no result:
      from metrics.jsonl's epoch_time (an epoch's steps and its test pass);
      (c) a profile of one warm PointNet++ and one warm DGCNN train step at
      batch 32 (`tools/profile_train_step.py`, also alone on the card).
-     B5 over (b): 312 launches, B6: 260.
+     B5 over (b): 312 launches, B6: 260;
+ 15. the mesh restoration (`implicit/generation.py`,
+     `cli/remesh_defense.py`, the native isosurface library built with
+     g++) with phase 10's trained ConvONet and ONet: (a) B=2 clouds at the
+     CLI's widths, resolution0 8 x upsample 4, the card against the port's
+     CPU path on one encoder subset: ConvONet's dense lattice within 1e-4
+     of the largest logit, ONet's coarse grid within 1e-4 with its active
+     voxels and top-k indices (a budget that clips) equal, both int8 grids
+     equal but at quantum-boundary entries (counted); (b)
+     `cli/remesh_defense.py` at its defaults (batch 32, resolution0 32 x
+     upsample 4: a 129^3 lattice, 1024 points, bf16 wire) on phase 12's
+     320 clouds, ConvONet then ONet, each twice (first and warm run);
+     ConvONet with `--wire int8` and `--wire sparse` on 64 of the clouds,
+     bit-identical; `--host_workers 1` against one thread a core on 32,
+     bit-identical; ONet with `--sample_mode mesh --save_mesh` on 32; ONet
+     on phase 13's perturb output, scored by `cli/inference.py` with the
+     PointNet++ checkpoint phase 13 attacked; each run's output [n, 1024,
+     3], finite, each cloud's largest radius 1 within 1e-5, fewer fallbacks
+     than clouds, clouds/s from the metrics sidecar; (c) `estimate_normals`
+     on ConvONet for the vertices of one cloud's mesh, B4's launch counters
+     set to 0 just before and read just after (one forward and one
+     gradient-to-p launch a chunk of 8192 vertices), the normals in the CPU
+     path's direction (every vertex at cosine >= 0.99, >= 99.99 % at >=
+     0.999); (d) a profile of one warm batch of each
+     variant (`tools/profile_remesh_batch.py`, also alone on the card).
 The last lines are the rates, the defense step, victim batch, CW
-iteration and train step profiles, the card's name and power limit, one
-JSON line of the kernels, and `{"ok": true, "device": {...}}`.
+iteration, train step and remesh batch profiles, the card's name and power
+limit, one JSON line of the kernels, and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -198,6 +222,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -280,6 +305,10 @@ TRAIN_B, TRAIN_EPOCHS, TRAIN_PER_CLASS = 32, 2, (40, 10)
 TRAIN_FORWARD_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (2, 2),
                           "dgcnn": (0, 0), "pointconv": (2, 0),
                           "rscnn": (2, 2)}
+# phase 15: the mesh restoration. (a) small runs CUDA vs CPU at B clouds,
+# resolution0 x upsample, logits within MESH_TOL of the largest; (b)
+# cli/remesh_defense.py at its defaults (batch 32, a 129^3 lattice)
+MESH_B, MESH_SMALL_B, MESH_R0, MESH_U, MESH_TOL = 32, 2, 8, 4, 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2046,7 +2075,7 @@ def check_attack_output(tag: str, run: dict, attack: str, data: str,
     return adv
 
 
-def run_attacks(dev, tmp: str) -> tuple[dict, dict]:
+def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
     """`cli/attack.py` on the card at batch 32 and 1024 points (phase 13
     (b)): perturb at its defaults (10 x 500) on PointNet++, then each other
     family at reduced iterations (ATTACK_RUNS; kNN on DGCNN, with normals),
@@ -2057,7 +2086,9 @@ def run_attacks(dev, tmp: str) -> tuple[dict, dict]:
     count of targeted clouds may differ from the attack's only by the
     clouds whose target margin is a near tie (VICTIM_TOL of the largest
     logit) and those the attack counts failed (their cloud is the last
-    iterate). -> (clouds/s per run, B5/B6 launches summed over the runs)."""
+    iterate). The perturb output and the PointNet++ checkpoint are copied
+    into `keep` (phase 15 defends and scores them). -> (clouds/s per run,
+    B5/B6 launches summed over the runs)."""
     from if_defense_tpu_torch.cli import inference
     from if_defense_tpu_torch.cli.inference import load_eval_model
     from if_defense_tpu_torch.data import load_npz, save_npz
@@ -2153,10 +2184,15 @@ def run_attacks(dev, tmp: str) -> tuple[dict, dict]:
             near + ATTACK_B - attacked):
         fail("cli/inference.py's targeted count of the perturb output "
              "differs from the attack's beyond its near ties")
+    if keep:
+        shutil.copy(perturb["out"], os.path.join(keep, "perturb.npz"))
+        for suffix in ("", ".meta.json"):
+            shutil.copy(ckpt["pointnet2"] + suffix,
+                        os.path.join(keep, "pointnet2.npz" + suffix))
     return rates, total
 
 
-def check_attacks(dev) -> tuple[dict, dict, dict]:
+def check_attacks(dev, keep: str | None = None) -> tuple[dict, dict, dict]:
     """Phase 13: (a) `check_small_attacks`, (b) `run_attacks`, then a
     profile of one warm CW iteration on PointNet++ at batch 32, with and
     without deterministic algorithms. -> (clouds/s, B5/B6 launches of
@@ -2168,7 +2204,7 @@ def check_attacks(dev) -> tuple[dict, dict, dict]:
     finally:
         torch.use_deterministic_algorithms(before)
     with tempfile.TemporaryDirectory() as tmp:
-        rates, launches = run_attacks(dev, tmp)
+        rates, launches = run_attacks(dev, tmp, keep)
     print("  a CW iteration on PointNet++, profiled "
           "(tools/profile_cw_iteration.py):")
     return rates, launches, tool("profile_cw_iteration").profile(dev)
@@ -2500,6 +2536,268 @@ def check_victim_training(dev) -> tuple[dict, dict, dict]:
     return rates, launches, profiles
 
 
+def mesh_inputs(variant: str, weights: str, devices, clouds: np.ndarray):
+    """For each device: (the model of `weights` at the CLI's widths, its
+    latent of `clouds`), the encoder subset drawn once on the CPU (SOR,
+    the padded unit cube, `sample_valid`) and shared."""
+    from if_defense_tpu_torch.cli import remesh_defense as rd
+    from if_defense_tpu_torch.defense.ifdefense import sample_valid
+    from if_defense_tpu_torch.defense.sor import sor_defense
+    from if_defense_tpu_torch.ops import normalize_unit_cube
+
+    args = rd.parse_args(["--variant", variant, "--data_root", "x.npz",
+                          "--weights", weights])
+    pc, mask = sor_defense(torch.from_numpy(clouds))
+    proc = normalize_unit_cube(pc, args.padding_scale, mask)
+    out = []
+    for d in devices:
+        model, input_n = rd.build_model(args, d)
+        sel = sample_valid(proc, mask, input_n,
+                           torch.Generator().manual_seed(15))
+        with torch.no_grad():
+            out.append((model, model.encode_inputs(sel.to(d))))
+    return out
+
+
+def quanta_apart(what: str, got: np.ndarray, want: np.ndarray) -> int:
+    """Two int8 wire grids (as quanta) equal but at entries one quantum
+    apart, at most 1e-3 of them (a logit that straddles a quantum boundary
+    between the card's and the CPU's rounding); -> their count."""
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    n = int((diff > 0).sum())
+    print(f"  {what}: int8 grids equal but at {n} of {diff.size} entries "
+          f"(largest difference {int(diff.max())} quantum)")
+    if diff.max() > 1 or n > 1e-3 * diff.size:
+        fail(f"{what}: the card's int8 grid differs from the CPU's beyond "
+             "quantum-boundary entries")
+    return n
+
+
+def check_small_mesh(dev, weights: dict) -> None:
+    """Phase 15 (a): B = MESH_SMALL_B clouds at the CLI's widths with phase
+    10's weights, resolution0 MESH_R0 x upsample MESH_U, the card against
+    the port's CPU path on one encoder subset: ConvONet's dense lattice
+    within MESH_TOL of the largest logit and its int8 grid equal but at
+    quantum boundaries; ONet's coarse grid within MESH_TOL, its active
+    voxels and top-k indices (under a budget that clips) equal, its int8
+    grid equal but at quantum boundaries."""
+    from if_defense_tpu_torch.implicit import generation as g
+
+    iso = g.logit_threshold(0.2)
+    clouds = ellipsoids(np.random.default_rng(15), MESH_SMALL_B)
+    cpu = torch.device("cpu")
+    rf = MESH_R0 * MESH_U
+
+    def decode(m, p, c):
+        return m.decode(p, c)
+
+    (cm, cc), (gm, gc) = mesh_inputs("convonet", weights["convonet"],
+                                     (cpu, dev), clouds)
+    with torch.no_grad():
+        want = cm.dense_lattice_logits(cc, rf, 1.1)
+        got = gm.dense_lattice_logits(gc, rf, 1.1).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  convonet dense lattice (B={MESH_SMALL_B}, {rf + 1}^3): max "
+          f"|card - CPU| {err:.3e} of largest logit {scale:.3f}")
+    if err > MESH_TOL * scale:
+        fail(f"convonet dense lattice: {err} > {MESH_TOL} x {scale}")
+    qg = g.quantize_wire_int8(got, iso).numpy()
+    qc = g.quantize_wire_int8(want, iso).numpy()
+    quanta_apart("convonet dense lattice", qg, qc)
+    x = (want.double().numpy() - iso) * 16
+    off = (qg != qc) & (np.abs(x - np.round(x)) > 16 * err)
+    if off.any():
+        fail(f"convonet: {int(off.sum())} int8 entries differ away from a "
+             "quantum boundary")
+
+    (cm, cc), (gm, gc) = mesh_inputs("onet", weights["onet"], (cpu, dev),
+                                     clouds)
+    grid = torch.from_numpy(g.make_grid(MESH_R0, 1.1).reshape(1, -1, 3))
+    res = {}
+    for name, m, c in (("cpu", cm, cc), ("card", gm, gc)):
+        d = next(m.parameters()).device
+        coarse = g.eval_points_batched(
+            decode, m, c, grid.to(d).expand(MESH_SMALL_B, -1, 3), 8192)
+        flat, counts = g._active_scores(
+            coarse.reshape((MESH_SMALL_B,) + (MESH_R0 + 1,) * 3), iso,
+            r0=MESH_R0)
+        res[name] = (coarse.cpu(), counts.cpu(), flat)
+    k = max(1, int(res["cpu"][1].min()) // 2)
+    err = float((res["card"][0] - res["cpu"][0]).abs().max())
+    scale = float(res["cpu"][0].abs().max())
+    idx = {n: g._topk_active(r[2], k)[0].cpu() for n, r in res.items()}
+    print(f"  onet coarse grid (B={MESH_SMALL_B}, {MESH_R0 + 1}^3): max "
+          f"|card - CPU| {err:.3e} of {scale:.3f}; active voxels "
+          f"{res['card'][1].tolist()} (CPU {res['cpu'][1].tolist()}); "
+          f"top-{k} indices {'equal' if torch.equal(*idx.values()) else 'DIFFER'}")
+    if err > MESH_TOL * scale or not torch.equal(res["card"][1],
+                                                 res["cpu"][1]) \
+            or not torch.equal(idx["card"], idx["cpu"]):
+        fail("onet coarse grid or active voxels differ between card and CPU")
+    grids = [g.compute_value_grids(decode, m, c, resolution0=MESH_R0,
+                                   upsample=MESH_U, wire="int8")[0]
+             for m, c in ((gm, gc), (cm, cc))]
+    quanta_apart("onet coarse + refine", *(np.round((v - iso) * 16)
+                                            for v in grids))
+
+
+def remesh_cli(data: str, weights: str, variant: str, *extra) -> dict:
+    """One `cli/remesh_defense.py` run on the card: the output [n, 1024, 3]
+    finite, each cloud's largest radius 1 within 1e-5, fewer fallbacks than
+    clouds; clouds/s from the metrics sidecar."""
+    from if_defense_tpu_torch.cli import remesh_defense
+    from if_defense_tpu_torch.data import load_npz
+
+    path, = remesh_defense.main(["--variant", variant, "--data_root", data,
+                                 "--weights", weights, "--device", "cuda",
+                                 *extra])
+    with open(path + ".metrics.jsonl") as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    out = load_npz(path).test_pc
+    n = rec["clouds"]
+    radius = np.sqrt((out.astype(np.float64) ** 2).sum(-1)).max(1)
+    tag = f"{variant} {' '.join(extra)}".strip()
+    print(f"  {tag}: {n} clouds, output {out.shape}, radius in "
+          f"[{radius.min():.7f}, {radius.max():.7f}], "
+          f"{rec['reconstruction_failures']} fallbacks, "
+          f"{rec['clouds_per_sec']:.2f} clouds/s ({rec['seconds']:.2f} s)")
+    if out.shape != (n, 1024, 3) or not np.isfinite(out).all():
+        fail(f"remesh {tag}: output {out.shape} or non-finite values")
+    if np.abs(radius - 1).max() > 1e-5:
+        fail(f"remesh {tag}: a cloud's largest radius is not 1 within 1e-5")
+    if not rec["reconstruction_failures"] < n:
+        fail(f"remesh {tag}: {rec['reconstruction_failures']} fallbacks "
+             f"of {n} clouds")
+    return dict(path=path, out=out.copy(), rate=rec["clouds_per_sec"])
+
+
+def run_remesh(weights: dict, keep: str, tmp: str) -> dict:
+    """Phase 15 (b); see the module docstring. -> clouds/s per run."""
+    from if_defense_tpu_torch.cli import inference
+    from if_defense_tpu_torch.data import load_npz, save_npz
+
+    d = load_npz(os.path.join(keep, "victims.npz"))
+    files = {}
+    for n in (VICTIM_CLOUDS, 2 * MESH_B, MESH_B):
+        os.makedirs(os.path.join(tmp, str(n)), exist_ok=True)
+        files[n] = save_npz(os.path.join(tmp, str(n), "victims.npz"), {
+            "test_pc": d.test_pc[:n], "test_label": d.test_label[:n],
+            "target_label": d.target_label[:n]})
+    rates = {}
+    for variant in ("convonet", "onet"):
+        for tag in ("first", "warm"):
+            rates[f"{variant} {tag}"] = remesh_cli(
+                files[VICTIM_CLOUDS], weights[variant], variant)["rate"]
+    runs = {w: remesh_cli(files[2 * MESH_B], weights["convonet"],
+                          "convonet", "--wire", w) for w in ("int8", "sparse")}
+    same = np.array_equal(runs["int8"]["out"], runs["sparse"]["out"])
+    print(f"  convonet --wire sparse {'bit-identical' if same else 'DIFFERS'}"
+          f" to --wire int8 over {2 * MESH_B} clouds")
+    if not same:
+        fail("the sparse wire's samples differ from the int8 wire's")
+    rates.update({f"convonet {w}": r["rate"] for w, r in runs.items()})
+    one = remesh_cli(files[MESH_B], weights["convonet"], "convonet",
+                     "--host_workers", "1")
+    many = remesh_cli(files[MESH_B], weights["convonet"], "convonet")
+    same = np.array_equal(one["out"], many["out"])
+    print(f"  convonet --host_workers 1 {'bit-identical' if same else 'DIFFERS'}"
+          f" to one thread a core ({os.cpu_count()})")
+    if not same:
+        fail("the host thread count changed the samples")
+    rates["convonet host_workers 1"] = one["rate"]
+    mesh_dir = os.path.join(tmp, "meshes")
+    rates["onet mesh"] = remesh_cli(files[MESH_B], weights["onet"], "onet",
+                                    "--sample_mode", "mesh", "--save_mesh",
+                                    mesh_dir)["rate"]
+    exported = sorted(os.listdir(os.path.join(mesh_dir, "victims", "test")))
+    print(f"  --save_mesh: {len(exported)} mesh files for {MESH_B} clouds")
+    if not 0 < len(exported) <= MESH_B:
+        fail(f"--save_mesh wrote {len(exported)} files for {MESH_B} clouds")
+    defended = remesh_cli(os.path.join(keep, "perturb.npz"), weights["onet"],
+                          "onet")
+    rates["onet perturb"] = defended["rate"]
+    scored = inference.main(["--data", defended["path"], "--checkpoint",
+                             os.path.join(keep, "pointnet2.npz"), "--mode",
+                             "target", "--batch_size", str(ATTACK_B),
+                             "--device", "cuda"])
+    print(f"  ONet-Mesh on phase 13's perturb output, scored by PointNet++: "
+          f"accuracy {scored['accuracy']:.4f}, target success "
+          f"{scored['target_success']:.4f} over {scored['n']} clouds")
+    if scored["n"] != ATTACK_B or not 0 <= scored["target_success"] <= 1:
+        fail(f"scoring the defended perturb output: {scored}")
+    return rates
+
+
+def check_mesh_normals(dev, weights: str, clouds: np.ndarray) -> dict:
+    """Phase 15 (c): `estimate_normals` on ConvONet for the vertices of one
+    cloud's mesh at the CLI's resolution, B4's launch counters set to 0
+    just before and read just after (one forward and one gradient-to-p
+    launch a chunk of 8192 vertices); the normals held to the CPU path's:
+    every vertex at cosine >= 0.99 and >= 99.99 % of them at >= 0.999 (a
+    normal is a gradient's direction, and where the decoder's gradient
+    nearly cancels, rounding turns it; the worst vertex's gradient norm
+    against the median is printed). -> the launches."""
+    from if_defense_tpu_torch.implicit import generation as g
+    from if_defense_tpu_torch.ops import cuda_interp
+
+    def decode(m, p, c):
+        return m.decode(p, c)
+
+    (cm, cc), (gm, gc) = mesh_inputs("convonet", weights,
+                                     (torch.device("cpu"), dev), clouds[:1])
+    rf = 32 * 4
+    verts, tris = g.generate_meshes(
+        decode, gm, gc, dense_eval_fn=g.make_convonet_dense_eval(gm, rf, 1.1))[0]
+    for k in cuda_interp.launches:
+        cuda_interp.launches[k] = 0
+    got = g.estimate_normals(decode, gm, gc, verts)
+    launches = dict(cuda_interp.launches)
+    want_launch = -(-len(verts) // 8192)
+    want = g.estimate_normals(decode, cm, cc, verts)
+    cos = np.sum(got * want, -1)
+    worst = int(np.argmin(cos))
+    p = torch.from_numpy(verts).requires_grad_(True)
+    with torch.enable_grad():
+        (grad,) = torch.autograd.grad(decode(cm, p[None], cc).sum(), p)
+    norm = grad.norm(dim=-1).numpy()
+    low = int((cos < 0.999).sum())
+    print(f"  estimate_normals on a {len(verts)}-vertex, {len(tris)}-face "
+          f"ConvONet mesh: launches {launches} (want {want_launch} each "
+          f"way); cosine to the CPU's: min {cos.min():.6f}, {low} vertices "
+          f"below 0.999; the worst vertex's gradient norm "
+          f"{norm[worst] / np.median(norm):.3e} of the median")
+    if launches != {"plane_features": want_launch,
+                    "plane_features_dp": want_launch,
+                    "plane_features_dplane": 0}:
+        fail(f"B4 launches {launches} in estimate_normals, not "
+             f"{want_launch} forward and {want_launch} gradient to p")
+    if cos.min() < 0.99 or low > 1e-4 * len(verts):
+        fail(f"estimate_normals: card normals at cosine {cos.min()} to the "
+             f"CPU's, {low} below 0.999")
+    return launches
+
+
+def check_mesh_path(dev, keep: str) -> tuple[dict, dict, list]:
+    """Phase 15: (a) small runs CUDA vs CPU, (b) `cli/remesh_defense.py`
+    at its defaults, (c) B4 in `estimate_normals`, (d) a profile of one
+    warm batch of each variant. -> (clouds/s, B4's launches, profiles)."""
+    from if_defense_tpu_torch.data import load_npz
+
+    weights = {v: os.path.join(keep, f"{v}.npz") for v in ("convonet", "onet")}
+    check_small_mesh(dev, weights)
+    with tempfile.TemporaryDirectory() as tmp:
+        rates = run_remesh(weights, keep, tmp)
+    clouds = load_npz(os.path.join(keep, "victims.npz")).test_pc[:MESH_B]
+    launches = check_mesh_normals(dev, weights["convonet"], clouds)
+    print("  one warm batch of each variant, profiled "
+          "(tools/profile_remesh_batch.py):")
+    profiles = [tool("profile_remesh_batch").profile(
+        dev, v, weights[v], clouds, MESH_B, reps=2)
+        for v in ("convonet", "onet")]
+    return rates, launches, profiles
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -2525,6 +2823,11 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # files that phase 15 takes from earlier phases: the implicit weights
+    # of phase 10, the victims' clouds of phase 12, the perturb output and
+    # its PointNet++ checkpoint of phase 13
+    keep_dir = tempfile.TemporaryDirectory(prefix="chip_smoke-")
+    keep = keep_dir.name
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2636,6 +2939,9 @@ def main() -> int:
                          "gradient (and no gradient to p)")
         train_rates = {f"{v} {t}": r["steps_per_sec"]
                        for (v, t), r in runs.items()}
+        for variant in ("convonet", "onet"):
+            shutil.copy(runs[variant, "warm"]["path"],
+                        os.path.join(keep, f"{variant}.npz"))
         profile_training(dev, occ_npz)
 
         print("phase 11: ONet-Opt, small CUDA vs CPU, then opt_defense "
@@ -2666,6 +2972,7 @@ def main() -> int:
     check_small_victims(dev)
     with tempfile.TemporaryDirectory() as tmp:
         victim_rates, per_victim = run_inference(dev, tmp)
+        shutil.copy(os.path.join(tmp, "victims.npz"), keep)
     launches["victims"] = {k: sum(v[k] for v in per_victim.values())
                            for k in ("fps", "ballquery")}
     victim_profiles = profile_victims(dev)
@@ -2677,7 +2984,7 @@ def main() -> int:
           f"full width (batch {ATTACK_B}), a resumed run, rescoring and a "
           "CW iteration's profile")
     t13 = time.perf_counter()
-    attack_rates, launches["attack"], cw_profile = check_attacks(dev)
+    attack_rates, launches["attack"], cw_profile = check_attacks(dev, keep)
     print(f"  B5/B6 launches on the attack path: {launches['attack']}")
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
@@ -2693,11 +3000,23 @@ def main() -> int:
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
+    print(f"phase 15: the mesh restoration, small CUDA vs CPU, then "
+          f"cli/remesh_defense.py at its defaults (batch {MESH_B}, a "
+          f"{32 * 4 + 1}^3 lattice), B4 in estimate_normals and a batch's "
+          "profile")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t15 = time.perf_counter()
+    mesh_rates, launches["mesh"], mesh_profiles = check_mesh_path(dev, keep)
+    keep_dir.cleanup()
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
     used_in = {"repulsion_loss": ("reference", ("repulsion_loss",)),
-               "plane_features": ("reference", ("plane_features",
-                                                "plane_features_dp")),
+               "plane_features": ("reference mesh", ("plane_features",
+                                                     "plane_features_dp")),
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
@@ -2727,6 +3046,9 @@ def main() -> int:
           "epoch_time, epochs 1 and 2): " + json.dumps(fit_rates)
           + f" on {card}")
     print("victim train step profiles: " + json.dumps(fit_profiles))
+    print("mesh restoration clouds/s (cli/remesh_defense.py, metrics "
+          "sidecar): " + json.dumps(mesh_rates) + f" on {card}")
+    print("remesh batch profiles: " + json.dumps(mesh_profiles))
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

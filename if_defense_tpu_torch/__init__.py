@@ -21,17 +21,22 @@ Subpackages
 - ``models``    the victim classifiers: PointNet, PointNet++ (SSG),
                 DGCNN, PointConv and RS-CNN, and `build_model`
 - ``training``  the victims' eval step
-- ``implicit``  ConvONet (encoder, UNet, decoder), ONet (encoder, CBN
-                decoder) and occupancy training
+- ``implicit``  ConvONet (encoder, UNet, decoder, lattice evaluation),
+                ONet (encoder, CBN decoder), occupancy training and mesh
+                generation (`implicit.generation`)
+- ``native``    the host isosurface library (the JAX package's C++,
+                built with g++ on first use): marching, sampling,
+                fine-grid assembly, QEM simplification
 - ``defense``   SRS, SOR, DUP-Net (PU-Net), repulsion and the ConvONet-Opt
                 and ONet-Opt restoration loop
 - ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense`,
                 `python -m if_defense_tpu_torch.cli.defend_npz`,
-                `python -m if_defense_tpu_torch.cli.train_implicit` and
-                `python -m if_defense_tpu_torch.cli.inference`
+                `python -m if_defense_tpu_torch.cli.train_implicit`,
+                `python -m if_defense_tpu_torch.cli.inference` and
+                `python -m if_defense_tpu_torch.cli.remesh_defense`
 - ``utils``     flat-npz params, the flax-to-torch layout map both ways,
                 seeded init, victim checkpoints (flat npz), the checkpoint
-                registry, `BoundedCache`, the metrics sink
+                registry, `BoundedCache`, the metrics sink, mesh files
 """
 
 __version__ = "0.1.0"

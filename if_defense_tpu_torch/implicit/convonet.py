@@ -6,11 +6,14 @@ scatter-max local pooling, scatter-mean plane projection, one 2D UNet of
 depth 4 shared by the planes) and the bilinear-plane LocalDecoder (hidden
 32, 5 ResNet blocks). The latent `c` is a dict of three `[B, R, R, c_dim]`
 channel-last planes. Plane types only: the `grid` volume is not ported
-yet.
+yet. The mesh path's lattice methods (`lattice_planes`, `decode_lattice`,
+`dense_lattice_logits`) resize the planes to the fine lattice once and then
+evaluate the decoder head without per-query plane sampling.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -25,6 +28,10 @@ from if_defense_tpu_torch.ops import (
 )
 
 PLANES = ("xz", "xy", "yz")
+# points of the fine lattice that one decoder-head call of
+# `dense_lattice_logits` takes (a group of x-slabs): 2^21 points are 256 MB
+# per activation at the decoder's 32 channels
+LATTICE_GROUP_POINTS = 1 << 21
 
 
 def coordinate2index(xy: torch.Tensor, reso: int) -> torch.Tensor:
@@ -108,6 +115,29 @@ class LocalDecoder(nn.Module):
         return self.head(p, self.sample_features(p, c_planes))
 
 
+def lattice_axis_selector(rf: int, box_size: float, reso: int,
+                          padding: float) -> np.ndarray:
+    """[rf+1, reso] f32 selector: fine-lattice axis index -> plane axis.
+
+    Row i holds the bilinear two-hot weights of lattice coordinate i (world
+    w = (i/rf - 0.5) * box_size, normalised as `normalize_coordinate`
+    does), in float64 before the cast. `S @ plane_axis` therefore equals
+    `bilinear_plane_sample` along that axis at every lattice position.
+    """
+    f = np.arange(rf + 1, dtype=np.float64)
+    w = (f / rf - 0.5) * box_size
+    u = np.clip(w / (1 + padding + 1e-5) + 0.5, 0.0, 1.0 - 1e-5)
+    x = u * (reso - 1)
+    x0 = np.floor(x)
+    wx = x - x0
+    lo = np.clip(x0, 0, reso - 1).astype(np.int64)
+    hi = np.clip(x0 + 1, 0, reso - 1).astype(np.int64)
+    sel = np.zeros((rf + 1, reso), np.float32)
+    np.add.at(sel, (np.arange(rf + 1), lo), 1.0 - wx)
+    np.add.at(sel, (np.arange(rf + 1), hi), wx)
+    return sel
+
+
 class ConvOccupancyNetwork(nn.Module):
     """ConvONet with the reference API: encode_inputs / decode /
     decode_head."""
@@ -129,6 +159,85 @@ class ConvOccupancyNetwork(nn.Module):
     def decode_head(self, p: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
         """Decoder head on presampled features (corner-cache fast path)."""
         return self.decoder.head(p, feat)
+
+    def lattice_planes(self, c: dict[str, torch.Tensor], rf: int,
+                       box_size: float) -> dict[str, torch.Tensor]:
+        """Each feature plane resized to the (rf+1)^2 fine lattice,
+        `[B, rf+1 (H), rf+1 (W), C]`: two small einsums a plane, in the
+        planes' type. Sampling a lattice point afterwards is a row gather
+        (`decode_lattice`)."""
+        first = next(iter(c.values()))
+        sel = torch.from_numpy(lattice_axis_selector(
+            rf, box_size, self.encoder.reso, self.padding)).to(
+                device=first.device, dtype=first.dtype)
+        out = {}
+        for pl, plane in c.items():
+            lat = torch.einsum("ph,bhwc->bpwc", sel, plane)
+            out[pl] = torch.einsum("qw,bpwc->bpqc", sel, lat)
+        return out
+
+    def decode_lattice(self, fidx: torch.Tensor, lat: dict[str, torch.Tensor],
+                       rf: int, box_size: float) -> torch.Tensor:
+        """Logits at fine-lattice points from `lattice_planes`' output.
+
+        Args:
+            fidx: [B, P, 3] integer lattice coordinates in [0, rf].
+        Returns:
+            [B, P]: `decode` at the lattice's world coordinates, up to the
+            einsums' order of summation.
+        """
+        rp = rf + 1
+        fidx = fidx.long()
+        fx, fy, fz = fidx[..., 0], fidx[..., 1], fidx[..., 2]
+        # a plane's (H, W) rows follow normalize_coordinate's (v, u):
+        # xz -> (z, x), xy -> (y, x), yz -> (z, y)
+        rows = {"xz": fz * rp + fx, "xy": fy * rp + fx, "yz": fz * rp + fy}
+        feat = 0
+        for pl, plane in lat.items():
+            B, _, _, C = plane.shape
+            flat = plane.reshape(B, rp * rp, C)
+            feat = feat + torch.gather(
+                flat, 1, rows[pl][..., None].expand(-1, -1, C))
+        p = (fidx.float() / rf - 0.5) * box_size
+        return self.decoder.head(p.to(feat.dtype), feat)
+
+    def dense_lattice_logits(self, c: dict[str, torch.Tensor], rf: int,
+                             box_size: float) -> torch.Tensor:
+        """Occupancy logits on the whole (rf+1)^3 lattice.
+
+        With the planes resized to the lattice, the feature at (x, y, z) is
+        a broadcast sum of three plane rows, xy[y, x] + xz[z, x] + yz[z, y],
+        so the lattice needs no gathers: x-slabs go through the decoder head
+        a group at a time (`LATTICE_GROUP_POINTS` points a call). The three
+        planes xz, xy, yz only.
+
+        Returns:
+            [B, rf+1, rf+1, rf+1] logits in [x][y][z] order.
+        """
+        lat = self.lattice_planes(c, rf, box_size)
+        rp = rf + 1
+        xz, xy, yz = lat["xz"], lat["xy"], lat["yz"]      # [B, z|y|z, x|x|y, C]
+        B, _, _, C = xz.shape
+        dev = xz.device
+        axis = (torch.arange(rp, dtype=torch.float32, device=dev) / rf
+                - 0.5) * box_size
+        yz_t = yz.transpose(1, 2)[:, None]                 # [B, 1, y, z, C]
+        py = axis[:, None].expand(rp, rp)
+        pz = axis[None, :].expand(rp, rp)
+        group = max(1, LATTICE_GROUP_POINTS // (B * rp * rp))
+        out = []
+        for x0 in range(0, rp, group):
+            xs = slice(x0, min(x0 + group, rp))
+            g = xs.stop - xs.start
+            fxy = xy[:, :, xs].transpose(1, 2)[:, :, :, None]  # [B, g, y, 1, C]
+            fxz = xz[:, :, xs].transpose(1, 2)[:, :, None]     # [B, g, 1, z, C]
+            f = fxy + fxz + yz_t                               # [B, g, y, z, C]
+            p = torch.stack([axis[xs, None, None].expand(g, rp, rp),
+                             py.expand(g, rp, rp), pz.expand(g, rp, rp)], -1)
+            p = p.to(f.dtype).reshape(1, -1, 3).expand(B, -1, 3)
+            logits = self.decoder.head(p, f.reshape(B, -1, C))
+            out.append(logits.reshape(B, g, rp, rp))
+        return torch.cat(out, 1)
 
     def forward(self, pc, p):
         return self.decode(p, self.encode_inputs(pc))

@@ -68,6 +68,12 @@ class _PlaneFeatures(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            # create_graph: the kernels' gradients carry no graph of their
+            # own, so a second derivative would silently lose their terms
+            raise RuntimeError("plane_features_cuda (kernel B4) has no "
+                               "second derivative; use the plain "
+                               "ops.plane_features for create_graph")
         p, *planes = ctx.saved_tensors
         axes, inv_scale, hi = ctx.params
         need_p, need_planes = ctx.needs_input_grad[0], ctx.needs_input_grad[4:]

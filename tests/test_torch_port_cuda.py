@@ -705,3 +705,188 @@ def test_cuda_pointnet2_train_step_matches_cpu(cuda):
         if n.endswith(".mean"):
             scale = max(scale, float(stats[n[:-4] + "var"].max()) ** 0.5)
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale, n
+
+
+def _mesh_model(variant, seed=0):
+    """ConvONet or ONet at the CLI's widths from flax's init distributions
+    (`flax_init_params`), every tensor perturbed and the output bias moved
+    so that the occupancy field of `_mesh_clouds` crosses the threshold;
+    the model in eval mode on the CPU, and its latent of those clouds."""
+    from if_defense_tpu_torch.implicit import (
+        ConvOccupancyNetwork,
+        OccupancyNetwork,
+    )
+    from if_defense_tpu_torch.implicit.generation import (
+        logit_threshold,
+        make_grid,
+    )
+    from if_defense_tpu_torch.utils.params_io import (
+        flatten_params,
+        flax_init_params,
+        params_from_jax,
+        unflatten_params,
+    )
+
+    rng = np.random.default_rng(seed)
+    flat = {k: (v * np.exp(0.2 * rng.normal(size=v.shape)) if k.endswith("/var")
+                else v + (0.3 / np.sqrt(np.prod(v.shape[:-1])) if v.ndim > 1
+                          else 0.05) * rng.normal(size=v.shape)
+                ).astype(np.float32)
+            for k, v in flatten_params(flax_init_params(seed, variant)).items()}
+    model = ConvOccupancyNetwork() if variant == "convonet" else \
+        OccupancyNetwork()
+    model.load_state_dict(params_from_jax(unflatten_params(flat)))
+    model.eval().requires_grad_(False)
+    pc = torch.from_numpy(_mesh_clouds())
+    with torch.no_grad():
+        c = model.encode_inputs(pc)
+        grid = torch.from_numpy(make_grid(8, 1.1).reshape(1, -1, 3))
+        vals = model.decode(grid.expand(len(pc), -1, 3), c)
+        model.decoder.fc_out.bias += logit_threshold(0.2) - float(
+            vals.median())
+    return model, c
+
+
+def _mesh_clouds():
+    """2 clouds of 300 points on ellipsoids in the padded unit cube."""
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(2, 300, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (d * rng.uniform(0.2, 0.4, (2, 1, 3))).astype(np.float32)
+
+
+def _on(c, device):
+    return ({k: v.to(device) for k, v in c.items()} if isinstance(c, dict)
+            else c.to(device))
+
+
+def _int8_close(got, want):
+    """int8 grids (as quanta) equal but one quantum apart at entries whose
+    f32 value straddles a quantum boundary between the devices; -> the
+    count of such entries."""
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1, diff.max()
+    assert (diff > 0).mean() <= 1e-3, (diff > 0).mean()
+    return int((diff > 0).sum())
+
+
+def test_cuda_dense_lattice_matches_cpu(cuda):
+    """ConvONet's dense lattice (resolution0 8 x upsample 4, the CLI's
+    widths) on the card against the CPU path: logits within 1e-4 of the
+    largest, the int8 wire equal but at quantum boundaries, the sparse
+    wire's blocks rebuilding the card's own int8 grid's signs."""
+    from if_defense_tpu_torch.implicit import generation as g
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, c = _mesh_model("convonet")
+    with torch.no_grad():
+        want = model.dense_lattice_logits(c, 32, 1.1)
+        card = model.to(cuda)
+        got = card.dense_lattice_logits(_on(c, cuda), 32, 1.1).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    iso = g.logit_threshold(0.2)
+    _int8_close(g.quantize_wire_int8(got, iso).numpy(),
+                g.quantize_wire_int8(want, iso).numpy())
+    q = g.quantize_wire_int8(got.to(cuda), iso).cpu().numpy()
+    fn = g.make_convonet_sparse_eval(card, 32, 1.1, auto_demote=False)
+    out = {k: v.cpu().numpy() for k, v in fn(card, _on(c, cuda)).items()}
+    meta = fn.sparse_meta
+    for b in range(2):
+        vol = g.assemble_sparse_grid(out, b, block=meta["block"],
+                                     nb=meta["nb"], rp=meta["rp"])
+        assert np.array_equal(vol > 0, q[b] > 0)
+
+
+@pytest.mark.parametrize("wire", ["bf16", "int8"])
+def test_cuda_onet_refinement_matches_cpu(cuda, wire):
+    """ONet's coarse + refine path at the CLI's widths (resolution0 8 x
+    upsample 4) on the card against the CPU path: the same active voxels
+    (top-k indices equal under a clipping budget), the int8 grid equal but
+    at quantum boundaries, the bf16 grid within one bf16 step."""
+    from if_defense_tpu_torch.implicit import generation as g
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, c = _mesh_model("onet")
+    iso = g.logit_threshold(0.2)
+    grid = torch.from_numpy(g.make_grid(8, 1.1).reshape(1, -1, 3))
+    decode = lambda m, p, cc: m.decode(p, cc)      # noqa: E731
+    outs = {}
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        coarse = g.eval_points_batched(decode, m, _on(c, dev),
+                                       grid.to(dev).expand(2, -1, 3), 8192)
+        flat, counts = g._active_scores(coarse.reshape(2, 9, 9, 9), iso, r0=8)
+        k = max(1, int(counts.min()) // 2)         # clips
+        outs[str(dev)] = (coarse.cpu(), counts.cpu(),
+                          g._topk_active(flat, k)[0].cpu(),
+                          g.compute_value_grids(decode, m, _on(c, dev),
+                                                resolution0=8, upsample=4,
+                                                wire=wire)[0])
+    (cc, cn, ci, cv), (gc, gn, gi, gv) = outs["cpu"], outs[str(cuda)]
+    assert float((gc - cc).abs().max()) <= 1e-4 * float(cc.abs().max())
+    assert torch.equal(gn, cn) and torch.equal(gi, ci)
+    if wire == "int8":
+        _int8_close(np.round((gv - iso) * 16), np.round((cv - iso) * 16))
+    else:
+        step = np.maximum(np.abs(cv), 1e-30) * 2.0**-7
+        assert (np.abs(gv - cv) <= step + 1e-4 * np.abs(cv).max()).all()
+
+
+def test_cuda_stable_topk_ties(cuda):
+    """`_topk_active` on the card keeps ties in ascending index order, as
+    `lax.top_k` and the CPU's stable sort do (scores 0, 1 and 2 only)."""
+    from if_defense_tpu_torch.implicit.generation import _topk_active
+
+    flat = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 3, (4, 32768)).astype(np.float32))
+    for k in (1, 100, 8192, 32768):
+        idx, act = _topk_active(flat.to(cuda), k)
+        want = np.argsort(-flat.numpy(), axis=1, kind="stable")[:, :k]
+        assert np.array_equal(idx.cpu().numpy(), want)
+        assert torch.equal(act.cpu(), _topk_active(flat, k)[1])
+
+
+def test_cuda_estimate_normals_launch_b4(cuda):
+    """`estimate_normals` on ConvONet on the card launches B4 once forward
+    and once for the gradient to p a chunk, and its normals are the CPU
+    path's (cosine >= 0.999)."""
+    from if_defense_tpu_torch.implicit import generation as g
+    from if_defense_tpu_torch.ops import cuda_interp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, c = _mesh_model("convonet")
+    c1 = {k: v[:1] for k, v in c.items()}
+    decode = lambda m, p, cc: m.decode(p, cc)      # noqa: E731
+    verts, _ = g.generate_meshes(decode, model, c1, resolution0=8,
+                                 upsample=2)[0]
+    assert len(verts) > 100
+    want = g.estimate_normals(decode, model, c1, verts, chunk=64)
+    before = dict(cuda_interp.launches)
+    got = g.estimate_normals(decode, model.to(cuda), _on(c1, cuda), verts,
+                             chunk=64)
+    chunks = -(-len(verts) // 64)
+    assert cuda_interp.launches["plane_features"] - before[
+        "plane_features"] == chunks
+    assert cuda_interp.launches["plane_features_dp"] - before[
+        "plane_features_dp"] == chunks
+    assert (np.sum(got * want, -1) >= 0.999).all()
+
+
+def test_cuda_b4_refuses_a_second_derivative(cuda):
+    """B4's backward is not differentiable: `refine_mesh`, whose loss holds
+    the decoder's gradient, raises on ConvONet on the card instead of
+    dropping the second-order terms; on the plain path it runs."""
+    from if_defense_tpu_torch.implicit import generation as g
+
+    model, c = _mesh_model("convonet")
+    c1 = {k: v[:1] for k, v in c.items()}
+    decode = lambda m, p, cc: m.decode(p, cc)      # noqa: E731
+    verts, tris = g.generate_meshes(decode, model, c1, resolution0=8,
+                                    upsample=2)[0]
+    out = g.refine_mesh(decode, model, c1, verts, tris[:50], steps=1)
+    assert np.isfinite(out).all()
+    with pytest.raises(RuntimeError):
+        g.refine_mesh(decode, model.to(cuda), _on(c1, cuda), verts,
+                      tris[:50], steps=1)
