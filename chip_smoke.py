@@ -172,10 +172,37 @@ Phases, in order; any failure exits non-zero and prints no result:
      gradient-to-p launch a chunk of 8192 vertices), the normals in the CPU
      path's direction (every vertex at cosine >= 0.99, >= 99.99 % at >=
      0.999); (d) a profile of one warm batch of each
-     variant (`tools/profile_remesh_batch.py`, also alone on the card).
+     variant (`tools/profile_remesh_batch.py`, also alone on the card);
+ 16. the grid ConvONet (c_dim 32, hidden 32, a 32^3 volume, 3D UNet depth
+     3) and the rest of the implicit library, TF32 off: (a) B4's uv form
+     (`plane_sample_cuda`) against `bilinear_plane_sample` at B=48,
+     Q=1024, 64x64 planes of 32, 128 and 6 channels, forward and both
+     gradients, f32 and bf16, two launches bit-identical, and the p form
+     at 6 channels; timed at FeatureDecoder's 128 channels beside one
+     `F.grid_sample` call; then, small, the card against the CPU path
+     (GRID_TOL of each tensor's scale; inputs' gradients at >= 99.9 % of
+     their entries): the grid ConvONet's encode, decode and gradient to p
+     on 2 clouds, PointConvONet, the five registry decoders in eval and
+     train mode (GRID_TRAIN_TOL), `LatentEncoder`, `VoxelDecoder`,
+     `FeatureDecoder` at c_dim 6 and 128, with z_dim > 0; (b) 100
+     training steps of the grid model at phase 10's batch (32 x 2048, 600
+     input points) on phase 10's occupancy npz, step 1 first on 2 shapes
+     on the card and the CPU (loss rtol 1e-5, the decoder's gradients to
+     phase 9's bounds, the encoder's at cosine >= ENCODER_COS); (c)
+     `convonet_opt_defense` with the trained weights on phase 4's 48 x
+     1024 clouds, 201 steps, in the reference mode (B1 402 launches, B4
+     none), with `interp_refresh=16` (the same bits) and in bf16; (d)
+     `cli/remesh_defense.py`'s `defend_clouds` on 32 clouds (the exact
+     coarse + refine path to a 129^3 lattice), twice, a warm batch
+     profiled, and `generate_meshes`; (e) PointConvONet at 48 x 600, 1024
+     queries with the gradient to p (B5 2, B6 2 launches); (f) B4's uv
+     form in `FeatureDecoder` at its defaults and the plane ConvONet's
+     `decode` with `p_n` (uv form 4 forward, 1 uv and 1 plane gradient
+     launches).
 The last lines are the rates, the defense step, victim batch, CW
-iteration, train step and remesh batch profiles, the card's name and power
-limit, one JSON line of the kernels, and `{"ok": true, "device": {...}}`.
+iteration, train step and remesh batch profiles, phase 16's rates, the
+card's name and power limit, one JSON line of the kernels, and
+`{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -309,6 +336,12 @@ TRAIN_FORWARD_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (2, 2),
 # resolution0 x upsample, logits within MESH_TOL of the largest; (b)
 # cli/remesh_defense.py at its defaults (batch 32, a 129^3 lattice)
 MESH_B, MESH_SMALL_B, MESH_R0, MESH_U, MESH_TOL = 32, 2, 8, 4, 1e-4
+# phase 16: the grid ConvONet and the rest of the implicit library; small
+# runs on the card against the CPU path within GRID_TOL of the largest
+# magnitude (f32, TF32 off; the 3D UNet's convolutions sum in other orders)
+GRID_TOL = 1e-4
+GRID_TRAIN_TOL = 1e-3         # the registry decoders in train mode
+ENCODER_COS = 1 - 1e-5        # grid training's step 1, the encoder's gradients
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2769,7 +2802,8 @@ def check_mesh_normals(dev, weights: str, clouds: np.ndarray) -> dict:
           f"{norm[worst] / np.median(norm):.3e} of the median")
     if launches != {"plane_features": want_launch,
                     "plane_features_dp": want_launch,
-                    "plane_features_dplane": 0}:
+                    "plane_features_dplane": 0, "plane_sample": 0,
+                    "plane_sample_duv": 0, "plane_sample_dplane": 0}:
         fail(f"B4 launches {launches} in estimate_normals, not "
              f"{want_launch} forward and {want_launch} gradient to p")
     if cos.min() < 0.99 or low > 1e-4 * len(verts):
@@ -2796,6 +2830,587 @@ def check_mesh_path(dev, keep: str) -> tuple[dict, dict, list]:
         dev, v, weights[v], clouds, MESH_B, reps=2)
         for v in ("convonet", "onet")]
     return rates, launches, profiles
+
+
+def uv_inputs(dev, gen, b: int, q: int, c: int):
+    """A plane N(0, 1) [b, R, R, c], uv from [-0.1, 1.1]^2 (the clamp holds
+    about one coordinate in six) and the output's cotangent, f32."""
+    def dev_(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    return (dev_(gen.normal(size=(b, R, R, c))),
+            dev_(gen.uniform(-0.1, 1.1, (b, q, 2))),
+            dev_(gen.normal(size=(b, q, c))))
+
+
+def check_plane_sample(dev, gen) -> dict:
+    """B4's uv form (`plane_sample_cuda`) against `bilinear_plane_sample`,
+    forward and both gradients, at B x Q = 48 x 1024 and 64x64 planes of
+    32 channels (a ConvONet plane at caller-normalised coordinates) and 128
+    (`FeatureDecoder`), then 6 (the scalar path; also B4's p form at 6),
+    f32 and bf16 (against f32 copies, cast once): output bit-equal in f32,
+    gradient to uv rtol 1e-4 and the plane's atol 1e-5 of the largest entry,
+    rtol 2^-7 in bf16; two launches bit-identical. Times the 128-channel
+    call (forward, gradients to uv and the plane), its plain version and
+    one `F.grid_sample` call with the gradients to its grid and input."""
+    from if_defense_tpu_torch.ops import cuda_interp, interp
+
+    def grads(fn, plane, uv, g, harness=True):
+        pl = plane.detach().requires_grad_(True)
+        u = uv.detach().requires_grad_(True)
+        out = fn(pl, u)
+        d = (torch.autograd.grad((out.float() * g).sum(), [u, pl]) if harness
+             else torch.autograd.grad(out, [u, pl], g.to(out.dtype)))
+        return [out.detach(), *d]
+
+    def plain(pl, u):
+        return interp.bilinear_plane_sample(pl.float(), u.float()).to(pl.dtype)
+
+    errs = []
+    for c in (32, 128, 6):
+        plane, uv, g = uv_inputs(dev, gen, B, N, c)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (plane.to(dt), uv.to(dt), g)
+            got = grads(cuda_interp.plane_sample_cuda, *args)
+            want = grads(plain, *args)
+            again = grads(cuda_interp.plane_sample_cuda, *args)
+            for i, (a, w_, a2) in enumerate(zip(got, want, again)):
+                tag = (f"uv form C={c} {('out', 'duv', 'dplane')[i]} "
+                       f"{str(dt).split('.')[-1]}")
+                rtol = ((1e-4 if i == 1 else 0.0) if dt == torch.float32
+                        else 2.0**-7)
+                e = compare(tag, a, w_, 1e-5 * float(w_.float().abs().max()),
+                            rtol)
+                if dt == torch.float32:
+                    errs.append(e)
+                    if i == 0 and not torch.equal(a, w_):
+                        fail(f"B4 {tag}: not bit-equal to the plain version")
+                if not torch.equal(a, a2):
+                    fail(f"B4 {tag}: two launches differ")
+    # the p form at 6 channels (the scalar path)
+    p, planes, g_out = plane_inputs(dev, gen, 2, N)
+    planes = {n: t[..., :6].contiguous() for n, t in planes.items()}
+    g_out = g_out[..., :6].contiguous()
+    for dt in (torch.float32, torch.bfloat16):
+        pd = p.to(dt).requires_grad_(True)
+        pls = {n: t.to(dt).requires_grad_(True) for n, t in planes.items()}
+        outs = []
+        for fn in (cuda_interp.plane_features_cuda,
+                   lambda x, d: interp.plane_features(
+                       x.float(), {n: t.float() for n, t in d.items()}).to(dt)):
+            o = fn(pd, pls)
+            outs.append([o.detach(), *torch.autograd.grad(
+                (o.float() * g_out).sum(), [pd, *pls.values()])])
+        for i, (a, w_) in enumerate(zip(*outs)):
+            rtol = (1e-4 if i == 1 else 0.0) if dt == torch.float32 else 2.0**-7
+            compare(f"p form C=6 {'out' if i == 0 else ('dp' if i == 1 else 'dplane')}"
+                    f" {str(dt).split('.')[-1]}", a, w_,
+                    1e-5 * float(w_.float().abs().max()), rtol)
+
+    # the row: 128 channels, f32, forward and both gradients
+    c = 128
+    plane, uv, g = uv_inputs(dev, gen, B, N, c)
+    nchw = plane.permute(0, 3, 1, 2)
+    grid = (2 * uv - 1)[:, None]
+    g_nchw = g.permute(0, 2, 1)[:, :, None, :]
+
+    def library(harness=True):
+        x = nchw.detach().requires_grad_(True)
+        gr = grid.detach().requires_grad_(True)
+        out = torch.nn.functional.grid_sample(
+            x, gr, mode="bilinear", padding_mode="border", align_corners=True)
+        if harness:
+            return out, torch.autograd.grad((out * g_nchw).sum(), [gr, x])
+        return torch.autograd.grad(out, [gr, x], g_nchw)
+
+    diff = float((library()[0].detach()[:, :, 0].transpose(1, 2)
+                  - grads(plain, plane, uv, g)[0]).abs().max())
+    print(f"  one grid_sample call vs plain: max abs diff {diff:.3e}")
+    rows_hit = touched_uv_rows(uv, R)
+    nbytes = (4 * rows_hit * c + B * N * (8 + 8 + 2 * 4 * c)
+              + 4 * B * R * R * c)          # uv, duv, g, out; dplane whole
+    b_touched = bound(B * N * c * (10 + 12 + 10), nbytes)
+    print(f"  bound: {rows_hit} of {B * R * R} corner rows touched, "
+          f"{b_touched[0]:.4f} ms ({b_touched[1]})")
+    print("  B4 uv form, FeatureDecoder's call (C=128), f32:")
+    row = dict(
+        name="plane_sample", id="B4",
+        source="if_defense_tpu_torch/csrc/interp.cu",
+        replaces="if_defense_tpu/ops/pallas_interp.py:233",
+        max_abs_err=max(errs), bound=b_touched,
+        **kernel_times(
+            lambda: grads(cuda_interp.plane_sample_cuda, plane, uv, g),
+            lambda: grads(interp.bilinear_plane_sample, plane, uv, g),
+            lambda: grads(cuda_interp.plane_sample_cuda, plane, uv, g, False),
+            ("features_fwd", "features_dp", "features_dplane"),
+            library=(library, lambda: library(False))))
+    print_row(row)
+    return row
+
+
+def touched_uv_rows(uv: torch.Tensor, res: int) -> int:
+    """Distinct corner rows of one plane that the queries of every cloud
+    touch, summed over the clouds."""
+    x = (uv.clamp(0, 1) * (res - 1)).floor().long()
+    x0, y0 = x[..., 0], x[..., 1]
+    x1, y1 = (x0 + 1).clamp(max=res - 1), (y0 + 1).clamp(max=res - 1)
+    cells = torch.cat([y0 * res + x0, y0 * res + x1, y1 * res + x0,
+                       y1 * res + x1], 1)
+    hit = torch.zeros((uv.shape[0], res * res), dtype=torch.bool,
+                      device=uv.device)
+    return int(hit.scatter_(1, cells, True).sum())
+
+
+def seeded(make, variant: str, seed: int = 0, **config):
+    """`make()` with `flax_init_params(seed, variant, **config)` perturbed
+    (`perturbed`), in eval mode on the CPU."""
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    model = make()
+    model.load_state_dict(params_from_jax(
+        perturbed(flax_init_params(seed, variant, **config), seed + 1),
+        model=model), strict=True)
+    return model.eval()
+
+
+def card_vs_cpu(dev, name: str, model, args, tol: float = GRID_TOL,
+                train: bool = False, wrt=(0,), params: bool = True) -> None:
+    """`model(*args)` (its outputs weighted by a ramp and summed) and the
+    gradients to the arguments in `wrt` and, where `params`, to the
+    parameters, on the card against the CPU from the same weights (copies,
+    in train mode where `train`): each tensor within `tol` of the larger of
+    its own largest magnitude and 1e-3 of the largest gradient (a bias that
+    feeds a batch norm has a gradient of 0 but for rounding), a gradient to
+    an input at >= 99.9 % of its entries."""
+    import copy
+
+    runs = []
+    for d in ("cpu", dev):
+        m = copy.deepcopy(model).to(d).train(train)
+        xs = [a.to(d) for a in args]
+        for i in wrt:
+            xs[i] = xs[i].detach().requires_grad_(True)
+        outs = m(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() * torch.linspace(
+            0.5, 1.5, o.numel(), device=o.device).reshape(o.shape)).sum()
+            for o in outs)
+        wrt_t = [xs[i] for i in wrt] + (list(m.parameters()) if params else [])
+        grads = torch.autograd.grad(loss, wrt_t, allow_unused=True)
+        runs.append(([o.detach().float().cpu() for o in outs],
+                     [torch.zeros(1) if g is None else g.detach().cpu()
+                      for g in grads]))
+    (co, cg), (go, gg) = runs
+    floor = 1e-3 * max(float(t.abs().max()) for t in cg)
+    worst, beyond = 0.0, 0.0
+    for i, (a, b) in enumerate(list(zip(go, co)) + list(zip(gg, cg))):
+        is_grad = i >= len(co)
+        scale = max(float(b.abs().max()), floor if is_grad else 0.0, 1e-30)
+        err = (a - b).abs() / scale
+        if is_grad and i - len(co) < len(wrt):
+            # a gradient to an input: a ReLU within rounding of its kink
+            # passes on one device only, so >= 99.9 % of the entries
+            beyond = max(beyond, float((err > tol).float().mean()))
+            err = err.flatten().kthvalue(
+                max(1, int(np.ceil(0.999 * err.numel())))).values
+        worst = max(worst, float(err.max()))
+    print(f"  {name}: {len(co)} outputs and {len(cg)} gradients, worst error "
+          f"{worst:.2e} of the scale (tol {tol:g}; inputs' gradients at their "
+          f"99.9th percentile, {beyond:.1e} of entries beyond)")
+    if worst > tol:
+        fail(f"{name}: the card disagrees with the CPU path")
+
+
+def check_small_grid(dev) -> None:
+    """(a) small runs, the card against the CPU path from the same
+    perturbed `flax_init_params`: the grid ConvONet at full width on 2
+    clouds (encode, decode, gradient to p), PointConvONet (B5/B6 inside),
+    the five registry decoders in train mode, `LatentEncoder` (both
+    `leaky`), `VoxelDecoder` and `FeatureDecoder` (c_dim 6 and 128: B4's uv
+    form on the card), forward and backward with z_dim > 0. TF32 off."""
+    from if_defense_tpu_torch.implicit import (
+        ConvOccupancyNetwork,
+        FeatureDecoder,
+        LatentEncoder,
+        VoxelDecoder,
+    )
+    from if_defense_tpu_torch.implicit.onet import DECODER_REGISTRY
+    from if_defense_tpu_torch.implicit.pointnetpp_encoder import PointConvONet
+
+    gen = np.random.default_rng(16)
+
+    def t(shape, lo=0.5):
+        return torch.from_numpy(gen.uniform(-lo, lo, shape).astype(np.float32))
+
+    grid = seeded(lambda: ConvOccupancyNetwork(plane_type=("grid",)),
+                  "convonet", plane_type=("grid",))
+    # queries at least 0.01 cell from the 32^3 volume's cell edges, where
+    # the trilinear gradient jumps and one ulp of the normalisation (the
+    # card multiplies by the reciprocal, the CPU divides) picks the side;
+    # cells 0-29: the clamp's top, 1 - 1e-3, cuts the last cell
+    cell = gen.integers(0, 30, (2, 2048, 3)) + gen.uniform(0.01, 0.99,
+                                                            (2, 2048, 3))
+    pc = t((2, 600, 3))
+    q = torch.from_numpy(((cell / 31 - 0.5) * 1.101).astype(np.float32))
+
+    class EncodeDecode(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, q, pc):
+            c = self.m.encode_inputs(pc)
+            return self.m.decode(q, c), c["grid"]
+
+    card_vs_cpu(dev, "grid ConvONet encode + decode", EncodeDecode(grid),
+                [q, pc], params=False)
+    pconv = seeded(PointConvONet, "pointconvonet")
+    card_vs_cpu(dev, "PointConvONet", pconv, [t((2, 600, 3)),
+                                              t((2, 512, 3), 0.55)], wrt=(1,))
+    c_dim, z_dim, hid = 32, 16, 64
+    p, c, z = t((4, 256, 3)), t((4, c_dim), 1.0), t((4, z_dim), 1.0)
+    kws = {"simple": dict(hidden_size=hid, c_dim=c_dim, z_dim=z_dim),
+           "cbatchnorm": dict(c_dim=c_dim, hidden_size=hid, z_dim=z_dim),
+           "cbatchnorm2": dict(hidden_size=hid, c_dim=c_dim, z_dim=z_dim),
+           "batchnorm": dict(hidden_size=hid, c_dim=c_dim, z_dim=z_dim),
+           "cbatchnorm_noresnet": dict(c_dim=c_dim, hidden_size=hid,
+                                       z_dim=z_dim)}
+    for name, cls in DECODER_REGISTRY.items():
+        for train in (False, True):
+            torch.manual_seed(0)
+            # in train mode the batch statistics' backward subtracts the
+            # batch means: a gradient is a difference of terms of the
+            # larger size, and the card's reductions add in their own order
+            card_vs_cpu(dev, f"decoder {name} ({('eval', 'train')[train]} "
+                        "mode)", cls(**kws[name]), [p, c, z], train=train,
+                        tol=GRID_TRAIN_TOL if train else GRID_TOL)
+    occ = torch.from_numpy((gen.uniform(size=(4, 256)) > 0.5).astype(np.float32))
+    for leaky in (False, True):
+        torch.manual_seed(0)
+        card_vs_cpu(dev, f"LatentEncoder leaky={leaky}",
+                    LatentEncoder(z_dim, c_dim, 128, leaky), [p, occ, c])
+    torch.manual_seed(0)
+    card_vs_cpu(dev, "VoxelDecoder", VoxelDecoder(z_dim, c_dim, hid),
+                [p, c, z])
+    for cd in (6, 128):
+        torch.manual_seed(0)
+        card_vs_cpu(dev, f"FeatureDecoder c_dim {cd}",
+                    FeatureDecoder(z_dim, cd, hid),
+                    [p, t((4, 64, 64, cd), 1.0), z], wrt=(0, 1))
+
+
+def grid_training(dev, occ_npz: str):
+    """(b) the grid ConvONet at full width (c_dim 32, hidden 32, 32^3, 3D
+    UNet depth 3) from `flax_init_params(0)`, `TRAIN_STEPS` steps of
+    `make_occupancy_train_step` at lr `TRAIN_LR` on phase 10's batch (32
+    shapes x 2048 queries, 600 input points) of its occupancy npz,
+    deterministic algorithms off (max_pool3d's CUDA backward has no
+    deterministic form). Step 1 first on the CPU and the card from the same
+    weights on 2 of the shapes: loss rtol 1e-5, the decoder's gradients
+    rtol 1e-4 and atol 1e-4 of each tensor's largest (phase 9's bounds),
+    the encoder's at cosine >= ENCODER_COS (the 3D UNet's convolutions sum
+    in cuDNN's order; the trilinear volume gradient adds with atomics);
+    the weights perturbed for that step as phase 9's (flax's zero biases
+    put pre-activations at ReLU's kink).
+    -> (model on the card, rate)."""
+    from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+    from if_defense_tpu_torch.implicit.training import (
+        OccupancyBatchSampler,
+        init_occupancy_model,
+        make_occupancy_train_step,
+    )
+    from if_defense_tpu_torch.utils.params_io import params_from_jax
+
+    torch.use_deterministic_algorithms(False)
+    with np.load(occ_npz) as z:
+        arrays = (z["pointcloud"], z["points"], z["points_occ"])
+    small = OccupancyBatchSampler(*arrays, pointcloud_n=600,
+                                  points_subsample=TQ, seed=1).sample(2)
+    runs = []
+    for d in ("cpu", dev):
+        model = ConvOccupancyNetwork(plane_type=("grid",))
+        model.load_state_dict(params_from_jax(
+            perturbed(init_occupancy_model(model, 0), 1), model=model))
+        model.to(d)
+        _, step = make_occupancy_train_step(model, TRAIN_LR)
+        loss = float(step(*(torch.from_numpy(a).to(d) for a in small))["loss"])
+        runs.append((loss, {n: p.grad.detach().cpu()
+                            for n, p in model.named_parameters()}))
+    (lc, gc), (lg, gg) = runs
+    # the decoder's gradients to phase 9's bounds; the encoder's pass
+    # through the 3D UNet, whose cuDNN convolutions reduce over 2 x 32^3
+    # positions and 27 taps in their own order (a step's worst entry was
+    # 3e-3 of its tensor's largest, in the 8^3 x 128-channel bottom level),
+    # in direction, to ENCODER_COS
+    worst, cos_min, table = 0.0, 1.0, []
+    for n, r in gc.items():
+        a = gg[n]
+        err = float(((a - r).abs() / (1e-4 * float(r.abs().max())
+                                      + 1e-4 * r.abs() + 1e-30)).max())
+        cos = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), r.flatten().double(), 0))
+        table.append((err, cos, n))
+        if n.startswith("decoder."):
+            worst = max(worst, err)
+        else:
+            cos_min = min(cos_min, cos)
+    for err, cos, n in sorted(table, reverse=True)[:3]:
+        print(f"    {n}: error / bound {err:.3f}, cosine {cos:.7f}")
+    print(f"  step 1 on 2 shapes: loss CPU {lc:.6f}, card {lg:.6f}; the "
+          f"decoder's gradients worst error / bound {worst:.3f}, the "
+          f"encoder's cosine >= {cos_min:.7f}")
+    if abs(lg - lc) > 1e-5 * abs(lc) or worst > 1 or cos_min < ENCODER_COS:
+        fail("grid ConvONet step 1 on the card disagrees with the CPU")
+
+    model = ConvOccupancyNetwork(plane_type=("grid",))
+    init_occupancy_model(model, 0)
+    model.to(dev)
+    _, step = make_occupancy_train_step(model, TRAIN_LR)
+    sampler = OccupancyBatchSampler(*arrays, pointcloud_n=600,
+                                    points_subsample=TQ, seed=0)
+    batches = [sampler.sample(TB) for _ in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        losses.append(step(*(torch.from_numpy(a).to(dev, non_blocking=True)
+                             for a in b))["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"grid ConvONet training: non-finite losses {losses}")
+    rate = TRAIN_STEPS / seconds
+    print(f"  {TRAIN_STEPS} steps at batch {TB} x {TQ}: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}, {rate:.3f} steps/s (host clock, data on the "
+          f"host included), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    return model.eval().requires_grad_(False), rate
+
+
+def grid_defense(dev, model) -> tuple[dict, dict]:
+    """(c) `convonet_opt_defense` with the trained grid model on phase 4's
+    48 x 1024 clouds, 600 encoder points, 201 steps: the reference mode in
+    f32 (launch counters set to 0 just before and read just after: B1 402,
+    B4 none), `interp_refresh=16` (a grid keeps the exact path: the same
+    bits, under deterministic algorithms), and bf16; every cloud's largest
+    radius within 1 + 1e-5.
+    -> ({mode: clouds/s}, launches of the reference run)."""
+    from if_defense_tpu_torch.defense.ifdefense import convonet_opt_defense
+    from if_defense_tpu_torch.ops import cuda_interp, cuda_repulsion
+
+    pc = torch.from_numpy(ellipsoids(np.random.default_rng(0), B)).to(dev)
+    modes = {"reference f32": {}, "interp_refresh 16": {"interp_refresh": 16},
+             "bf16": {"compute_dtype": "bfloat16"}}
+    outs, rates, launches = {}, {}, {}
+    # the encoder's scatter-mean adds with atomics unless deterministic
+    # algorithms are on (as cli/remesh_defense.py runs): on for the bits
+    torch.use_deterministic_algorithms(True)
+    for name, kw in modes.items():
+        defend = convonet_opt_defense(model, **kw)
+        counters = (cuda_repulsion.launches, cuda_interp.launches)
+        for counter in counters:
+            for k in counter:
+                counter[k] = 0
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = defend(pc, gen)
+        torch.cuda.synchronize()
+        rates[name] = B / (time.perf_counter() - t0)
+        if name == "reference f32":
+            launches = {k: v for c in counters for k, v in c.items()}
+        radius = float(out.norm(dim=-1).amax(1).max())
+        print(f"  {name}: {tuple(out.shape)}, max radius {radius:.7f}, "
+              f"{rates[name]:.3f} clouds/s")
+        if (not torch.isfinite(out).all() or radius > 1 + 1e-5
+                or out.shape != (B, 1024, 3)):
+            fail(f"grid ConvONet-Opt {name}: bad output")
+        outs[name] = out
+    torch.use_deterministic_algorithms(False)
+    print(f"  reference launches {launches}")
+    if launches["repulsion_loss"] != 402 or any(
+            launches[k] for k in cuda_interp.launches):
+        fail(f"grid ConvONet-Opt launches {launches}: not B1 402, B4 none")
+    if not torch.equal(outs["reference f32"], outs["interp_refresh 16"]):
+        fail("grid ConvONet-Opt: interp_refresh 16 differs from the "
+             "reference mode")
+    return rates, launches
+
+
+def grid_mesh(dev, model) -> dict:
+    """(d) the mesh path on the grid model: `cli/remesh_defense.py`'s
+    `defend_clouds` at its defaults (batch 32, resolution0 32 x upsample 4:
+    a 129^3 lattice through the exact coarse + refine path, since the
+    lattice evaluators decline a grid; 1024 points a cloud) on 32
+    ellipsoids, twice (first and warm run), then `generate_meshes` on the
+    same encoder subset; output finite, each cloud's largest radius 1
+    within 1e-5, fewer fallbacks than clouds; the warm batch's device time
+    by torch.profiler. -> rates and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from if_defense_tpu_torch.cli import remesh_defense as rd
+    from if_defense_tpu_torch.implicit import generation as g
+
+    args = rd.parse_args(["--variant", "convonet", "--data_root", "-",
+                          "--weights", "-"])
+    if (g.make_convonet_dense_eval(model, 128, 1.1) is not None
+            or g.make_convonet_lattice_eval(model, 128, 1.1) is not None):
+        fail("a lattice evaluator took the grid model")
+    dense_fn, _, decode_fn, encode_fn = rd.build_eval_fns(args, model)
+    if dense_fn is not None:
+        fail("build_eval_fns gave the grid model a dense evaluator")
+    pc = ellipsoids(np.random.default_rng(17), MESH_B)
+    out = {}
+    for tag in ("first", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clouds, fails = rd.defend_clouds(model, 600, pc, args,
+                                         decode_fn=decode_fn,
+                                         encode_fn=encode_fn)
+        out[tag] = MESH_B / (time.perf_counter() - t0)
+        radius = np.linalg.norm(clouds, axis=-1).max(1)
+        print(f"  defend_clouds {tag}: {clouds.shape}, radius in "
+              f"[{radius.min():.7f}, {radius.max():.7f}], {fails} fallbacks, "
+              f"{out[tag]:.3f} clouds/s")
+        if (clouds.shape != (MESH_B, 1024, 3) or not np.isfinite(clouds).all()
+                or np.abs(radius - 1).max() > 1e-5 or fails >= MESH_B):
+            fail(f"grid mesh path ({tag}): bad output")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rd.defend_clouds(model, 600, pc, args, decode_fn=decode_fn,
+                         encode_fn=encode_fn)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    out["device_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  a warm batch's device time {out['device_ms']:.3f} ms; top:")
+    print_top(events, 5)
+    from if_defense_tpu_torch.ops import normalize_unit_cube
+
+    sel = normalize_unit_cube(torch.from_numpy(pc[:, :600]).to(dev), 0.9)
+    with torch.no_grad():
+        c = model.encode_inputs(sel)
+    meshes = g.generate_meshes(decode_fn, model, c, resolution0=32, upsample=4)
+    faces = [len(t) for _, t in meshes]
+    print(f"  generate_meshes: {len(meshes)} meshes, faces "
+          f"{min(faces)}-{max(faces)}")
+    if len(meshes) != MESH_B or sum(f > 0 for f in faces) == 0:
+        fail("generate_meshes gave no surface on the grid model")
+    return out
+
+
+def point_conv_onet_run(dev) -> tuple[dict, float]:
+    """(e) PointConvONet at its defaults from `flax_init_params(0)`
+    perturbed: encode 48 x 600 and decode 1024 queries with the gradient
+    to p, launch counters set to 0 just before and read just after (B5 2
+    and B6 2: two set-abstraction levels). -> (launches, calls/s of a warm
+    call)."""
+    from if_defense_tpu_torch.implicit.pointnetpp_encoder import PointConvONet
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+
+    model = seeded(PointConvONet, "pointconvonet").to(dev)
+    gen = np.random.default_rng(18)
+    pc = torch.from_numpy(ellipsoids(gen, B)[:, :600] / 2).to(dev)
+    q = torch.from_numpy(gen.uniform(-0.55, 0.55, (B, N, 3)).astype(
+        np.float32)).to(dev)
+
+    def call():
+        x = q.detach().requires_grad_(True)
+        logits = model.decode(x, model.encode_inputs(pc))
+        return logits, torch.autograd.grad(logits.sum(), x)[0]
+
+    counters = (cuda_fps.launches, cuda_ballquery.launches)
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+    logits, dx = call()
+    launches = {k: v for c in counters for k, v in c.items()}
+    ms = median_ms(call)
+    print(f"  logits {tuple(logits.shape)}, launches {launches}, a warm call "
+          f"{ms:.3f} ms")
+    if (not torch.isfinite(logits).all() or not torch.isfinite(dx).all()
+            or launches.get("fps") != 2 or launches.get("ballquery") != 2):
+        fail(f"PointConvONet: launches {launches} (not B5 2, B6 2) or "
+             "non-finite output")
+    return launches, 1e3 / ms
+
+
+def uv_form_run(dev) -> dict:
+    """(f) B4's uv form on its two places in the library, launch counters
+    set to 0 just before and read just after: `FeatureDecoder` at its
+    defaults (z 128, c 128, hidden 256) on a [48, 64, 64, 128] map and 1024
+    queries, forward and backward to the points and the map (uv form: 1
+    forward, 1 uv gradient, 1 plane gradient), and the plane ConvONet's
+    `decode` with caller-normalised coordinates `p_n` (48 x 1024, three
+    64x64x32 planes: 3 forward launches)."""
+    from if_defense_tpu_torch.implicit import ConvOccupancyNetwork, FeatureDecoder
+    from if_defense_tpu_torch.implicit.convonet import PLANES
+    from if_defense_tpu_torch.ops import cuda_interp, normalize_coordinate
+
+    gen = np.random.default_rng(19)
+    torch.manual_seed(0)
+    fdec = FeatureDecoder().to(dev)
+    conv = seeded(ConvOccupancyNetwork, "convonet").to(dev)
+    p = torch.from_numpy(gen.uniform(-0.5, 0.5, (B, N, 3)).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    fmap = torch.from_numpy(gen.normal(size=(B, R, R, 128)).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    z = torch.from_numpy(gen.normal(size=(B, 128)).astype(np.float32)).to(dev)
+    planes = {n: torch.from_numpy(gen.normal(size=(B, R, R, C)).astype(
+        np.float32)).to(dev) for n in PLANES}
+    for k in cuda_interp.launches:
+        cuda_interp.launches[k] = 0
+    out = fdec(p, fmap, z)
+    dp, dmap = torch.autograd.grad(out.sum(), [p, fmap])
+    with torch.no_grad():
+        p_n = {n: normalize_coordinate(p, n) for n in PLANES}
+        logits = conv.decode(p, planes, p_n)
+        want = conv.decode(p, planes)
+    launches = dict(cuda_interp.launches)
+    print(f"  FeatureDecoder out {tuple(out.shape)}, decode with p_n max "
+          f"diff to decode {float((logits - want).abs().max()):.3e}; "
+          f"launches {launches}")
+    if (launches["plane_sample"] != 4 or launches["plane_sample_duv"] != 1
+            or launches["plane_sample_dplane"] != 1
+            or not torch.isfinite(out).all() or not torch.isfinite(dp).all()
+            or not torch.isfinite(dmap).all()
+            or float((logits - want).abs().max())
+            > 1e-5 * float(want.abs().max())):
+        fail(f"B4's uv form on the path: launches {launches} (not 4, 1, 1) "
+             "or bad output")
+    return launches
+
+
+def check_grid_path(dev, occ_npz: str) -> tuple[dict, dict, dict]:
+    """Phase 16. -> (rates, launches by run, the uv form's kernel row)."""
+    t0 = time.perf_counter()
+    print("  (a) B4's uv form against its plain version, then small runs on "
+          "the card against the CPU path")
+    row = check_plane_sample(dev, np.random.default_rng(20))
+    check_small_grid(dev)
+    print(f"  (b) the grid ConvONet, {TRAIN_STEPS} training steps at full "
+          "width")
+    model, train_rate = grid_training(dev, occ_npz)
+    print("  (c) grid ConvONet-Opt, 48 x 1024, 201 steps")
+    defense_rates, defense_launches = grid_defense(dev, model)
+    print(f"  (d) the grid mesh path, batch {MESH_B}, a 129^3 lattice")
+    mesh = grid_mesh(dev, model)
+    print("  (e) PointConvONet, 48 x 600 encoded, 1024 queries with the "
+          "gradient to p")
+    pconv_launches, pconv_rate = point_conv_onet_run(dev)
+    print("  (f) B4's uv form in FeatureDecoder and decode with p_n")
+    uv_launches = uv_form_run(dev)
+    rates = {"train steps/s": train_rate, "opt clouds/s": defense_rates,
+             "mesh clouds/s": {k: mesh[k] for k in ("first", "warm")},
+             "mesh batch device ms": mesh["device_ms"],
+             "PointConvONet calls/s": pconv_rate}
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    return rates, {"grid": defense_launches, "pointconv": pconv_launches,
+                   "uv": uv_launches}, row
 
 
 def tool(name: str):
@@ -2933,7 +3548,10 @@ def main() -> int:
                 want = 2 * TRAIN_STEPS         # one each a step, 2 runs
                 if launches["train"] != {"plane_features": want,
                                          "plane_features_dp": 0,
-                                         "plane_features_dplane": want}:
+                                         "plane_features_dplane": want,
+                                         "plane_sample": 0,
+                                         "plane_sample_duv": 0,
+                                         "plane_sample_dplane": 0}:
                     fail(f"B4 launches {launches['train']} in ConvONet "
                          f"training, not {want} forward and {want} plane "
                          "gradient (and no gradient to p)")
@@ -2942,6 +3560,7 @@ def main() -> int:
         for variant in ("convonet", "onet"):
             shutil.copy(runs[variant, "warm"]["path"],
                         os.path.join(keep, f"{variant}.npz"))
+        shutil.copy(occ_npz, os.path.join(keep, "occ.npz"))
         profile_training(dev, occ_npz)
 
         print("phase 11: ONet-Opt, small CUDA vs CPU, then opt_defense "
@@ -3008,20 +3627,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t15 = time.perf_counter()
     mesh_rates, launches["mesh"], mesh_profiles = check_mesh_path(dev, keep)
-    keep_dir.cleanup()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
+    print("phase 16: the grid ConvONet and the rest of the implicit library: "
+          "B4's uv form, small CUDA vs CPU, training, ConvONet-Opt and the "
+          "mesh path on the grid model, PointConvONet")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid_rates, grid_launches, uv_row = check_grid_path(
+        dev, os.path.join(keep, "occ.npz"))
+    launches.update(grid_launches)
+    rows.append(uv_row)
+    keep_dir.cleanup()
+    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
-    used_in = {"repulsion_loss": ("reference", ("repulsion_loss",)),
+    used_in = {"repulsion_loss": ("reference grid", ("repulsion_loss",)),
                "plane_features": ("reference mesh", ("plane_features",
                                                      "plane_features_dp")),
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup victims attack fit", ("fps",)),
-               "ballquery": ("dup victims attack fit", ("ballquery",)),
+               "fps": ("dup victims attack fit pointconv", ("fps",)),
+               "ballquery": ("dup victims attack fit pointconv",
+                             ("ballquery",)),
+               "plane_sample": ("uv", ("plane_sample", "plane_sample_duv",
+                                       "plane_sample_dplane")),
                "plane_features_dplane": ("train", ("plane_features",
                                                    "plane_features_dplane"))}
     for row in rows:
@@ -3049,6 +3682,8 @@ def main() -> int:
     print("mesh restoration clouds/s (cli/remesh_defense.py, metrics "
           "sidecar): " + json.dumps(mesh_rates) + f" on {card}")
     print("remesh batch profiles: " + json.dumps(mesh_profiles))
+    print("grid ConvONet and PointConvONet (phase 16): "
+          + json.dumps(grid_rates) + f" on {card}")
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

@@ -12,6 +12,18 @@
 // here each query is a direct 4-corner gather and lerp per plane, and the
 // projection, normalisation and sum over the planes are inside the launch.
 //
+// The uv form (plane_sample): one plane and coordinates already normalised,
+//   out[b, q] = bilinear(plane[b], clamp(uv[b, q], 0, 1)),  uv [B, Q, 2],
+// the form the Pallas kernel itself has. It runs the same three kernels
+// with a point row of 2 in place of 3, the projection taken as the identity
+// (axes 0 and 1, scale 1, shift 0) and the clamp's top at 1: the same
+// roundings as the plain `bilinear_plane_sample`.
+//
+// Channels: a lane moves 16 bytes of a corner row where C is a multiple of
+// 16 bytes' worth (4 f32, 8 bf16) and every row pointer is 16-byte aligned;
+// otherwise it moves one channel at a time (the scalar path, any C), with
+// the same arithmetic per channel.
+//
 // Layout: p [B, Q, 3], planes [B, H, W, C] (one pointer each, never
 // stacked), out [B, Q, C], all f32 or all bf16; math in f32. The
 // normalisation multiplies by inv_scale, as torch's CUDA division by a
@@ -95,16 +107,16 @@ struct Planes {
   int ax[kMaxPlanes], ay[kMaxPlanes];  // p's axes on x (-> W) and y (-> H)
   int gk[kMaxPlanes];          // dplane: blockIdx.z -> plane
   int n, B, Q, H, W, C;
-  float inv_scale, hi;
+  int dim;                     // a point row: 3 (p form) or 2 (uv form)
+  float inv_scale, shift, hi;  // u = clamp(c inv_scale + shift, 0, hi)
 };
 
-// 16 bytes of T as floats
-template <typename T>
+// N elements of T as floats: 16 bytes at once (4 f32, 8 bf16), or one
+template <typename T, int N>
 struct Vec;
 
 template <>
-struct Vec<float> {
-  static constexpr int n = 4;
+struct Vec<float, 4> {
   float v[4];
   __device__ __forceinline__ void load(const float* p) {
     const float4 q = *reinterpret_cast<const float4*>(p);
@@ -116,8 +128,7 @@ struct Vec<float> {
 };
 
 template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
+struct Vec<__nv_bfloat16, 8> {
   float v[8];
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
     const uint4 q = *reinterpret_cast<const uint4*>(p);
@@ -140,6 +151,13 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+template <typename T>
+struct Vec<T, 1> {
+  float v[1];
+  __device__ __forceinline__ void load(const T* p) { v[0] = ifdef::load_f(p, 0); }
+  __device__ __forceinline__ void store(T* p) const { ifdef::store_f(p, 0, v[0]); }
+};
+
 struct Cell {
   int o00, o01, o10, o11;  // element offsets of the corner rows in a cloud's plane
   float wx, wy;
@@ -151,13 +169,13 @@ __device__ __forceinline__ float axis(const float (&pt)[3], int a) {
 }
 
 // One axis of a plane's cell, with the rounding of the plain composition:
-// u = clamp(c * inv_scale + 0.5, 0, hi), x = u (R - 1); the corners i0 <=
+// u = clamp(c * inv_scale + shift, 0, hi), x = u (R - 1); the corners i0 <=
 // i1 (border clamp), the weight w = x - floor(x), and whether the clamp
 // passes the gradient.
 __device__ __forceinline__ void axis_cell(float coord, int R, const Planes& P,
                                           int& i0, int& i1, float& w,
                                           bool& in) {
-  float u = __fadd_rn(__fmul_rn(coord, P.inv_scale), 0.5f);
+  float u = __fadd_rn(__fmul_rn(coord, P.inv_scale), P.shift);
   in = (u >= 0.f) && (u <= P.hi);
   u = fminf(fmaxf(u, 0.f), P.hi);
   const float x = __fmul_rn(u, (float)(R - 1));
@@ -182,9 +200,11 @@ __device__ __forceinline__ Cell cell_of(const float (&pt)[3], int k,
 }
 
 template <typename T>
-__device__ __forceinline__ void point_at(const T* p, long row, float (&pt)[3]) {
+__device__ __forceinline__ void point_at(const T* p, long row, int dim,
+                                         float (&pt)[3]) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a) pt[a] = ifdef::load_f(p, 3 * row + a);
+  for (int a = 0; a < 3; ++a)
+    pt[a] = a < dim ? ifdef::load_f(p, dim * row + a) : 0.f;
 }
 
 __device__ __forceinline__ float lerp2(float a, float b, float w) {
@@ -192,17 +212,16 @@ __device__ __forceinline__ float lerp2(float a, float b, float w) {
 }
 
 // Forward: a group of 8 lanes a query, a lane 16 bytes of each corner row.
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     features_fwd(const T* __restrict__ p, Planes P, T* __restrict__ out) {
-  constexpr int V = Vec<T>::n;
   const int b = blockIdx.y, l = threadIdx.x % kGroup;
   const int q = blockIdx.x * kQueries + threadIdx.x / kGroup;
   if (q >= P.Q) return;
   const long row = (long)b * P.Q + q;
   const long base = (long)b * P.H * P.W * P.C;
   float pt[3];
-  point_at(p, row, pt);
+  point_at(p, row, P.dim, pt);
   Cell cell[kMaxPlanes];
 #pragma unroll
   for (int k = 0; k < kMaxPlanes; ++k)
@@ -216,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
       if (k >= P.n) break;
       const T* f = static_cast<const T*>(P.f[k]) + base + c0;
       const Cell& c = cell[k];
-      Vec<T> f00, f01, f10, f11;
+      Vec<T, V> f00, f01, f10, f11;
       f00.load(f + c.o00);
       f01.load(f + c.o01);
       f10.load(f + c.o10);
@@ -228,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
         acc[e] = __fadd_rn(acc[e], lerp2(col0, col1, c.wx));
       }
     }
-    Vec<T> o;
+    Vec<T, V> o;
 #pragma unroll
     for (int e = 0; e < V; ++e) o.v[e] = acc[e];
     o.store(out + row * P.C + c0);
@@ -237,18 +256,17 @@ __global__ void __launch_bounds__(kThreads)
 
 // Gradient to p: the forward's layout; the group's partial sums reduce in
 // 3 shuffle steps, and the group's first lane writes dp's row.
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     features_dp(const T* __restrict__ p, Planes P, const T* __restrict__ g,
                 T* __restrict__ dp) {
-  constexpr int V = Vec<T>::n;
   const int b = blockIdx.y, l = threadIdx.x % kGroup;
   const int q = blockIdx.x * kQueries + threadIdx.x / kGroup;
   const bool valid = q < P.Q;  // every lane takes part in the shuffles
   const long row = (long)b * P.Q + q;
   const long base = (long)b * P.H * P.W * P.C;
   float pt[3] = {0.f, 0.f, 0.f};
-  if (valid) point_at(p, row, pt);
+  if (valid) point_at(p, row, P.dim, pt);
   Cell cell[kMaxPlanes];
   float su[kMaxPlanes], sv[kMaxPlanes];
 #pragma unroll
@@ -257,14 +275,14 @@ __global__ void __launch_bounds__(kThreads)
     if (k < P.n) cell[k] = cell_of(pt, k, P);
   }
   for (int c0 = l * V; valid && c0 < P.C; c0 += kGroup * V) {
-    Vec<T> gv;
+    Vec<T, V> gv;
     gv.load(g + row * P.C + c0);
 #pragma unroll
     for (int k = 0; k < kMaxPlanes; ++k) {
       if (k >= P.n) break;
       const T* f = static_cast<const T*>(P.f[k]) + base + c0;
       const Cell& c = cell[k];
-      Vec<T> f00, f01, f10, f11;
+      Vec<T, V> f00, f01, f10, f11;
       f00.load(f + c.o00);
       f01.load(f + c.o01);
       f10.load(f + c.o10);
@@ -298,7 +316,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (valid && l == 0) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) ifdef::store_f(dp, 3 * row + a, d[a]);
+    for (int a = 0; a < 3; ++a)
+      if (a < P.dim) ifdef::store_f(dp, P.dim * row + a, d[a]);
   }
 }
 
@@ -334,11 +353,11 @@ inline size_t dplane_smem(int rows, int W, int C) {
 // kSpan at a time, query s0 + u kDThreads + t to thread t (coalesced loads,
 // all in flight together); ballots rank the queries that touch the band in
 // query order, and the ranked entries are listed kList at a time.
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(kDThreads)
     features_dplane(const T* __restrict__ p, Planes P,
                     const T* __restrict__ g, int rows) {
-  constexpr int V = Vec<T>::n, kRanks = kPerThread * kDWarps;
+  constexpr int kRanks = kPerThread * kDWarps;
   static_assert(kRanks == 64, "the rank scan takes two counts a lane");
   extern __shared__ float smem[];
   __shared__ int counts[kRanks], base[kRanks + 1];  // (u, warp) order
@@ -351,7 +370,7 @@ __global__ void __launch_bounds__(kDThreads)
   Entry* list = reinterpret_cast<Entry*>(gs + (size_t)kStageQ * C);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const T* pb = p + (long)b * P.Q * 3;
+  const T* pb = p + (long)b * P.Q * P.dim;
   for (int t = threadIdx.x; t < band; t += kDThreads) acc[t] = 0.f;
   for (int s0 = 0; s0 < P.Q; s0 += kSpan) {
     // the thread's queries: the plane's two coordinates, and which touch
@@ -360,8 +379,8 @@ __global__ void __launch_bounds__(kDThreads)
 #pragma unroll
     for (int u = 0; u < kPerThread; ++u) {
       const int q = s0 + u * kDThreads + threadIdx.x;
-      cx[u] = q < P.Q ? ifdef::load_f(pb, 3L * q + ax) : 0.f;
-      cy[u] = q < P.Q ? ifdef::load_f(pb, 3L * q + ay) : 0.f;
+      cx[u] = q < P.Q ? ifdef::load_f(pb, (long)P.dim * q + ax) : 0.f;
+      cy[u] = q < P.Q ? ifdef::load_f(pb, (long)P.dim * q + ay) : 0.f;
     }
     unsigned hits[kPerThread];
 #pragma unroll
@@ -421,7 +440,7 @@ __global__ void __launch_bounds__(kDThreads)
         __syncthreads();  // the list is written, the previous g rows read
         for (int t = threadIdx.x; t < en * (C / V); t += kDThreads) {
           const int i = t / (C / V), c0 = (t % (C / V)) * V;
-          Vec<T> gv;
+          Vec<T, V> gv;
           gv.load(g + ((long)b * P.Q + list[e0 + i].q) * C + c0);
 #pragma unroll
           for (int x = 0; x < V; ++x) gs[i * C + c0 + x] = gv.v[x];
@@ -462,7 +481,7 @@ __global__ void __launch_bounds__(kDThreads)
   }
   T* out = static_cast<T*>(pick(P.df, k)) + ((long)b * P.H + r0) * W * C;
   for (int t = threadIdx.x * V; t < band; t += kDThreads * V) {
-    Vec<T> o;
+    Vec<T, V> o;
 #pragma unroll
     for (int x = 0; x < V; ++x) o.v[x] = acc[t + x];
     o.store(out + t);
@@ -478,45 +497,65 @@ Planes planes_of(const void* const* planes, const int* axes, int n, int B,
     P.ay[k] = axes[2 * k + 1];
   }
   P.n = n, P.B = B, P.Q = Q, P.H = H, P.W = W, P.C = C;
-  P.inv_scale = inv_scale, P.hi = hi;
+  P.dim = 3;
+  P.inv_scale = inv_scale, P.shift = 0.5f, P.hi = hi;
   return P;
 }
 
-// what the kernels take: 1-3 planes, axes in [0, 3), C whole 16-byte words,
-// a plane row that fits the plane gradient's shared memory (227 KB)
-bool takes(const Planes& P, int bf16) {
+// the uv form: one plane, coordinates (x, y) = uv's two columns, identity
+// projection, clamp to [0, 1]
+Planes plane_of(const void* plane, int B, int Q, int H, int W, int C) {
+  const int axes[2] = {0, 1};
+  Planes P = planes_of(&plane, axes, 1, B, Q, H, W, C, 1.f, 1.f);
+  P.dim = 2;
+  P.shift = 0.f;
+  return P;
+}
+
+// what the kernels take: 1-3 planes, axes in [0, 3), a plane row that fits
+// the plane gradient's shared memory (227 KB)
+bool takes(const Planes& P) {
   if (P.n < 1 || P.n > kMaxPlanes || P.H < 1 || P.W < 1 || P.C < 1) return false;
   for (int k = 0; k < P.n; ++k)
     if (P.ax[k] < 0 || P.ax[k] > 2 || P.ay[k] < 0 || P.ay[k] > 2) return false;
-  return P.C % (bf16 ? 8 : 4) == 0 && dplane_smem(1, P.W, P.C) <= 232448;
+  return dplane_smem(1, P.W, P.C) <= 232448;
+}
+
+// 16-byte moves: whole 16-byte words of channels, every row pointer aligned
+bool wide(const Planes& P, int bf16, const void* a, const void* b) {
+  bool ok = P.C % (bf16 ? 8 : 4) == 0;
+  auto al = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
+  for (int k = 0; k < P.n; ++k)
+    ok = ok && al(P.f[k]) && (!P.df[k] || al(P.df[k]));
+  return ok && (!a || al(a)) && (!b || al(b));
 }
 
 dim3 query_grid(const Planes& P) {
   return dim3((unsigned)((P.Q + kQueries - 1) / kQueries), (unsigned)P.B);
 }
 
-template <typename T>
+template <typename T, int V>
 int fwd_impl(const void* p, const Planes& P, void* out, cudaStream_t s) {
-  features_fwd<T><<<query_grid(P), kThreads, 0, s>>>(
+  features_fwd<T, V><<<query_grid(P), kThreads, 0, s>>>(
       static_cast<const T*>(p), P, static_cast<T*>(out));
   return ifdef::last_error();
 }
 
-template <typename T>
+template <typename T, int V>
 int dp_impl(const void* p, const Planes& P, const void* g, void* dp,
             cudaStream_t s) {
-  features_dp<T><<<query_grid(P), kThreads, 0, s>>>(
+  features_dp<T, V><<<query_grid(P), kThreads, 0, s>>>(
       static_cast<const T*>(p), P, static_cast<const T*>(g),
       static_cast<T*>(dp));
   return ifdef::last_error();
 }
 
-template <typename T>
+template <typename T, int V>
 int dplane_impl(const void* p, const Planes& P, const void* g, int nz,
                 cudaStream_t s) {
   const int rows = band_rows(P.H, P.W, P.C);
   const size_t smem = dplane_smem(rows, P.W, P.C);
-  auto kern = features_dplane<T>;
+  auto kern = features_dplane<T, V>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -529,9 +568,39 @@ int dplane_impl(const void* p, const Planes& P, const void* g, int nz,
   return ifdef::last_error();
 }
 
-// the launch for the type of p and the planes
-#define IFDEF_TYPE(bf16, impl, ...)                                           \
-  (bf16 ? impl<__nv_bfloat16>(__VA_ARGS__) : impl<float>(__VA_ARGS__))
+// the launch for the type of p and the planes and the width of the moves
+#define IFDEF_TYPE(bf16, vec, impl, ...)                                      \
+  (bf16 ? (vec ? impl<__nv_bfloat16, 8>(__VA_ARGS__)                          \
+               : impl<__nv_bfloat16, 1>(__VA_ARGS__))                         \
+        : (vec ? impl<float, 4>(__VA_ARGS__) : impl<float, 1>(__VA_ARGS__)))
+
+int run_fwd(const void* p, int bf16, const Planes& P, void* out,
+            void* stream) {
+  if (!takes(P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return IFDEF_TYPE(bf16, wide(P, bf16, out, nullptr), fwd_impl, p, P, out, s);
+}
+
+int run_dp(const void* p, int bf16, const Planes& P, const void* g, void* dp,
+           void* stream) {
+  if (!takes(P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return IFDEF_TYPE(bf16, wide(P, bf16, g, nullptr), dp_impl, p, P, g, dp, s);
+}
+
+int run_dplane(const void* p, int bf16, Planes P, const void* g,
+               void* const* dplanes, void* stream) {
+  if (!takes(P)) return (int)cudaErrorInvalidValue;
+  int nz = 0;
+  for (int k = 0; k < P.n; ++k) {
+    P.df[k] = dplanes[k];
+    if (dplanes[k]) P.gk[nz++] = k;
+  }
+  if (nz == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return IFDEF_TYPE(bf16, wide(P, bf16, g, nullptr), dplane_impl, p, P, g,
+                    nz, s);
+}
 
 }  // namespace
 
@@ -548,10 +617,8 @@ int ifdef_plane_features_fwd(const void* p, int bf16,
                              int n, int B, int Q, int H, int W,
                              int C, float inv_scale, float hi, void* out,
                              void* stream) {
-  const Planes P = planes_of(planes, axes, n, B, Q, H, W, C, inv_scale, hi);
-  if (!takes(P, bf16)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return IFDEF_TYPE(bf16, fwd_impl, p, P, out, s);
+  return run_fwd(p, bf16, planes_of(planes, axes, n, B, Q, H, W, C, inv_scale, hi),
+             out, stream);
 }
 
 // g [B,Q,C] -> dp [B,Q,3]
@@ -560,10 +627,8 @@ int ifdef_plane_features_dp(const void* p, int bf16,
                             int B, int Q, int H, int W, int C,
                             float inv_scale, float hi, const void* g, void* dp,
                             void* stream) {
-  const Planes P = planes_of(planes, axes, n, B, Q, H, W, C, inv_scale, hi);
-  if (!takes(P, bf16)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return IFDEF_TYPE(bf16, dp_impl, p, P, g, dp, s);
+  return run_dp(p, bf16, planes_of(planes, axes, n, B, Q, H, W, C, inv_scale, hi),
+              g, dp, stream);
 }
 
 // g [B,Q,C] -> dplanes[k] [B,H,W,C] for each k whose pointer is not null;
@@ -574,16 +639,32 @@ int ifdef_plane_features_dplane(const void* p, int bf16,
                                 int C, float inv_scale, float hi,
                                 const void* g, void* const* dplanes,
                                 void* stream) {
-  Planes P = planes_of(planes, axes, n, B, Q, H, W, C, inv_scale, hi);
-  if (!takes(P, bf16)) return (int)cudaErrorInvalidValue;
-  int nz = 0;
-  for (int k = 0; k < n; ++k) {
-    P.df[k] = dplanes[k];
-    if (dplanes[k]) P.gk[nz++] = k;
-  }
-  if (nz == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return IFDEF_TYPE(bf16, dplane_impl, p, P, g, nz, s);
+  return run_dplane(p, bf16,
+                planes_of(planes, axes, n, B, Q, H, W, C, inv_scale, hi), g,
+                dplanes, stream);
+}
+
+// the uv form: uv [B,Q,2] and plane [B,H,W,C], both bf16 if bf16 else f32
+// -> out [B,Q,C] in that type
+int ifdef_plane_sample_fwd(const void* uv, int bf16, const void* plane, int B,
+                           int Q, int H, int W, int C, void* out,
+                           void* stream) {
+  return run_fwd(uv, bf16, plane_of(plane, B, Q, H, W, C), out, stream);
+}
+
+// g [B,Q,C] -> duv [B,Q,2]
+int ifdef_plane_sample_duv(const void* uv, int bf16, const void* plane, int B,
+                           int Q, int H, int W, int C, const void* g,
+                           void* duv, void* stream) {
+  return run_dp(uv, bf16, plane_of(plane, B, Q, H, W, C), g, duv, stream);
+}
+
+// g [B,Q,C] -> dplane [B,H,W,C], every cell written
+int ifdef_plane_sample_dplane(const void* uv, int bf16, const void* plane,
+                              int B, int Q, int H, int W, int C,
+                              const void* g, void* dplane_out, void* stream) {
+  void* d[kMaxPlanes] = {dplane_out, nullptr, nullptr};
+  return run_dplane(uv, bf16, plane_of(plane, B, Q, H, W, C), g, d, stream);
 }
 
 }  // extern "C"

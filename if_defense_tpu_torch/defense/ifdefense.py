@@ -260,8 +260,9 @@ def _convonet_corner_fns(padding: float):
 def convonet_opt_defense(model, **kwargs):
     """ConvONet-Opt: (pc, generator=None, draws=None, stats=None) ->
     restored clouds. `interp_refresh > 1` enables the corner-cache decoder
-    fast path."""
-    if kwargs.get("interp_refresh", 1) > 1:
+    fast path for plane latents; a `grid` latent keeps the exact path (the
+    reference mode's steps)."""
+    if kwargs.get("interp_refresh", 1) > 1 and "grid" not in model.plane_type:
         cache_fn, cached_fn = _convonet_corner_fns(model.padding)
         kwargs.setdefault("corner_cache_fn", cache_fn)
         kwargs.setdefault("decode_cached_fn", cached_fn)

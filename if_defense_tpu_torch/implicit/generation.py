@@ -165,7 +165,10 @@ def make_convonet_lattice_eval(model, rf: int, box_size: float,
     """Lattice evaluator for ConvONet plane latents: `eval_fn(model, c,
     fidx [B, P, 3]) -> [B, P]` logits. The planes are resized to the fine
     lattice once (`lattice_planes`); each chunk of queries is then a row
-    gather and the decoder head."""
+    gather and the decoder head. None for a latent with a `grid` volume,
+    which keeps the exact trilinear path."""
+    if "grid" in model.plane_type:
+        return None
 
     @torch.no_grad()
     def eval_fn(m, c, fidx):
@@ -181,7 +184,11 @@ def make_convonet_dense_eval(model, rf: int, box_size: float):
     """Dense-lattice evaluator for ConvONet plane latents: `eval_fn(model,
     c) -> [B, rf+1, rf+1, rf+1]` logits. It replaces the coarse + refine
     passes with one exact evaluation of the whole fine lattice
-    (`dense_lattice_logits`), which needs the three planes xz, xy, yz."""
+    (`dense_lattice_logits`), which needs the three planes xz, xy, yz: None
+    for any other latent (a grid, or fewer planes), which keeps the exact
+    path."""
+    if set(model.plane_type) != {"xz", "xy", "yz"}:
+        return None
 
     @torch.no_grad()
     def eval_fn(m, c):
@@ -220,9 +227,12 @@ def make_convonet_sparse_eval(model, rf: int, box_size: float,
       idx     [B, M] int32 flat block ids (-1 = unused slot)
       inside  [B, nb^3] bool — all-inside flag per block (filler signs)
       n_need  [B] int32 — blocks genuinely needed
-    or {"dense": [B, rf+1, rf+1, rf+1] int8} when it demotes.
+    or {"dense": [B, rf+1, rf+1, rf+1] int8} when it demotes. None unless
+    the dense evaluator applies (the three planes xz, xy, yz).
     """
     dense_fn = make_convonet_dense_eval(model, rf, box_size)
+    if dense_fn is None:
+        return None
     iso = logit_threshold(threshold)
     rp = rf + 1
     nb = -(-rp // block)                       # blocks per axis

@@ -9,9 +9,12 @@ arrays:
     points     [S, P, 3]   query points in the padded unit cube
     points_occ [S, P]      occupancy labels {0, 1}
 
-The JAX package jits the step; the port runs it eagerly. For ConvONet the
-three plane lookups of the decoder go through kernel B4 on a CUDA device,
-forward and plane gradient (the queries are data, so no uv gradient).
+The JAX package jits the step; the port runs it eagerly. For the plane
+ConvONet the three plane lookups of the decoder go through kernel B4 on a
+CUDA device, forward and plane gradient (the queries are data, so no uv
+gradient); the grid ConvONet's volume is sampled by
+`trilinear_grid_sample`, and its 3D UNet's max-pool has no deterministic
+CUDA backward, so grid training runs with deterministic algorithms off.
 """
 
 from __future__ import annotations
@@ -96,18 +99,29 @@ def make_occupancy_train_step(model: torch.nn.Module,
 
 
 def init_occupancy_model(model: torch.nn.Module, seed: int) -> dict:
-    """Load `flax_init_params(seed, ...)` for the model's variant and
-    widths into `model`; returns the flax-layout variables."""
+    """Load `flax_init_params(seed, ...)` for the model's variant, widths,
+    plane types and UNet depths into `model`; returns the flax-layout
+    variables."""
+    from if_defense_tpu_torch.implicit.pointnetpp_encoder import PointConvONet
+
     if isinstance(model, ConvOccupancyNetwork):
-        fc_c = model.encoder.fc_c
-        variables = flax_init_params(seed, "convonet", c_dim=fc_c.out_features,
-                                     hidden_dim=fc_c.in_features)
+        enc = model.encoder
+        variables = flax_init_params(
+            seed, "convonet", c_dim=enc.fc_c.out_features,
+            hidden_dim=enc.fc_c.in_features, plane_type=model.plane_type,
+            grid_resolution=enc.grid_reso,
+            unet3d_depth=enc.unet3d.depth if enc.unet3d is not None else 3)
     elif isinstance(model, OccupancyNetwork):
         fc_c = model.encoder.fc_c
         variables = flax_init_params(
             seed, "onet", c_dim=fc_c.out_features, hidden_dim=fc_c.in_features,
-            decoder_hidden=model.decoder.fc_p.out_features)
+            decoder_hidden=model.decoder.fc_p.out_features, z_dim=model.z_dim)
+    elif isinstance(model, PointConvONet):
+        variables = flax_init_params(
+            seed, "pointconvonet",
+            c_dim=model.decoder.fc_c_0.in_features,
+            hidden_dim=model.decoder.fc_p.out_features)
     else:
         raise TypeError(f"not an occupancy network: {type(model).__name__}")
-    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.load_state_dict(params_from_jax(variables, model=model), strict=True)
     return variables

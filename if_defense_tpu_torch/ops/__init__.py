@@ -15,6 +15,8 @@ from if_defense_tpu_torch.ops.interp import (
     normalize_coordinate,
     plane_corner_features,
     plane_features,
+    plane_sample,
+    trilinear_grid_sample,
 )
 from if_defense_tpu_torch.ops.metrics3d import compute_iou
 from if_defense_tpu_torch.ops.normalize import (
@@ -28,11 +30,17 @@ from if_defense_tpu_torch.ops.pointops import (
     index_points,
     knn_points,
     knn_self,
+    pairwise_self_distance,
     query_ball_point,
     query_ball_point_plain,
     square_distance,
 )
-from if_defense_tpu_torch.ops.scatter import pooled_max_by_cell, scatter_mean_2d
+from if_defense_tpu_torch.ops.scatter import (
+    pooled_max_by_cell,
+    pooled_mean_by_cell,
+    scatter_max_2d,
+    scatter_mean_2d,
+)
 
 __all__ = [
     "chamfer_distance",
@@ -43,6 +51,8 @@ __all__ = [
     "normalize_coordinate",
     "plane_corner_features",
     "plane_features",
+    "plane_sample",
+    "trilinear_grid_sample",
     "normalize_unit_cube",
     "normalize_unit_sphere",
     "farthest_point_sample",
@@ -51,9 +61,12 @@ __all__ = [
     "index_points",
     "knn_points",
     "knn_self",
+    "pairwise_self_distance",
     "query_ball_point",
     "query_ball_point_plain",
     "square_distance",
     "pooled_max_by_cell",
+    "pooled_mean_by_cell",
+    "scatter_max_2d",
     "scatter_mean_2d",
 ]

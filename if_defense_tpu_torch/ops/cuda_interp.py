@@ -1,13 +1,19 @@
-"""Wrapper of the CUDA plane-feature kernel (B4, `csrc/interp.cu`).
+"""Wrappers of the CUDA plane-feature kernel (B4, `csrc/interp.cu`).
 
 Replaces `fused_bilinear_plane_sample` of
-`if_defense_tpu/ops/pallas_interp.py:233` as the ConvONet decoder uses it:
-the features of 1-3 channel-last planes at the points p, each plane's
-projection and normalisation (`normalize_coordinate`) and the sum over the
-planes included, in one launch forward and one per gradient asked for.
-Takes tensors on a CUDA device only; the plain PyTorch version is
-`ops.interp.plane_features`, and `LocalDecoder.sample_features` chooses
-between the two by the tensor's device.
+`if_defense_tpu/ops/pallas_interp.py:233` in two forms:
+- the p form (`plane_features_cuda`), as the ConvONet decoder uses it: the
+  features of 1-3 channel-last planes at the points p, each plane's
+  projection and normalisation (`normalize_coordinate`) and the sum over
+  the planes included, in one launch forward and one per gradient asked
+  for; its plain PyTorch version is `ops.interp.plane_features`;
+- the uv form (`plane_sample_cuda`), the Pallas kernel's own: one plane at
+  coordinates uv already normalised; its plain version is
+  `ops.interp.bilinear_plane_sample`.
+Both take tensors on a CUDA device only, and any channel count (16-byte
+moves where the channels fill whole 16-byte words, one channel at a time
+otherwise); `LocalDecoder.sample_features` and `ops.interp.plane_sample`
+choose between kernel and plain version by the tensor's device.
 
 The backward launches only what autograd asks for: the gradient to p (the
 defense, planes frozen) and the planes' gradients (implicit-network
@@ -29,11 +35,13 @@ MAX_PLANES = 3
 
 # kernel launches, counted where they happen
 launches = {"plane_features": 0, "plane_features_dp": 0,
-            "plane_features_dplane": 0}
+            "plane_features_dplane": 0, "plane_sample": 0,
+            "plane_sample_duv": 0, "plane_sample_dplane": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _HEAD = [_P, _I, _PP, _PI, _I, _I, _I, _I, _I, _I, _F, _F]
+_UV_HEAD = [_P, _I, _P, _I, _I, _I, _I, _I]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -120,11 +128,6 @@ def _check(p: torch.Tensor, planes: list) -> None:
             "are not [B, Q, 3] / planes of one [B, H, W, C] shape")
     if not (p.is_contiguous() and all(t.is_contiguous() for t in planes)):
         raise ValueError("p and the planes must be contiguous")
-    C = shape[3]
-    vec = 16 // planes[0].element_size()
-    if C % vec or any(t.data_ptr() % 16 for t in planes):
-        raise ValueError(f"the planes' channels ({C}) must be a multiple of "
-                         f"{vec} and their storage 16-byte aligned")
 
 
 def plane_features_cuda(p: torch.Tensor, planes: dict[str, torch.Tensor],
@@ -149,3 +152,72 @@ def plane_features_cuda(p: torch.Tensor, planes: dict[str, torch.Tensor],
     inv_scale = float(np.float32(1.0 / (1 + padding + 1e-5)))
     hi = float(np.float32(1.0 - 1e-5))
     return _PlaneFeatures.apply(p, axes, inv_scale, hi, *tensors)
+
+
+def _uv_head(uv: torch.Tensor, plane: torch.Tensor) -> list:
+    B, Q, _ = uv.shape
+    _, H, W, C = plane.shape
+    return [uv.data_ptr(), int(uv.dtype == torch.bfloat16), plane.data_ptr(),
+            B, Q, H, W, C]
+
+
+class _PlaneSample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, uv, plane):
+        B, Q, _ = uv.shape
+        out = torch.empty((B, Q, plane.shape[-1]), dtype=plane.dtype,
+                          device=uv.device)
+        fn = _build.bind("interp", "ifdef_plane_sample_fwd",
+                         _UV_HEAD + [_P, _P])
+        err = fn(*_uv_head(uv, plane), out.data_ptr(), _stream(uv))
+        launches["plane_sample"] += 1
+        _build.check("interp", err, "plane_sample forward")
+        ctx.save_for_backward(uv, plane)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise RuntimeError("plane_sample_cuda (kernel B4) has no second "
+                               "derivative; use the plain "
+                               "ops.bilinear_plane_sample for create_graph")
+        uv, plane = ctx.saved_tensors
+        g = g.to(plane.dtype).contiguous()
+        head = _uv_head(uv, plane)
+        duv = dplane = None
+        if ctx.needs_input_grad[0]:
+            duv = torch.empty_like(uv)
+            fn = _build.bind("interp", "ifdef_plane_sample_duv",
+                             _UV_HEAD + [_P, _P, _P])
+            err = fn(*head, g.data_ptr(), duv.data_ptr(), _stream(uv))
+            launches["plane_sample_duv"] += 1
+            _build.check("interp", err, "plane_sample gradient to uv")
+        if ctx.needs_input_grad[1]:
+            dplane = torch.empty_like(plane)      # every cell is written
+            fn = _build.bind("interp", "ifdef_plane_sample_dplane",
+                             _UV_HEAD + [_P, _P, _P])
+            err = fn(*head, g.data_ptr(), dplane.data_ptr(), _stream(uv))
+            launches["plane_sample_dplane"] += 1
+            _build.check("interp", err, "plane_sample plane gradient")
+        return duv, dplane
+
+
+def plane_sample_cuda(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of the channel-last planes `[B, H, W, C]` at `uv`
+    `[B, Q, 2]` (x -> W, y -> H, each clamped to [0, 1], align_corners,
+    border clamp) -> `[B, Q, C]`; plane and uv both f32 or both bf16, math
+    in f32. Gradients flow to uv (zero where the clamp holds a coordinate)
+    and to the plane (summed in f32)."""
+    if not (uv.is_cuda and plane.device == uv.device):
+        raise ValueError("plane_sample_cuda takes CUDA tensors on one device")
+    if uv.dtype not in (torch.float32, torch.bfloat16) \
+            or plane.dtype != uv.dtype:
+        raise TypeError("uv and the plane must both be float32 or both "
+                        f"bfloat16, not {uv.dtype} / {plane.dtype}")
+    if uv.dim() != 3 or uv.shape[-1] != 2 or plane.dim() != 4 \
+            or plane.shape[0] != uv.shape[0]:
+        raise ValueError(f"shapes {tuple(uv.shape)} / {tuple(plane.shape)} "
+                         "are not [B, Q, 2] / [B, H, W, C]")
+    if not (uv.is_contiguous() and plane.is_contiguous()):
+        raise ValueError("uv and the plane must be contiguous")
+    return _PlaneSample.apply(uv, plane)

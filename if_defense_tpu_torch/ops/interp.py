@@ -1,14 +1,18 @@
-"""Bilinear feature-plane sampling (port of `if_defense_tpu/ops/interp.py`
-and of `normalize_coordinate` in `if_defense_tpu/implicit/convonet.py`).
+"""Bilinear feature-plane and trilinear volume sampling (port of
+`if_defense_tpu/ops/interp.py` and of `normalize_coordinate` in
+`if_defense_tpu/implicit/convonet.py`).
 
 `F.grid_sample(..., padding_mode='border', align_corners=True)` as the
-ConvONet decoder uses it, on channel-last planes. `plane_features` (each
-plane's `normalize_coordinate`, `bilinear_plane_sample`, the sum over the
-planes) is the plain PyTorch version of kernel B4
-(`ops/cuda_interp.plane_features_cuda`); `LocalDecoder.sample_features`
-launches the kernel for CUDA tensors and takes the plain version for CPU
-tensors. The corner cache of the fast mode (`plane_corner_features` /
-`cached_bilinear_sample`) is plain PyTorch.
+ConvONet decoder uses it, on channel-last planes and volumes. Kernel B4 has
+two plain versions here: `plane_features` (each plane's
+`normalize_coordinate`, `bilinear_plane_sample`, the sum over the planes)
+for its p form (`ops/cuda_interp.plane_features_cuda`), and
+`bilinear_plane_sample` for its uv form (`plane_sample_cuda`).
+`LocalDecoder.sample_features` and `plane_sample` launch the kernel for
+CUDA tensors and take the plain version for CPU tensors. The corner cache
+of the fast mode (`plane_corner_features` / `cached_bilinear_sample`) and
+`trilinear_grid_sample` (XLA, not Pallas, in the JAX package) are plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -66,6 +70,60 @@ def bilinear_plane_sample(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor
     # the y lerp first, as the JAX package's row-selector einsum does
     col0 = f00 * (1 - wy) + f10 * wy
     col1 = f01 * (1 - wy) + f11 * wy
+    return col0 * (1 - wx) + col1 * wx
+
+
+def plane_sample(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """`bilinear_plane_sample` (plane `[B, H, W, C]`, uv `[B, Q, 2]`) with
+    kernel dispatch: B4's uv form (`cuda_interp.plane_sample_cuda`) for
+    CUDA tensors, the plain version for CPU tensors."""
+    if uv.is_cuda:
+        from if_defense_tpu_torch.ops.cuda_interp import plane_sample_cuda
+
+        return plane_sample_cuda(plane.contiguous(), uv.contiguous())
+    return bilinear_plane_sample(plane, uv)
+
+
+def _axis(coord: torch.Tensor, size: int):
+    """Corners lo <= hi (border clamp) and the weight of hi on one axis."""
+    i0 = torch.floor(coord)
+    return (i0.clamp(0, size - 1).long(), (i0 + 1).clamp(0, size - 1).long(),
+            (coord - i0)[..., None])
+
+
+def trilinear_grid_sample(grid: torch.Tensor, uvw: torch.Tensor) -> torch.Tensor:
+    """Sample a 3D feature volume at continuous coordinates: grid_sample on
+    a 5-D input with align_corners and border padding (the ConvONet `grid`
+    latent, `decoder.py:60-67`).
+
+    An explicit 8-corner gather on the flattened volume, lerped along z,
+    then y, then x: the order of the JAX package's three contractions.
+    `F.grid_sample` is not used: its 5-D backward refuses deterministic
+    algorithms and it rounds in its own order. The gradient to uvw is
+    elementwise; the volume's (a scatter-add) is taken only in training.
+
+    Args:
+        grid: [B, D, H, W, C] channel-last feature volume.
+        uvw: [B, Q, 3] in [0, 1]; uvw[..., 0] indexes W (x), [..., 1] H (y),
+            [..., 2] D (z).
+    Returns:
+        [B, Q, C]
+    """
+    B, D, H, W, C = grid.shape
+    x0, x1, wx = _axis(uvw[..., 0].clamp(0.0, 1.0) * (W - 1), W)
+    y0, y1, wy = _axis(uvw[..., 1].clamp(0.0, 1.0) * (H - 1), H)
+    z0, z1, wz = _axis(uvw[..., 2].clamp(0.0, 1.0) * (D - 1), D)
+    flat = grid.reshape(B, D * H * W, C)
+
+    def at(zi, yi, xi):
+        return torch.gather(flat, 1,
+                            ((zi * H + yi) * W + xi)[..., None].expand(-1, -1, C))
+
+    def along_z(yi, xi):
+        return at(z0, yi, xi) * (1 - wz) + at(z1, yi, xi) * wz
+
+    col0 = along_z(y0, x0) * (1 - wy) + along_z(y1, x0) * wy
+    col1 = along_z(y0, x1) * (1 - wy) + along_z(y1, x1) * wy
     return col0 * (1 - wx) + col1 * wx
 
 

@@ -30,6 +30,11 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return s2 - 2.0 * cross + d2.transpose(1, 2)
 
 
+def pairwise_self_distance(xyz: torch.Tensor) -> torch.Tensor:
+    """Squared L2 self-distance matrix, [B, N, 3] -> [B, N, N]."""
+    return square_distance(xyz, xyz)
+
+
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched gather: out[b, ..., c] = points[b, idx[b, ...], c].
 

@@ -6,9 +6,13 @@ turns such a tree into a PyTorch state dict for the port's modules, whose
 submodule names follow the flax names. It inverts
 `if_defense_tpu/convert/implicit_weights.py`:
 - Dense kernel `[in, out]` -> `Linear.weight = kernel.T`;
-- Conv kernel HWIO -> OIHW;
-- ConvTranspose kernel `[kh, kw, in, out]` -> `[in, out, kh, kw]`, with the
-  spatial flip that the converter applies undone;
+- Conv kernel HWIO -> OIHW, and `[kd, kh, kw, in, out]` -> `[out, in, kd,
+  kh, kw]`;
+- ConvTranspose kernel `[kh, kw, in, out]` -> `[in, out, kh, kw]` (and its
+  3-D form), with the spatial flip that the converter applies undone. A
+  kernel is transposed where the module is (`transposed_convs(model)`);
+  without a model, where the module's name is one the port gives its
+  transposed convolutions (`upconv`, `convtrp_<i>`);
 - the `batch_stats` collection (ONet's batch norms: `mean`, `var`) -> the
   running buffers of the same names and paths.
 `params_to_jax` is its exact inverse, so weights trained by the port save
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def flatten_params(tree: dict, prefix: str = "") -> dict:
@@ -65,39 +70,64 @@ def load_params_npz(path: str) -> dict:
         return unflatten_params({k: npz[k] for k in npz.files})
 
 
+def transposed_convs(model: nn.Module) -> set[str]:
+    """Flax paths ('/'-joined module names) of `model`'s transposed
+    convolutions."""
+    return {name.replace(".", "/") for name, m in model.named_modules()
+            if isinstance(m, nn.modules.conv._ConvTransposeNd)}
+
+
+def _transposed(path: list[str], transposed) -> bool:
+    module = path[:-1]
+    if transposed is not None:
+        return "/".join(module) in transposed
+    return bool(module) and (module[-1] == "upconv"
+                             or module[-1].startswith("convtrp_"))
+
+
 def _to_torch_layout(path: list[str], value: np.ndarray,
-                     dtype=np.float32) -> np.ndarray:
+                     dtype=np.float32, transposed=None) -> np.ndarray:
     value = np.asarray(value, dtype=dtype)
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:                                   # Dense
         return value.T
-    if value.ndim == 4 and path[-2] == "upconv":          # ConvTranspose
-        return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-    if value.ndim == 4:                                   # Conv HWIO
-        return value.transpose(3, 2, 0, 1)
+    if value.ndim in (4, 5):
+        s = value.ndim - 2                                # spatial axes
+        spatial = tuple(range(s))
+        if _transposed(path, transposed):                 # ConvTranspose
+            flip = (slice(None),) * 2 + (slice(None, None, -1),) * s
+            return value.transpose(s, s + 1, *spatial)[flip]
+        return value.transpose(s + 1, s, *spatial)        # Conv -> O I ...
     raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
 
 
-def _to_flax_layout(path: list[str], value: np.ndarray) -> np.ndarray:
+def _to_flax_layout(path: list[str], value: np.ndarray,
+                    transposed=None) -> np.ndarray:
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:                                   # Dense
         return value.T
-    if value.ndim == 4 and path[-2] == "upconv":          # ConvTranspose
-        return value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-    if value.ndim == 4:                                   # Conv OIHW
-        return value.transpose(2, 3, 1, 0)
+    if value.ndim in (4, 5):
+        s = value.ndim - 2
+        spatial = tuple(range(2, 2 + s))
+        if _transposed(path, transposed):                 # ConvTranspose
+            flip = (slice(None),) * 2 + (slice(None, None, -1),) * s
+            return value[flip].transpose(*spatial, 0, 1)
+        return value.transpose(*spatial, 1, 0)            # Conv O I ... -> ... I O
     raise ValueError(f"unexpected weight rank at {'/'.join(path)}")
 
 
 _STATS = ("mean", "var")                  # batch-norm leaves of batch_stats
 
 
-def params_from_jax(tree: dict, dtype=np.float32) -> dict[str, torch.Tensor]:
+def params_from_jax(tree: dict, dtype=np.float32,
+                    model: nn.Module | None = None) -> dict[str, torch.Tensor]:
     """Flax variables (`{"params": ...}`, optionally with `"batch_stats"`,
     or a bare param tree) -> PyTorch state dict of the port's modules, in
-    `dtype` (None keeps each array's own)."""
+    `dtype` (None keeps each array's own). `model`, where given, says which
+    kernels are transposed convolutions."""
+    transposed = None if model is None else transposed_convs(model)
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         flat = flatten_params(tree["params"])
         flat.update(flatten_params(tree.get("batch_stats", {})))
@@ -109,14 +139,17 @@ def params_from_jax(tree: dict, dtype=np.float32) -> dict[str, torch.Tensor]:
         name = ".".join(path[:-1] + ["weight" if path[-1] == "kernel"
                                      else path[-1]])
         out[name] = torch.from_numpy(
-            np.array(_to_torch_layout(path, value, dtype), order="C"))
+            np.array(_to_torch_layout(path, value, dtype, transposed),
+                     order="C"))
     return out
 
 
-def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+def params_to_jax(state_dict: dict[str, torch.Tensor],
+                  model: nn.Module | None = None) -> dict:
     """PyTorch state dict of the port's modules -> flax variables
     `{"params": ...}`, with `"batch_stats"` where the modules keep running
-    statistics; the exact inverse of `params_from_jax`."""
+    statistics; the exact inverse of `params_from_jax` (`model` as there)."""
+    transposed = None if model is None else transposed_convs(model)
     params, stats = {}, {}
     for name, tensor in state_dict.items():
         path = name.split(".")
@@ -127,8 +160,8 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
         if path[-1] == "weight":
             path[-1] = "kernel"
         # a copy: a CPU tensor's .numpy() shares its memory
-        params["/".join(path)] = np.array(_to_flax_layout(path, value),
-                                          order="C")
+        params["/".join(path)] = np.array(
+            _to_flax_layout(path, value, transposed), order="C")
     out = {"params": unflatten_params(params)}
     if stats:
         out["batch_stats"] = unflatten_params(stats)
@@ -174,11 +207,14 @@ def adam_state_from_jax(opt_state: dict, model: torch.nn.Module,
     return {"state": state, "param_groups": optimizer_state["param_groups"]}
 
 
-def convonet_param_shapes(c_dim: int = 32,
-                          hidden_dim: int = 32) -> dict[str, tuple]:
-    """Flat '/'-keyed shapes of the flax ConvOccupancyNetwork's params
-    (plane type, 5 ResNet blocks each side, UNet of depth 4 with
-    start_filts = c_dim)."""
+def convonet_param_shapes(c_dim: int = 32, hidden_dim: int = 32,
+                          plane_type=("xz", "xy", "yz"),
+                          grid_resolution: int = 32,
+                          unet3d_depth: int = 3) -> dict[str, tuple]:
+    """Flat '/'-keyed shapes of the flax ConvOccupancyNetwork's params: 5
+    ResNet blocks each side, a UNet of depth 4 with start_filts = c_dim
+    where `plane_type` has a plane, a 3D UNet of depth `unet3d_depth` where
+    it has "grid" (`grid_resolution` changes no shape)."""
     h, c = hidden_dim, c_dim
     n_blocks, unet_depth = 5, 4
     shapes = {}
@@ -188,9 +224,24 @@ def convonet_param_shapes(c_dim: int = 32,
         if bias:
             shapes[f"{key}/bias"] = (fan_out,)
 
-    def conv(key, k, cin, cout):
-        shapes[f"{key}/kernel"] = (k, k, cin, cout)
+    def conv(key, k, cin, cout, dims=2):
+        shapes[f"{key}/kernel"] = (k,) * dims + (cin, cout)
         shapes[f"{key}/bias"] = (cout,)
+
+    def unet(key, depth, dims):
+        cin = c
+        for i in range(depth):
+            f = c * 2**i
+            conv(f"{key}/down_{i}/conv1", 3, cin, f, dims)
+            conv(f"{key}/down_{i}/conv2", 3, f, f, dims)
+            cin = f
+        for i in range(depth - 1):
+            f = c * 2 ** (depth - 2 - i)
+            conv(f"{key}/up_{i}/upconv", 2, cin, f, dims)
+            conv(f"{key}/up_{i}/conv1", 3, 2 * f, f, dims)
+            conv(f"{key}/up_{i}/conv2", 3, f, f, dims)
+            cin = f
+        conv(f"{key}/conv_final", 1, cin, c, dims)
 
     dense("encoder/fc_pos", 3, 2 * h)
     for i in range(n_blocks):
@@ -198,19 +249,10 @@ def convonet_param_shapes(c_dim: int = 32,
         dense(f"encoder/blocks_{i}/fc_1", h, h)
         dense(f"encoder/blocks_{i}/shortcut", 2 * h, h, bias=False)
     dense("encoder/fc_c", h, c)
-    cin = c
-    for i in range(unet_depth):
-        f = c * 2**i
-        conv(f"encoder/unet/down_{i}/conv1", 3, cin, f)
-        conv(f"encoder/unet/down_{i}/conv2", 3, f, f)
-        cin = f
-    for i in range(unet_depth - 1):
-        f = c * 2 ** (unet_depth - 2 - i)
-        conv(f"encoder/unet/up_{i}/upconv", 2, cin, f)
-        conv(f"encoder/unet/up_{i}/conv1", 3, 2 * f, f)
-        conv(f"encoder/unet/up_{i}/conv2", 3, f, f)
-        cin = f
-    conv("encoder/unet/conv_final", 1, cin, c)
+    if any(pl != "grid" for pl in plane_type):
+        unet("encoder/unet", unet_depth, 2)
+    if "grid" in plane_type:
+        unet("encoder/unet3d", unet3d_depth, 3)
     dense("decoder/fc_p", 3, h)
     for i in range(n_blocks):
         dense(f"decoder/fc_c_{i}", c, h)
@@ -220,12 +262,23 @@ def convonet_param_shapes(c_dim: int = 32,
     return shapes
 
 
+def pointconvonet_param_shapes(c_dim: int = 32,
+                               hidden_dim: int = 32) -> dict[str, tuple]:
+    """Flat '/'-keyed shapes of the flax PointConvONet's params, read off
+    the port's module."""
+    from if_defense_tpu_torch.implicit.pointnetpp_encoder import PointConvONet
+
+    tree = params_to_jax(PointConvONet(c_dim, hidden_dim).state_dict())
+    return {k: v.shape for k, v in flatten_params(tree["params"]).items()}
+
+
 def onet_param_shapes(c_dim: int = 512, hidden_dim: int = 512,
-                      decoder_hidden: int = 256) -> dict[str, tuple]:
-    """Flat '/'-keyed shapes of the flax OccupancyNetwork's variables
-    (z_dim 0), each key led by its collection: `params/...` and
-    `batch_stats/...` (the conditional batch norms' running mean and
-    variance)."""
+                      decoder_hidden: int = 256,
+                      z_dim: int = 0) -> dict[str, tuple]:
+    """Flat '/'-keyed shapes of the flax OccupancyNetwork's variables, each
+    key led by its collection: `params/...` and `batch_stats/...` (the
+    conditional batch norms' running mean and variance). z_dim > 0 adds
+    the decoder's `fc_z` and the posterior encoder `encoder_latent`."""
     h, H = hidden_dim, decoder_hidden
     shapes = {}
 
@@ -247,6 +300,8 @@ def onet_param_shapes(c_dim: int = 512, hidden_dim: int = 512,
         dense(f"encoder/block_{i}/shortcut", 2 * h, h, bias=False)
     dense("encoder/fc_c", h, c_dim)
     dense("decoder/fc_p", 3, H)
+    if z_dim:
+        dense("decoder/fc_z", z_dim, H)
     for i in range(5):
         cbn(f"decoder/block{i}/bn_0", H)
         dense(f"decoder/block{i}/fc_0", H, H)
@@ -254,6 +309,13 @@ def onet_param_shapes(c_dim: int = 512, hidden_dim: int = 512,
         dense(f"decoder/block{i}/fc_1", H, H)
     cbn("decoder/bn", H)
     dense("decoder/fc_out", H, 1)
+    if z_dim:
+        L = 128                                   # LatentEncoder's hidden
+        for key, fan_in in (("fc_0", 1), ("fc_pos", 3), ("fc_c", c_dim),
+                            ("fc_1", L), ("fc_2", 2 * L), ("fc_3", 2 * L)):
+            dense(f"encoder_latent/{key}", fan_in, L)
+        dense("encoder_latent/fc_mean", L, z_dim)
+        dense("encoder_latent/fc_logstd", L, z_dim)
     return shapes
 
 
@@ -279,20 +341,22 @@ def victim_param_shapes(name: str, **kwargs) -> dict[str, tuple]:
 
 
 def flax_init_params(seed: int, variant: str, **config) -> dict:
-    """Seeded flax-layout variables of `variant` ("convonet", "onet" or a
-    victim's name: "pointnet", "pointnet2", "dgcnn", "pointconv",
-    "rscnn"), numpy only, drawn as flax's `init` draws them (`jax.random`
+    """Seeded flax-layout variables of `variant` ("convonet", "onet",
+    "pointconvonet" or a victim's name: "pointnet", "pointnet2", "dgcnn",
+    "pointconv", "rscnn"), numpy only, drawn as flax's `init` draws them (`jax.random`
     itself cannot be reproduced): `lecun_normal` kernels (normal truncated
     to 2 std, variance 1/fan_in, fan_in the product of all but the last
     axis), zero biases, zero `fc_1` kernels, the conditional batch norms'
     `conv_gamma` kernel 0 with bias 1 and `conv_beta` 0, PointNet's STN's
     last Dense kernel 0 (`kernel_init=zeros`), batch-norm scales 1, and
     running means 0 and variances 1. `config` takes the arguments of
-    `convonet_param_shapes` or `onet_param_shapes`, or a victim's model
+    `convonet_param_shapes`, `onet_param_shapes` or
+    `pointconvonet_param_shapes`, or a victim's model
     arguments (`victim_param_shapes`)."""
-    if variant == "convonet":
-        shapes = {f"params/{k}": v
-                  for k, v in convonet_param_shapes(**config).items()}
+    if variant in ("convonet", "pointconvonet"):
+        fn = (convonet_param_shapes if variant == "convonet"
+              else pointconvonet_param_shapes)
+        shapes = {f"params/{k}": v for k, v in fn(**config).items()}
     elif variant == "onet":
         shapes = onet_param_shapes(**config)
     else:                         # a victim; build_model refuses other names

@@ -21,7 +21,14 @@ ragged N and S, at shapes where the kernel sets 1, 2, 4 and 8 warps on
 a group of centres, and at B = 65536; B2, B5 and B6 bit-identical from one launch
 to the next. B1-B3 also at k = 9, 16 and 33 (the threshold scan above the
 register top-k). The five victims on the card against their CPU path:
-logits within rtol 1e-3 and atol 1e-3 of the largest magnitude. FPS and
+logits within rtol 1e-3 and atol 1e-3 of the largest magnitude. B4's uv
+form (`plane_sample_cuda`) against `bilinear_plane_sample` with B4's
+tolerances, and both forms at channel counts that fill no 16-byte word
+(6 f32, 6 and 12 bf16). The grid ConvONet (encode, decode, gradient to p)
+on the card against its CPU path within 1e-4 of the largest magnitude
+(TF32 off; the 3D UNet's convolutions sum in other orders), the gradient
+to p at >= 99.9 % of its entries (a ReLU within rounding of its kink).
+FPS and
 ball query on bf16 points bit-equal to the plain versions on their f32
 upcast; PointNet with a bf16 trunk within 2 % of its f32 logits. One
 PointNet++ train step on the card launches B5 and B6 and matches the CPU
@@ -488,8 +495,6 @@ def test_cuda_wrappers_refuse(cuda):
     with pytest.raises(ValueError, match="shape"):
         plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 4, device=cuda),
                                 "xy": torch.zeros(1, 8, 4, 4, device=cuda)})
-    with pytest.raises(ValueError, match="multiple of 4"):
-        plane_features_cuda(p, {"xz": torch.zeros(1, 8, 8, 6, device=cuda)})
     with pytest.raises(ValueError, match="among"):
         plane_features_cuda(p, {"grid": torch.zeros(1, 8, 8, 4, device=cuda)})
     # no batch limit: B = 65536 clouds of 4 points, bit-equal
@@ -890,3 +895,125 @@ def test_cuda_b4_refuses_a_second_derivative(cuda):
     with pytest.raises(RuntimeError):
         g.refine_mesh(decode, model.to(cuda), _on(c1, cuda), verts,
                       tris[:50], steps=1)
+
+
+def _uv_inputs(cuda, seed, c, dtype, b=2, q=1000, res=64):
+    """A plane N(0, 1) [b, res, res, c], uv from [-0.1, 1.1]^2 (the clamp
+    holds about one coordinate in six), the cotangent N(0, 1)."""
+    rng = np.random.default_rng(seed)
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+
+    return (dev(rng.normal(size=(b, res, res, c))),
+            dev(rng.uniform(-0.1, 1.1, (b, q, 2))),
+            dev(rng.normal(size=(b, q, c))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [6, 32, 128])
+def test_cuda_plane_sample_uv_matches_plain(cuda, c, dtype):
+    """B4's uv form against `bilinear_plane_sample` on f32 copies, cast
+    once: forward bit-equal in f32, the gradient to uv rtol 1e-4 and the
+    plane's atol 1e-5 of the largest entry (sums in other orders), rtol
+    2^-7 in bf16; one launch each way, two launches give the same bits."""
+    from if_defense_tpu_torch.ops.cuda_interp import launches, plane_sample_cuda
+    from if_defense_tpu_torch.ops.interp import bilinear_plane_sample
+
+    plane, uv, g = _uv_inputs(cuda, c, c, dtype)
+
+    def run(fn):
+        u = uv.clone().requires_grad_(True)
+        pl = plane.clone().requires_grad_(True)
+        out = fn(pl, u)
+        du, dpl = torch.autograd.grad(out, [u, pl], g.to(out.dtype))
+        return out.detach(), du, dpl
+
+    def plain(pl, u):
+        return bilinear_plane_sample(pl.float(), u.float()).to(pl.dtype)
+
+    before = dict(launches)
+    got = run(plane_sample_cuda)
+    assert {k: launches[k] - before[k] for k in
+            ("plane_sample", "plane_sample_duv", "plane_sample_dplane")} == {
+        "plane_sample": 1, "plane_sample_duv": 1, "plane_sample_dplane": 1}
+    want = run(plain)
+    if dtype == torch.float32:
+        assert torch.equal(got[0], want[0])
+    for a, b, r in zip(got, want, (0.0, 1e-4, 0.0)):
+        assert a.dtype == dtype
+        _grad_close(a.cpu(), b.cpu(), r if dtype == torch.float32 else 2.0**-7)
+    assert torch.equal(got[1] == 0, want[1] == 0) and bool((want[1] == 0).any())
+    again = run(plane_sample_cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 6), (torch.bfloat16, 6),
+                                     (torch.bfloat16, 12)])
+def test_cuda_plane_features_any_channels(cuda, dtype, c):
+    """B4's p form at channel counts that fill no 16-byte word (the scalar
+    path): forward bit-equal in f32, the gradients as
+    `test_cuda_plane_gradient_matches_plain`."""
+    from if_defense_tpu_torch.ops.cuda_interp import plane_features_cuda
+
+    p, planes, g = _plane_inputs(cuda, 30 + c, 3, dtype, c=c)
+    got = _features(plane_features_cuda, p, planes, g, True, True)
+    want = _features(_plain_f32, p, planes, g, True, True)
+    if dtype == torch.float32:
+        assert torch.equal(got[0], want[0])
+    for i, (a, b) in enumerate(zip(got, want)):
+        rtol = (1e-4 if i == 1 else 0.0) if dtype == torch.float32 else 2.0**-7
+        _grad_close(a.cpu(), b.cpu(), rtol)
+    again = _features(plane_features_cuda, p, planes, g, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _off_cell_edges(rng, shape, reso, padding=0.1):
+    """Queries whose normalised coordinates (`normalize_3d_coordinate`)
+    lie at least 0.01 cell from every edge of a `reso`^3 volume and inside
+    its clamp: at an edge the trilinear sample's gradient jumps, and one
+    ulp of the normalisation (the card multiplies by the reciprocal, the
+    CPU divides) decides the side."""
+    # cells 0 .. reso - 3: the clamp's top, 1 - 1e-3, cuts the last cell
+    cell = rng.integers(0, reso - 2, shape) + rng.uniform(0.01, 0.99, shape)
+    u = cell / (reso - 1)
+    return ((u - 0.5) * (1 + padding + 1e-3)).astype(np.float32)
+
+
+def test_cuda_grid_decode_matches_cpu(cuda):
+    """The grid ConvONet at full width (c_dim 32, 32^3, 3D UNet depth 3)
+    on 2 clouds: the volume, the logits and their gradient to p on the
+    card against the CPU path, within 1e-4 of the largest magnitude (the
+    gradient: >= 99.9 % of its entries), at queries off the cells' edges
+    (`_off_cell_edges`)."""
+    from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+    from if_defense_tpu_torch.implicit.training import init_occupancy_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = ConvOccupancyNetwork(plane_type=("grid",))
+    init_occupancy_model(model, 0)
+    with torch.no_grad():
+        for t in model.parameters():             # off flax's zero fc_1
+            t.add_(0.05 * torch.randn_like(t))
+    model.eval()
+    rng = np.random.default_rng(5)
+    pc = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 600, 3)).astype(np.float32))
+    q = torch.from_numpy(_off_cell_edges(rng, (2, 2048, 3), 32))
+    out = {}
+    for d in ("cpu", cuda):
+        m = model.to(d)
+        with torch.no_grad():
+            c = m.encode_inputs(pc.to(d))
+        x = q.to(d).requires_grad_(True)
+        logits = m.decode(x, c)
+        (gx,) = torch.autograd.grad(logits.sum(), x)
+        out[str(d)] = [t.detach().cpu() for t in (c["grid"], logits, gx)]
+    (vol, logits, gx), (vol_c, logits_c, gx_c) = out[str(cuda)], out["cpu"]
+    for a, b in ((vol, vol_c), (logits, logits_c)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    # a decoder ReLU whose pre-activation lies within rounding of 0 passes
+    # its gradient on one device only: >= 99.9 % of the entries
+    near = (gx - gx_c).abs() <= 1e-4 * float(gx_c.abs().max())
+    assert float(near.float().mean()) >= 0.999, float(near.float().mean())
