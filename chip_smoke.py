@@ -753,7 +753,8 @@ def check_small_path(dev) -> None:
     )
 
     cfg = dict(c_dim=16, hidden_dim=16, plane_resolution=32)
-    sd = params_from_jax(init_params(3, c_dim=16, hidden_dim=16))
+    sd = params_from_jax(init_params(3, c_dim=16, hidden_dim=16),
+                         ConvOccupancyNetwork(**cfg))
     gen = np.random.default_rng(3)
     pc = gen.normal(size=(2, 512, 3)).astype(np.float32) * 0.3
     sel = gen.uniform(-0.4, 0.4, (2, 128, 3)).astype(np.float32)
@@ -1064,7 +1065,7 @@ def load_punet(device):
 
     dup = DUPNet(npoint=1024, up_ratio=4)
     dup.pu_net.load_state_dict(
-        params_from_jax(load_params_npz(DEFAULT_PUNET_WEIGHTS)))
+        params_from_jax(load_params_npz(DEFAULT_PUNET_WEIGHTS), dup.pu_net))
     return dup.to(device).eval()
 
 
@@ -1404,7 +1405,7 @@ def check_small_training(dev, occ_npz: str) -> None:
         for d in ("cpu", dev):
             model = make()
             model.load_state_dict(params_from_jax(
-                perturbed(init_occupancy_model(model, 0), 1)))
+                perturbed(init_occupancy_model(model, 0), 1), model))
             model.to(d)
             _, step = make_occupancy_train_step(model, 1e-4)
             losses = []
@@ -1468,7 +1469,8 @@ def run_train_cli(tmp: str, occ_npz: str, variant: str, tag: str) -> dict:
         records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records]
     model = ConvOccupancyNetwork() if variant == "convonet" else OccupancyNetwork()
-    model.load_state_dict(params_from_jax(load_params_npz(path)), strict=True)
+    model.load_state_dict(params_from_jax(load_params_npz(path), model),
+                          strict=True)
     rate = records[-1]["steps_per_sec"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {variant} {tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -1541,7 +1543,8 @@ def check_small_onet_opt(dev) -> None:
     )
 
     sd = params_from_jax(perturbed(flax_init_params(
-        3, "onet", c_dim=32, hidden_dim=32, decoder_hidden=16), 4))
+        3, "onet", c_dim=32, hidden_dim=32, decoder_hidden=16), 4),
+        OccupancyNetwork(32, 32, 16))
     gen = np.random.default_rng(5)
     pc = gen.normal(size=(2, 512, 3)).astype(np.float32) * 0.3
     sel = gen.uniform(-0.4, 0.4, (2, 128, 3)).astype(np.float32)
@@ -1632,7 +1635,7 @@ def run_inference(dev, tmp: str) -> tuple[dict, dict]:
     for name in VICTIMS:
         model = seeded_victim(name, dev, clouds[:VICTIM_B])
         ckpt = save_eval_checkpoint(os.path.join(tmp, f"{name}.npz"),
-                                    params_to_jax(model.state_dict()),
+                                    params_to_jax(model.state_dict(), model),
                                     {"model": name})
         del model
         argv = ["--data", data, "--checkpoint", ckpt, "--batch_size",
@@ -2145,9 +2148,9 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
     ckpt = {}
     for name in ("pointnet2", "dgcnn"):
         model = seeded_victim(name, dev, calib)
-        ckpt[name] = save_eval_checkpoint(os.path.join(tmp, f"{name}.npz"),
-                                          params_to_jax(model.state_dict()),
-                                          {"model": name})
+        ckpt[name] = save_eval_checkpoint(
+            os.path.join(tmp, f"{name}.npz"),
+            params_to_jax(model.state_dict(), model), {"model": name})
         del model
 
     def argv(attack, victim, src, out, extra):
@@ -2332,7 +2335,8 @@ def check_small_victim_training(dev) -> None:
         0, 40, b * steps))
     for name, kw in TRAIN_VICTIMS:
         tag = name + (" (feature transform)" if kw else "")
-        weights = params_from_jax(flax_init_params(0, name, **kw))
+        weights = params_from_jax(flax_init_params(0, name, **kw),
+                                  build_model(name, **kw))
         cpu, card = (create_train_state(
             build_model(name, **kw).to(where), total_epochs=1,
             steps_per_epoch=steps) for where in ("cpu", dev))
@@ -3108,11 +3112,13 @@ def grid_training(dev, occ_npz: str):
     `make_occupancy_train_step` at lr `TRAIN_LR` on phase 10's batch (32
     shapes x 2048 queries, 600 input points) of its occupancy npz,
     deterministic algorithms off (max_pool3d's CUDA backward has no
-    deterministic form). Step 1 first on the CPU and the card from the same
-    weights on 2 of the shapes: loss rtol 1e-5, the decoder's gradients
-    rtol 1e-4 and atol 1e-4 of each tensor's largest (phase 9's bounds),
-    the encoder's at cosine >= ENCODER_COS (the 3D UNet's convolutions sum
-    in cuDNN's order; the trilinear volume gradient adds with atomics);
+    deterministic form). Step 1 first on the CPU and twice on the card from
+    the same weights on 2 of the shapes: loss rtol 1e-5, the decoder's
+    gradients rtol 1e-4 and atol 1e-4 of each tensor's largest (phase 9's
+    bounds), the encoder's at cosine >= ENCODER_COS (the 3D UNet's
+    convolutions sum in cuDNN's order; the trilinear volume gradient adds
+    with atomics); the two card runs' gap is printed beside the gap to the
+    CPU, to tell the card's run-to-run order from its algorithms' order;
     the weights perturbed for that step as phase 9's (flax's zero biases
     put pre-activations at ReLU's kink).
     -> (model on the card, rate)."""
@@ -3130,38 +3136,56 @@ def grid_training(dev, occ_npz: str):
     small = OccupancyBatchSampler(*arrays, pointcloud_n=600,
                                   points_subsample=TQ, seed=1).sample(2)
     runs = []
-    for d in ("cpu", dev):
+    for d in ("cpu", dev, dev):
         model = ConvOccupancyNetwork(plane_type=("grid",))
         model.load_state_dict(params_from_jax(
-            perturbed(init_occupancy_model(model, 0), 1), model=model))
+            perturbed(init_occupancy_model(model, 0), 1), model))
         model.to(d)
         _, step = make_occupancy_train_step(model, TRAIN_LR)
         loss = float(step(*(torch.from_numpy(a).to(d) for a in small))["loss"])
         runs.append((loss, {n: p.grad.detach().cpu()
                             for n, p in model.named_parameters()}))
-    (lc, gc), (lg, gg) = runs
+
+    def gap(got: dict, ref: dict):
+        """(the decoder's worst error / bound, the encoder's least cosine,
+        [(error / bound, cosine, name, entries past the bound, entries)])
+        of `got`'s gradients to `ref`'s."""
+        worst, cos_min, table = 0.0, 1.0, []
+        for n, r in ref.items():
+            a = got[n]
+            over = (a - r).abs() / (1e-4 * float(r.abs().max())
+                                    + 1e-4 * r.abs() + 1e-30)
+            err = float(over.max())
+            cos = float(torch.nn.functional.cosine_similarity(
+                a.flatten().double(), r.flatten().double(), 0))
+            table.append((err, cos, n, int((over > 1).sum()), over.numel()))
+            if n.startswith("decoder."):
+                worst = max(worst, err)
+            else:
+                cos_min = min(cos_min, cos)
+        return worst, cos_min, table
+
     # the decoder's gradients to phase 9's bounds; the encoder's pass
     # through the 3D UNet, whose cuDNN convolutions reduce over 2 x 32^3
     # positions and 27 taps in their own order (a step's worst entry was
     # 3e-3 of its tensor's largest, in the 8^3 x 128-channel bottom level),
     # in direction, to ENCODER_COS
-    worst, cos_min, table = 0.0, 1.0, []
-    for n, r in gc.items():
-        a = gg[n]
-        err = float(((a - r).abs() / (1e-4 * float(r.abs().max())
-                                      + 1e-4 * r.abs() + 1e-30)).max())
-        cos = float(torch.nn.functional.cosine_similarity(
-            a.flatten().double(), r.flatten().double(), 0))
-        table.append((err, cos, n))
-        if n.startswith("decoder."):
-            worst = max(worst, err)
-        else:
-            cos_min = min(cos_min, cos)
-    for err, cos, n in sorted(table, reverse=True)[:3]:
-        print(f"    {n}: error / bound {err:.3f}, cosine {cos:.7f}")
+    (lc, gc), (lg, gg), (lg2, gg2) = runs
+    worst, cos_min, table = gap(gg, gc)
+    for err, cos, n, past, size in sorted(table, reverse=True)[:3]:
+        print(f"    {n}: error / bound {err:.3f} ({past} of {size} entries "
+              f"past it), cosine {cos:.7f}")
     print(f"  step 1 on 2 shapes: loss CPU {lc:.6f}, card {lg:.6f}; the "
           f"decoder's gradients worst error / bound {worst:.3f}, the "
           f"encoder's cosine >= {cos_min:.7f}")
+    worst2, cos_min2, table2 = gap(gg2, gg)
+    same = sum(torch.equal(gg2[n], gg[n]) for n in gg)
+    print(f"  the card's second step 1 against its first: loss {lg2:.6f}, "
+          f"{same} of {len(gg)} gradients bit-equal; the decoder's worst "
+          f"error / bound {worst2:.3f}, the encoder's cosine >= "
+          f"{cos_min2:.7f}; largest: " + ", ".join(
+              f"{n} {err:.3f}" for err, _, n, _, _ in
+              sorted(table2, reverse=True)[:3]))
     if abs(lg - lc) > 1e-5 * abs(lc) or worst > 1 or cos_min < ENCODER_COS:
         fail("grid ConvONet step 1 on the card disagrees with the CPU")
 

@@ -68,7 +68,7 @@ def build_defense_fn(name: str, args, device: torch.device):
         dup = DUPNet(sor_k=args.sor_k, sor_alpha=args.sor_alpha,
                      npoint=args.npoint, up_ratio=4)
         dup.pu_net.load_state_dict(
-            params_from_jax(load_params_npz(args.punet_weights)))
+            params_from_jax(load_params_npz(args.punet_weights), dup.pu_net))
         dup.to(device).eval()
         return dup
     raise ValueError(name)

@@ -93,7 +93,7 @@ def load_eval_model(checkpoint: str, model_name: str | None = None,
     if "STN_1" in raw["params"].get("PointNetFeat_0", {}):
         kwargs["feature_transform"] = True
     model = build_model(str(name), **kwargs)
-    model.load_state_dict(params_from_jax(raw), strict=True)
+    model.load_state_dict(params_from_jax(raw, model), strict=True)
     return model.eval(), meta
 
 

@@ -93,7 +93,8 @@ def build_defend_fn(args, device: torch.device):
                      rep_graph_cache=args.rep_graph_cache)
     else:
         model, make, extra = OccupancyNetwork(), onet_opt_defense, {}
-    model.load_state_dict(params_from_jax(load_params_npz(args.weights)))
+    model.load_state_dict(
+        params_from_jax(load_params_npz(args.weights), model))
     model.to(device).eval()
     return make(
         model,

@@ -131,7 +131,8 @@ def build_model(args, device: torch.device):
         model, input_n = OccupancyNetwork(), args.input_npoint or 300
     else:
         model, input_n = ConvOccupancyNetwork(), args.input_npoint or 600
-    model.load_state_dict(params_from_jax(load_params_npz(args.weights)))
+    model.load_state_dict(
+        params_from_jax(load_params_npz(args.weights), model))
     return model.to(device).eval().requires_grad_(False), input_n
 
 

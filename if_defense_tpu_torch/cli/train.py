@@ -134,7 +134,8 @@ def main(argv=None):
               if args.model == "pointnet" else {})
     model = build_model(args.model, **kwargs)
     model.load_state_dict(params_from_jax(
-        initial_variables(args.model, args.seed, **kwargs)), strict=True)
+        initial_variables(args.model, args.seed, **kwargs), model),
+        strict=True)
     model.to(device)
     state = create_train_state(
         model, learning_rate=args.lr, weight_decay=args.weight_decay,

@@ -99,7 +99,7 @@ def main(argv=None):
                           steps_per_sec=step / (time.time() - t0))
         if step % args.save_every == 0 or step == args.steps:
             save_params_npz(args.output + ".npz",
-                            params_to_jax(model.state_dict()))
+                            params_to_jax(model.state_dict(), model))
     print(f"weights saved to {args.output}.npz")
     return args.output + ".npz"
 

@@ -46,7 +46,8 @@ class DUPNet(nn.Module):
 
     Usage:
         dup = DUPNet(sor_k=2, sor_alpha=1.1, npoint=1024, up_ratio=4)
-        dup.pu_net.load_state_dict(params_from_jax(load_params_npz(path)))
+        dup.pu_net.load_state_dict(
+            params_from_jax(load_params_npz(path), dup.pu_net))
         out = dup(pc, generator)   # [B, npoint * up_ratio, 3]
     """
 

@@ -283,15 +283,13 @@ class ConvOccupancyNetwork(nn.Module):
 
     def __init__(self, c_dim: int = 32, hidden_dim: int = 32,
                  plane_resolution: int = 64, padding: float = 0.1,
-                 plane_type=PLANES, grid_resolution: int = 32,
-                 unet3d_depth: int = 3):
+                 plane_type=PLANES, grid_resolution: int = 32):
         super().__init__()
         self.padding = padding
         self.plane_type = tuple(plane_type)
         self.encoder = LocalPoolPointnet(
             c_dim, hidden_dim, plane_resolution, padding,
-            plane_type=plane_type, grid_resolution=grid_resolution,
-            unet3d_depth=unet3d_depth)
+            plane_type=plane_type, grid_resolution=grid_resolution)
         self.decoder = LocalDecoder(c_dim, hidden_dim, padding=padding)
 
     def encode_inputs(self, pc: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -123,5 +123,5 @@ def init_occupancy_model(model: torch.nn.Module, seed: int) -> dict:
             hidden_dim=model.decoder.fc_p.out_features)
     else:
         raise TypeError(f"not an occupancy network: {type(model).__name__}")
-    model.load_state_dict(params_from_jax(variables, model=model), strict=True)
+    model.load_state_dict(params_from_jax(variables, model), strict=True)
     return variables

@@ -139,7 +139,7 @@ def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
 def eval_variables(state: TrainState) -> dict:
     """The eval variables of a `TrainState` in the flax layout:
     {"params": ..., "batch_stats": ...} (numpy trees)."""
-    return params_to_jax(state.model.state_dict())
+    return params_to_jax(state.model.state_dict(), state.model)
 
 
 @dataclasses.dataclass

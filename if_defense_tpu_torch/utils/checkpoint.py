@@ -90,8 +90,9 @@ def save_checkpoint(path: str, state, metadata: dict | None = None) -> str:
     the optimiser's sidecar `<npz>.opt.npz` (Adam's count and moments in
     the flax layout, and the step), both npz uncompressed. -> the npz's
     path."""
-    path = save_eval_checkpoint(path, params_to_jax(state.model.state_dict()),
-                                metadata, compress=False)
+    path = save_eval_checkpoint(
+        path, params_to_jax(state.model.state_dict(), state.model), metadata,
+        compress=False)
     save_params_npz(path + OPT_SUFFIX, {
         "opt_state": adam_state_to_jax(state.optimizer.state_dict(),
                                        state.model),
@@ -107,7 +108,7 @@ def restore_checkpoint(path: str, state) -> tuple:
     path = npz_path(path)
     raw = restore_checkpoint_raw(path)
     meta = raw.pop("metadata")
-    state.model.load_state_dict(params_from_jax(raw), strict=True)
+    state.model.load_state_dict(params_from_jax(raw, state.model), strict=True)
     if not os.path.exists(path + OPT_SUFFIX):
         raise ValueError(f"{path}: no optimiser state ({path}{OPT_SUFFIX}); "
                          "an eval checkpoint cannot be resumed")

@@ -10,9 +10,8 @@ submodule names follow the flax names. It inverts
   kh, kw]`;
 - ConvTranspose kernel `[kh, kw, in, out]` -> `[in, out, kh, kw]` (and its
   3-D form), with the spatial flip that the converter applies undone. A
-  kernel is transposed where the module is (`transposed_convs(model)`);
-  without a model, where the module's name is one the port gives its
-  transposed convolutions (`upconv`, `convtrp_<i>`);
+  kernel is transposed where the module that holds it is
+  (`transposed_convs(model)`), whatever its name;
 - the `batch_stats` collection (ONet's batch norms: `mean`, `var`) -> the
   running buffers of the same names and paths.
 `params_to_jax` is its exact inverse, so weights trained by the port save
@@ -77,16 +76,8 @@ def transposed_convs(model: nn.Module) -> set[str]:
             if isinstance(m, nn.modules.conv._ConvTransposeNd)}
 
 
-def _transposed(path: list[str], transposed) -> bool:
-    module = path[:-1]
-    if transposed is not None:
-        return "/".join(module) in transposed
-    return bool(module) and (module[-1] == "upconv"
-                             or module[-1].startswith("convtrp_"))
-
-
-def _to_torch_layout(path: list[str], value: np.ndarray,
-                     dtype=np.float32, transposed=None) -> np.ndarray:
+def _to_torch_layout(path: list[str], value: np.ndarray, dtype,
+                     transposed: set[str]) -> np.ndarray:
     value = np.asarray(value, dtype=dtype)
     if path[-1] != "kernel":
         return value
@@ -95,7 +86,7 @@ def _to_torch_layout(path: list[str], value: np.ndarray,
     if value.ndim in (4, 5):
         s = value.ndim - 2                                # spatial axes
         spatial = tuple(range(s))
-        if _transposed(path, transposed):                 # ConvTranspose
+        if "/".join(path[:-1]) in transposed:     # ConvTranspose
             flip = (slice(None),) * 2 + (slice(None, None, -1),) * s
             return value.transpose(s, s + 1, *spatial)[flip]
         return value.transpose(s + 1, s, *spatial)        # Conv -> O I ...
@@ -103,7 +94,7 @@ def _to_torch_layout(path: list[str], value: np.ndarray,
 
 
 def _to_flax_layout(path: list[str], value: np.ndarray,
-                    transposed=None) -> np.ndarray:
+                    transposed: set[str]) -> np.ndarray:
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:                                   # Dense
@@ -111,7 +102,7 @@ def _to_flax_layout(path: list[str], value: np.ndarray,
     if value.ndim in (4, 5):
         s = value.ndim - 2
         spatial = tuple(range(2, 2 + s))
-        if _transposed(path, transposed):                 # ConvTranspose
+        if "/".join(path[:-1]) in transposed:     # ConvTranspose
             flip = (slice(None),) * 2 + (slice(None, None, -1),) * s
             return value[flip].transpose(*spatial, 0, 1)
         return value.transpose(*spatial, 1, 0)            # Conv O I ... -> ... I O
@@ -121,13 +112,13 @@ def _to_flax_layout(path: list[str], value: np.ndarray,
 _STATS = ("mean", "var")                  # batch-norm leaves of batch_stats
 
 
-def params_from_jax(tree: dict, dtype=np.float32,
-                    model: nn.Module | None = None) -> dict[str, torch.Tensor]:
+def params_from_jax(tree: dict, model: nn.Module,
+                    dtype=np.float32) -> dict[str, torch.Tensor]:
     """Flax variables (`{"params": ...}`, optionally with `"batch_stats"`,
-    or a bare param tree) -> PyTorch state dict of the port's modules, in
-    `dtype` (None keeps each array's own). `model`, where given, says which
-    kernels are transposed convolutions."""
-    transposed = None if model is None else transposed_convs(model)
+    or a bare param tree) -> PyTorch state dict of `model`, the port module
+    whose tree it is (it says which kernels are transposed convolutions),
+    in `dtype` (None keeps each array's own)."""
+    transposed = transposed_convs(model)
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         flat = flatten_params(tree["params"])
         flat.update(flatten_params(tree.get("batch_stats", {})))
@@ -145,11 +136,12 @@ def params_from_jax(tree: dict, dtype=np.float32,
 
 
 def params_to_jax(state_dict: dict[str, torch.Tensor],
-                  model: nn.Module | None = None) -> dict:
-    """PyTorch state dict of the port's modules -> flax variables
-    `{"params": ...}`, with `"batch_stats"` where the modules keep running
-    statistics; the exact inverse of `params_from_jax` (`model` as there)."""
-    transposed = None if model is None else transposed_convs(model)
+                  model: nn.Module) -> dict:
+    """PyTorch state dict of `model` (or tensors under its parameters'
+    names) -> flax variables `{"params": ...}`, with `"batch_stats"` where
+    the modules keep running statistics; the exact inverse of
+    `params_from_jax`."""
+    transposed = transposed_convs(model)
     params, stats = {}, {}
     for name, tensor in state_dict.items():
         path = name.split(".")
@@ -180,7 +172,7 @@ def adam_state_to_jax(optimizer_state: dict, model: torch.nn.Module) -> dict:
         out[key] = params_to_jax({
             n: state[i][moment] if i in state else torch.zeros_like(p)
             for i, (n, p) in enumerate(model.named_parameters())
-        })["params"]
+        }, model)["params"]
     return out
 
 
@@ -191,8 +183,8 @@ def adam_state_from_jax(opt_state: dict, model: torch.nn.Module,
     `model.parameters()`, with `optimizer_state`'s param groups (rate,
     betas, eps, weight decay), to pass to `optimizer.load_state_dict`."""
     count = float(np.asarray(opt_state["count"]))
-    mu = params_from_jax({"params": opt_state["mu"]}, dtype=None)
-    nu = params_from_jax({"params": opt_state["nu"]}, dtype=None)
+    mu = params_from_jax({"params": opt_state["mu"]}, model, dtype=None)
+    nu = params_from_jax({"params": opt_state["nu"]}, model, dtype=None)
     names = {n for n, _ in model.named_parameters()}
     if set(mu) != names or set(nu) != names:
         raise ValueError("Adam moments hold other parameters than the model")
@@ -268,7 +260,8 @@ def pointconvonet_param_shapes(c_dim: int = 32,
     the port's module."""
     from if_defense_tpu_torch.implicit.pointnetpp_encoder import PointConvONet
 
-    tree = params_to_jax(PointConvONet(c_dim, hidden_dim).state_dict())
+    model = PointConvONet(c_dim, hidden_dim)
+    tree = params_to_jax(model.state_dict(), model)
     return {k: v.shape for k, v in flatten_params(tree["params"]).items()}
 
 
@@ -336,7 +329,8 @@ def victim_param_shapes(name: str, **kwargs) -> dict[str, tuple]:
     `models.build_model` (e.g. `feature_transform`)."""
     from if_defense_tpu_torch.models import build_model
 
-    tree = params_to_jax(build_model(name, **kwargs).state_dict())
+    model = build_model(name, **kwargs)
+    tree = params_to_jax(model.state_dict(), model)
     return {k: v.shape for k, v in flatten_params(tree).items()}
 
 

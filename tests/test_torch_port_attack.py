@@ -375,7 +375,7 @@ def pointnet_victims(seed=0, b=2, n=64):
     variables = perturbed(jm.init(
         jax.random.key(seed), jnp.asarray(pc), train=False), seed)
     model = build_model("pointnet", num_classes=4)
-    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.load_state_dict(params_from_jax(variables, model), strict=True)
     model.eval()
 
     def jlogits(p, mask=None):

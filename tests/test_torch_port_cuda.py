@@ -664,7 +664,8 @@ def test_cuda_pointnet2_train_step_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     pc, _ = _victim_clouds(4, 1024, 5)
     label = torch.tensor([3, 17, 17, 38])
-    weights = params_from_jax(flax_init_params(0, "pointnet2"))
+    weights = params_from_jax(flax_init_params(0, "pointnet2"),
+                              build_model("pointnet2"))
     models, losses = [], []
     masks, draw = [], generator_draw(torch.Generator().manual_seed(6))
 
@@ -740,7 +741,7 @@ def _mesh_model(variant, seed=0):
             for k, v in flatten_params(flax_init_params(seed, variant)).items()}
     model = ConvOccupancyNetwork() if variant == "convonet" else \
         OccupancyNetwork()
-    model.load_state_dict(params_from_jax(unflatten_params(flat)))
+    model.load_state_dict(params_from_jax(unflatten_params(flat), model))
     model.eval().requires_grad_(False)
     pc = torch.from_numpy(_mesh_clouds())
     with torch.no_grad():

@@ -114,7 +114,7 @@ def test_opt_defense_matches_jax(mode, monkeypatch):
     draws = tuple(torch.from_numpy(np.array(a))
                   for a in _jax_draws(jnp.asarray(pc), key))
     model = ConvOccupancyNetwork(C, C, RES)
-    model.load_state_dict(params_from_jax(variables))
+    model.load_state_dict(params_from_jax(variables, model))
     stats = {}
     got = convonet_opt_defense(model, **kwargs)(
         torch.from_numpy(pc), draws=draws, stats=stats).numpy()
@@ -144,7 +144,7 @@ def test_onet_opt_defense_matches_jax(monkeypatch):
     draws = tuple(torch.from_numpy(np.array(a))
                   for a in _jax_draws(jnp.asarray(pc), key))
     model = OccupancyNetwork(32, 32, 16)
-    model.load_state_dict(params_from_jax(variables))
+    model.load_state_dict(params_from_jax(variables, model))
     stats = {}
     got = onet_opt_defense(model.train(), **kwargs)(
         torch.from_numpy(pc), draws=draws, stats=stats).numpy()
@@ -185,7 +185,7 @@ def test_opt_defense_above_4096_points():
         np.float32)
     model = ConvOccupancyNetwork(C, C, RES)
     model.load_state_dict(params_from_jax(init_params(0, c_dim=C,
-                                                      hidden_dim=C)))
+                                                      hidden_dim=C), model))
     defend = convonet_opt_defense(model, iterations=2, input_npoint=INP,
                                   sample_npoint=4200)
     out = defend(torch.from_numpy(pc),
@@ -199,7 +199,7 @@ def test_generator_draws_are_seeded():
     the same seed gives the same restoration."""
     pc, variables = _setup()
     model = ConvOccupancyNetwork(C, C, RES)
-    model.load_state_dict(params_from_jax(variables))
+    model.load_state_dict(params_from_jax(variables, model))
     defend = convonet_opt_defense(model, iterations=2, input_npoint=INP,
                                   sample_npoint=SAMP)
     outs = [defend(torch.from_numpy(pc),

@@ -85,7 +85,8 @@ def _mask(b=4, n=256, seed=1):
 
 @functools.lru_cache(maxsize=1)
 def _weights():
-    return jax_load_params(WEIGHTS), params_from_jax(load_params_npz(WEIGHTS))
+    return jax_load_params(WEIGHTS), params_from_jax(load_params_npz(WEIGHTS),
+                                                     PUNet())
 
 
 def _t(a):

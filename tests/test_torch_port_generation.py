@@ -90,7 +90,7 @@ def _setup(variant: str):
     variables = unflatten_params(flat)
     tm = ConvOccupancyNetwork(C, C, RES) if variant == "convonet" else \
         OccupancyNetwork(32, 32, 16)
-    tm.load_state_dict(params_from_jax(variables))
+    tm.load_state_dict(params_from_jax(variables, tm))
     tm.eval().requires_grad_(False)
     jc = jm.apply(variables, jnp.asarray(pc), method="encode_inputs")
     with torch.no_grad():

@@ -83,8 +83,8 @@ def _load_perturbed(tm):
     as flax variables (which the JAX module then takes by name)."""
     torch.manual_seed(0)
     v = unflatten_params(_perturb(flatten_params(
-        params_to_jax(tm.state_dict(), model=tm)), 1))
-    tm.load_state_dict(params_from_jax(v, model=tm), strict=True)
+        params_to_jax(tm.state_dict(), tm)), 1))
+    tm.load_state_dict(params_from_jax(v, tm), strict=True)
     return v
 
 
@@ -120,7 +120,7 @@ def _model(plane_type: tuple, surface: bool = False):
     v = unflatten_params(flat)
     tm = ConvOccupancyNetwork(C, C, RES, plane_type=plane_type,
                               grid_resolution=RG)
-    tm.load_state_dict(params_from_jax(v, model=tm), strict=True)
+    tm.load_state_dict(params_from_jax(v, tm), strict=True)
     return jm, v, tm.eval()
 
 
@@ -304,8 +304,9 @@ def test_positional_encoding_and_map2local():
 
 
 def test_init_occupancy_model_follows_the_grid():
-    tm = ConvOccupancyNetwork(C, C, RES, plane_type=MIXED, grid_resolution=RG,
-                              unet3d_depth=2)
+    tm = ConvOccupancyNetwork(C, C, RES, plane_type=MIXED, grid_resolution=RG)
+    tm.encoder = LocalPoolPointnet(C, C, RES, plane_type=MIXED,
+                                   grid_resolution=RG, unet3d_depth=2)
     variables = init_occupancy_model(tm, 0)
     keys = set(flatten_params(variables))
     assert "params/encoder/unet3d/up_0/upconv/kernel" in keys

@@ -94,9 +94,9 @@ def test_params_from_jax_loads_every_key(tmp_path):
     tree = _flax_params()
     path = str(tmp_path / "w.npz")
     save_params_npz(path, tree)
-    sd = params_from_jax(load_params_npz(path))
-    missing, unexpected = ConvOccupancyNetwork().load_state_dict(
-        sd, strict=True)
+    model = ConvOccupancyNetwork()
+    sd = params_from_jax(load_params_npz(path), model)
+    missing, unexpected = model.load_state_dict(sd, strict=True)
     assert not missing and not unexpected
     assert len(sd) == len(flatten_params(tree))
 

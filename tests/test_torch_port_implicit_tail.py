@@ -65,7 +65,7 @@ def _load_perturbed(tm, seed=1):
     torch.manual_seed(0)
     rng = np.random.default_rng(seed)
     flat = {}
-    for k, v in flatten_params(params_to_jax(tm.state_dict(), model=tm)).items():
+    for k, v in flatten_params(params_to_jax(tm.state_dict(), tm)).items():
         n = rng.normal(size=v.shape)
         if k.endswith("/var"):
             v = v * np.exp(0.2 * n)
@@ -74,7 +74,7 @@ def _load_perturbed(tm, seed=1):
                      else 0.05) * n
         flat[k] = v.astype(np.float32)
     variables = unflatten_params(flat)
-    tm.load_state_dict(params_from_jax(variables, model=tm), strict=True)
+    tm.load_state_dict(params_from_jax(variables, tm), strict=True)
     return variables
 
 
@@ -164,7 +164,7 @@ def test_registry_decoder(name, train):
     _close(tp.grad, jgrad)
     if train and name != "simple":
         moved = flatten_params(jax.tree_util.tree_map(np.asarray, stats))
-        ours = flatten_params(params_to_jax(tm.state_dict(), model=tm))
+        ours = flatten_params(params_to_jax(tm.state_dict(), tm))
         assert moved
         for k, a in moved.items():
             _close(ours[k], a)
@@ -289,33 +289,44 @@ def test_feature_decoder(c_dim):
 
 
 def test_params_round_trip_rank5_and_transposed():
-    """params_to_jax(params_from_jax(v)) == v for rank-5 Conv and
-    ConvTranspose kernels (`upconv`, `convtrp_<i>`), with the module
-    deciding which kernels are transposed and with the name rule alone; the
-    two agree on every port module with a transposed convolution."""
-    flat = flatten_params(flax_init_params(
-        0, "convonet", c_dim=C, hidden_dim=C, plane_type=("xz", "grid")))
-    vox = VoxelDecoder(Z, C, H)
-    flat.update({f"params/vox/{k}": a for k, a in flatten_params(
-        params_to_jax(vox.state_dict(), model=vox)["params"]).items()})
+    """params_to_jax(params_from_jax(v, m), m) == v for rank-5 Conv and
+    ConvTranspose kernels (the grid ConvONet's `upconv`, VoxelDecoder's
+    `convtrp_<i>`); a kernel is transposed where its module is, whatever
+    the module's name."""
     rng = np.random.default_rng(22)
-    flat = {k: rng.normal(size=a.shape).astype(np.float32)
-            for k, a in flat.items()}
-    assert any(a.ndim == 5 and "/upconv/" in k for k, a in flat.items())
-    assert any(a.ndim == 5 and "/convtrp_" in k for k, a in flat.items())
-    tree = unflatten_params(flat)
-    back = flatten_params(params_to_jax(params_from_jax(tree)))
-    assert set(back) == set(flat)
-    for k, a in flat.items():
-        np.testing.assert_array_equal(back[k], a)
-    for model in (ConvOccupancyNetwork(C, C, 16, plane_type=("xz", "grid")),
-                  VoxelDecoder(Z, C, H), UNet2D(C, 3, C), UNet3D(C, 2, C)):
-        names = {k for k in flatten_params(params_to_jax(model.state_dict(),
-                                                         model=model)["params"])
-                 if k.endswith("/kernel")
-                 and params_io._transposed(k.split("/"), None)}
-        assert {n.rsplit("/", 1)[0] for n in names} == \
-            params_io.transposed_convs(model)
+    vox = VoxelDecoder(Z, C, H)
+    for model, flat in (
+            (ConvOccupancyNetwork(C, C, 16, plane_type=("xz", "grid")),
+             flatten_params(flax_init_params(0, "convonet", c_dim=C,
+                                             hidden_dim=C,
+                                             plane_type=("xz", "grid")))),
+            (vox, flatten_params(params_to_jax(vox.state_dict(), vox)))):
+        flat = {k: rng.normal(size=a.shape).astype(np.float32)
+                for k, a in flat.items()}
+        assert any(a.ndim == 5 and ("/upconv/" in k or "/convtrp_" in k)
+                   for k, a in flat.items())
+        back = flatten_params(params_to_jax(
+            params_from_jax(unflatten_params(flat), model), model))
+        assert set(back) == set(flat)
+        for k, a in flat.items():
+            np.testing.assert_array_equal(back[k], a)
+    # names that would mislead a rule by name: a Conv3d named `upconv`, a
+    # ConvTranspose3d named `a`
+    named = torch.nn.Module()
+    named.upconv = torch.nn.Conv3d(2, 3, 2)
+    named.a = torch.nn.ConvTranspose3d(2, 3, 2)
+    assert params_io.transposed_convs(named) == {"a"}
+    tree = params_to_jax(named.state_dict(), named)["params"]
+    conv = named.upconv.weight.detach().numpy()
+    trp = named.a.weight.detach().numpy()
+    np.testing.assert_array_equal(tree["upconv"]["kernel"],
+                                  conv.transpose(2, 3, 4, 1, 0))
+    np.testing.assert_array_equal(
+        tree["a"]["kernel"],
+        trp[:, :, ::-1, ::-1, ::-1].transpose(2, 3, 4, 0, 1))
+    sd = params_from_jax({"params": tree}, named)
+    assert torch.equal(sd["upconv.weight"], named.upconv.weight)
+    assert torch.equal(sd["a.weight"], named.a.weight)
 
 
 def test_flax_init_shapes_match_jax():

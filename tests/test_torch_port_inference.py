@@ -179,7 +179,7 @@ def scored_npz(tmp_path, name, variables, pc):
     at their top class with the runner-up as target, odd ones the other
     way round. -> (npz path, a tau between two clouds' top-two gaps)."""
     model = build_model(name)
-    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.load_state_dict(params_from_jax(variables, model), strict=True)
     with torch.no_grad():
         logits, _ = model.eval()(torch.from_numpy(pc))
     order = np.argsort(-logits.numpy(), axis=-1)

@@ -67,7 +67,7 @@ def _perturbed(variables, seed):
 
 
 def _port(module, variables):
-    module.load_state_dict(params_from_jax(variables), strict=True)
+    module.load_state_dict(params_from_jax(variables, module), strict=True)
     return module.eval()
 
 

@@ -84,7 +84,7 @@ def _weights_tree(variant: str) -> dict:
             for k, v in flat.items()}
     model = ConvOccupancyNetwork() if variant == "convonet" else \
         OccupancyNetwork()
-    model.load_state_dict(params_from_jax(unflatten_params(flat)))
+    model.load_state_dict(params_from_jax(unflatten_params(flat), model))
     with torch.no_grad():
         c = model.eval().encode_inputs(torch.from_numpy(
             _clouds()[:, :INPUT_N] * 0.3))
@@ -152,7 +152,7 @@ def _int8_grids(files, variant, draws):
     jc = jm.apply(tree, jnp.asarray(sel), method="encode_inputs")
     model = ConvOccupancyNetwork() if variant == "convonet" else \
         OccupancyNetwork()
-    model.load_state_dict(params_from_jax(tree))
+    model.load_state_dict(params_from_jax(tree, model))
     model.eval()
     with torch.no_grad():
         c = model.encode_inputs(draws[0])

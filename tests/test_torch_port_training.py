@@ -119,7 +119,7 @@ def _init(jm, *args):
 
 
 def _port(module, variables):
-    module.load_state_dict(params_from_jax(variables), strict=True)
+    module.load_state_dict(params_from_jax(variables, module), strict=True)
     return module
 
 
@@ -130,7 +130,8 @@ def _close(got, want, rtol=1e-4, atol=1e-5):
 
 
 def _stats_close(module, want, rtol, atol):
-    got = flatten_params(params_to_jax(module.state_dict())["batch_stats"])
+    got = flatten_params(
+        params_to_jax(module.state_dict(), module)["batch_stats"])
     want = flatten_params(jax.tree_util.tree_map(np.asarray, want))
     assert got.keys() == want.keys()
     for k in want:
@@ -163,7 +164,8 @@ def _occupancy_data(seed=0, shapes=4, surface_n=300, query_n=500):
 @pytest.mark.parametrize("variant", ["convonet", "onet"])
 def test_params_to_jax_inverts_params_from_jax(variant, jax_runs):
     tree = jax_runs[variant]["variables"]
-    back = params_to_jax(params_from_jax(tree))
+    model = VARIANTS[variant][1]()
+    back = params_to_jax(params_from_jax(tree, model), model)
     assert sorted(back) == sorted(tree)
     want, got = flatten_params(tree), flatten_params(back)
     assert got.keys() == want.keys()
@@ -339,7 +341,8 @@ def test_train_steps_match_jax(variant, jax_runs):
             np.testing.assert_allclose(losses[0], run["losses"][0],
                                        rtol=1e-5)
             grads = flatten_params(params_to_jax(
-                {n: p.grad for n, p in model.named_parameters()})["params"])
+                {n: p.grad for n, p in model.named_parameters()},
+                model)["params"])
             want = flatten_params(run["grads"])
             assert grads.keys() == want.keys()
             # a bias that feeds a batch norm has gradient 0 up to rounding
@@ -363,7 +366,7 @@ def test_onet_batch_stats_follow_jax(jax_runs):
     with torch.no_grad():
         for params, batch in zip(run["trajectory"], run["batches"]):
             missing, _ = model.load_state_dict(
-                params_from_jax({"params": params}), strict=False)
+                params_from_jax({"params": params}, model), strict=False)
             assert all(k.endswith((".mean", ".var")) for k in missing)
             model(*(torch.from_numpy(a) for a in batch[:2]))
     _stats_close(model, run["stats"], 1e-4, 1e-6)
@@ -393,7 +396,7 @@ def test_train_implicit_cli_on_cpu(variant, tmp_path):
                                  else ["batch_stats", "params"])
     jm = JaxConvONet() if variant == "convonet" else JaxONet()
     tm = ConvOccupancyNetwork() if variant == "convonet" else OccupancyNetwork()
-    tm.load_state_dict(params_from_jax(load_params_npz(out)), strict=True)
+    tm.load_state_dict(params_from_jax(load_params_npz(out), tm), strict=True)
     rng = np.random.default_rng(21)
     pc = rng.uniform(-0.45, 0.45, (2, 300, 3)).astype(np.float32)
     q = rng.uniform(-0.55, 0.55, (2, 64, 3)).astype(np.float32)

@@ -257,7 +257,7 @@ def test_train_steps_match_jax(name, kw, smoothing):
 
     # the port in float64 along the same steps
     model = build_model(name, **kw)
-    model.load_state_dict(params_from_jax(start), strict=True)
+    model.load_state_dict(params_from_jax(start, model), strict=True)
     model.double()
     state = create_train_state(model, total_epochs=1, steps_per_epoch=STEPS)
     step = make_train_step(model, smoothing, fea)
@@ -268,7 +268,8 @@ def test_train_steps_match_jax(name, kw, smoothing):
             # the trajectories part at float32 level: each step from
             # JAX's state after the one before
             prev_vars, prev_adam = after[i - 1]
-            model.load_state_dict(params_from_jax(prev_vars, np.float64))
+            model.load_state_dict(
+                params_from_jax(prev_vars, model, np.float64))
             state.optimizer.load_state_dict(adam_state_from_jax(
                 prev_adam._asdict(), model, state.optimizer.state_dict()))
             state.set_step(i)
@@ -280,10 +281,11 @@ def test_train_steps_match_jax(name, kw, smoothing):
         assert 0 <= float(m["acc"]) <= 1
         if i == 0:
             got = flatten_params(params_to_jax(
-                {n: p.grad for n, p in model.named_parameters()})["params"])
+                {n: p.grad for n, p in model.named_parameters()},
+                model)["params"])
             for k in zero:
                 assert np.abs(got[k]).max() < 1e-9 * top_grad, (tag, k)
-        got_vars = params_to_jax(model.state_dict())
+        got_vars = params_to_jax(model.state_dict(), model)
         # the running means hold the steps of the zero-gradient biases
         # that feed their norms (0.1 of each, well below the rate)
         close_trees(got_vars["batch_stats"], want_vars["batch_stats"],
@@ -329,7 +331,7 @@ def test_train_steps_match_jax(name, kw, smoothing):
 
     # the port in float32 from the same start: step 1 against JAX's float64
     model = build_model(name, **kw)
-    model.load_state_dict(params_from_jax(start), strict=True)
+    model.load_state_dict(params_from_jax(start, model), strict=True)
     state = create_train_state(model, total_epochs=1, steps_per_epoch=STEPS)
     pc, label = data[0]
     _, m = make_train_step(model, smoothing, fea)(
@@ -337,7 +339,7 @@ def test_train_steps_match_jax(name, kw, smoothing):
         torch.from_numpy(label).long(), replay(masks[0]))
     np.testing.assert_allclose(float(m["loss"]), losses[0], rtol=1e-4)
     got = flatten_params(params_to_jax(
-        {n: p.grad for n, p in model.named_parameters()})["params"])
+        {n: p.grad for n, p in model.named_parameters()}, model)["params"])
     want = flatten_params(grads)
     for k, w in want.items():
         if np.abs(w).max() < 1e-5 * top_grad:      # float32 rounding
@@ -390,7 +392,7 @@ def test_adam_weight_decay_matches_optax():
                     total_epochs=1, steps_per_epoch=4)
     toy = torch.nn.Module()
     toy.Dense_0, toy.Dense_1 = torch.nn.Linear(4, 3), torch.nn.Linear(3, 2)
-    toy.load_state_dict(params_from_jax({"params": to_numpy(js.params)}))
+    toy.load_state_dict(params_from_jax({"params": to_numpy(js.params)}, toy))
     state = create_train_state(toy, total_epochs=1, steps_per_epoch=4)
     rng = np.random.default_rng(4)
     for i in range(5):
@@ -399,10 +401,10 @@ def test_adam_weight_decay_matches_optax():
                 -9, 1, a.shape)).astype(np.float32), to_numpy(js.params))
         js = js.apply_gradients(grads=g)
         for name, p in toy.named_parameters():
-            p.grad = params_from_jax({"params": g})[name]
+            p.grad = params_from_jax({"params": g}, toy)[name]
         state.optimizer.step()
         state.scheduler.step()
-        got = params_to_jax(toy.state_dict())["params"]
+        got = params_to_jax(toy.state_dict(), toy)["params"]
         for k, w in flatten_params(to_numpy(js.params)).items():
             np.testing.assert_allclose(flatten_params(got)[k], w, rtol=1e-5,
                                        atol=1e-9, err_msg=f"step {i} {k}")
@@ -444,13 +446,14 @@ def test_flax_init_params_victims(name):
         else:
             assert not v.any(), k
     model = build_model(name, **kw)
-    model.load_state_dict(params_from_jax(flax_init_params(0, name, **kw)),
-                          strict=True)
+    model.load_state_dict(
+        params_from_jax(flax_init_params(0, name, **kw), model), strict=True)
 
 
 def _train_tiny(tmp_path, steps=2):
     model = build_model("pointnet")
-    model.load_state_dict(params_from_jax(flax_init_params(1, "pointnet")))
+    model.load_state_dict(
+        params_from_jax(flax_init_params(1, "pointnet"), model))
     state = create_train_state(model, total_epochs=2, steps_per_epoch=3)
     step = make_train_step(model)
     gen = torch.Generator().manual_seed(0)
@@ -536,7 +539,7 @@ def test_converted_jax_train_checkpoint_resumes(tmp_path):
     state, meta = restore_checkpoint(path, create_train_state(
         build_model("pointnet"), total_epochs=2, steps_per_epoch=3))
     assert meta["epoch"] == 1 and state.step == 1
-    close_trees(params_to_jax(state.model.state_dict()),
+    close_trees(params_to_jax(state.model.state_dict(), state.model),
                 to_numpy({"params": js.params,
                           "batch_stats": js.batch_stats}), "variables", 0)
     adam = adam_state_to_jax(state.optimizer.state_dict(), state.model)

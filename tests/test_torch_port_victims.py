@@ -123,7 +123,7 @@ def victims(name, seed, pc):
     variables = calibrated(jm, perturbed(jm.init(
         jax.random.key(seed), jnp.asarray(pc), train=False), seed), pc, seed)
     pm = build_model(name)
-    pm.load_state_dict(params_from_jax(variables), strict=True)
+    pm.load_state_dict(params_from_jax(variables, pm), strict=True)
     return jm, variables, pm.eval()
 
 
@@ -239,9 +239,9 @@ def test_params_to_jax_round_trip():
     for name in NAMES:
         torch.manual_seed(0)
         pm = build_model(name).eval()
-        tree = params_to_jax(pm.state_dict())
+        tree = params_to_jax(pm.state_dict(), pm)
         back = build_model(name)
-        back.load_state_dict(params_from_jax(tree), strict=True)
+        back.load_state_dict(params_from_jax(tree, back), strict=True)
         for k, v in pm.state_dict().items():
             assert torch.equal(back.state_dict()[k], v), k
         assert set(tree) == {"params", "batch_stats"}
@@ -301,7 +301,7 @@ def test_msg_and_feature_propagation_match_jax():
         jargs = [jnp.asarray(a) for a in args]
         variables = calibrated(jmod, perturbed(jmod.init(
             jax.random.key(i), *jargs, train=False), i), tuple(jargs), i)
-        pmod.load_state_dict(params_from_jax(variables), strict=True)
+        pmod.load_state_dict(params_from_jax(variables, pmod), strict=True)
         want = jmod.apply(variables, *jargs, train=False)
         with torch.no_grad():
             got = pmod.eval()(*[torch.from_numpy(a) for a in args])

@@ -66,7 +66,7 @@ def model_of(variant: str, dev):
         model, tree = ConvOccupancyNetwork(), init_params(0)
     else:
         model, tree = OccupancyNetwork(), flax_init_params(0, "onet")
-    model.load_state_dict(params_from_jax(tree))
+    model.load_state_dict(params_from_jax(tree, model))
     return model.to(dev)
 
 

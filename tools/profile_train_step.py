@@ -70,7 +70,7 @@ def profile(dev, victim: str = "pointnet2", batch: int = 32, steps: int = 5,
     pc = normalize_unit_sphere(torch.from_numpy(clouds(batch))).to(dev)
     label = torch.arange(batch, device=dev) % 40
     model = build_model(victim)
-    model.load_state_dict(params_from_jax(flax_init_params(0, victim)))
+    model.load_state_dict(params_from_jax(flax_init_params(0, victim), model))
     model.to(dev)
     state = create_train_state(model)
     train_step = make_train_step(model)
