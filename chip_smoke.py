@@ -198,11 +198,38 @@ Phases, in order; any failure exits non-zero and prints no result:
      queries with the gradient to p (B5 2, B6 2 launches); (f) B4's uv
      form in `FeatureDecoder` at its defaults and the plane ConvONet's
      `decode` with `p_n` (uv form 4 forward, 1 uv and 1 plane gradient
-     launches).
+     launches);
+ 17. the support layer: (a) reference `.pth` state dicts built from
+     seeded trees (`tools/reference_pth.py`) at full width (ConvONet at
+     `configs/convonet_3plane_mn40.yaml`, ONet 512 / 512 / 256, PU-Net at
+     up 4 from the repository's weights, PointNet, DGCNN, PointNet++ with
+     `module.` and PointConv seeded and calibrated), written with
+     `torch.save` and converted through `if_defense_tpu_torch.convert`
+     from the file (each tree equal to its source, each conversion timed);
+     the rest under deterministic algorithms (the ConvONet encoder's
+     scatter-mean otherwise sums with atomics, so two runs of one file
+     differ; one such run is held against a deterministic one and the
+     gap printed): `cli/opt_defense.py` (reference mode) on phase 4's
+     48 x 1024 clouds
+     with the converted npz bit-equal to the run with the seeded tree (B1
+     402, B4 201 + 201 launches), DUP-Net through `cli/defend_npz.py`
+     with the converted PU-Net bit-equal to the repository's weights (B5
+     and B6 4 each), `cli/inference.py` per converted victim: the same
+     record and bit-equal logits as the seeded checkpoint; (b) the
+     ConvONet-Opt CLI with its batch split over [cuda:0, cuda:0] (two
+     shards of 24, two threads) against one shard of 48 (phase 3's bound,
+     >= 99.9 % of coordinates within 1e-4; bit-equal expected), B1 2 x 402
+     launches, and `cli/inference.py`'s eval step split the same way (the
+     same predictions); (c) `utils.profiling.PhaseTimer` around (b)'s two
+     runs within 5 % of the host clock around them, and `trace` around
+     two defense steps writing a trace that names B1's and B4's kernels;
+     (d) `utils.config.get_model` on the two shipped configs (read with
+     `load_config` where PyYAML imports, else as literal dicts) building
+     modules that strict-load (a)'s converted weights.
 The last lines are the rates, the defense step, victim batch, CW
-iteration, train step and remesh batch profiles, phase 16's rates, the
-card's name and power limit, one JSON line of the kernels, and
-`{"ok": true, "device": {...}}`.
+iteration, train step and remesh batch profiles, phase 16's rates, phase
+17's numbers, the card's name and power limit, one JSON line of the
+kernels, and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -3437,6 +3464,377 @@ def check_grid_path(dev, occ_npz: str) -> tuple[dict, dict, dict]:
                    "uv": uv_launches}, row
 
 
+SUPPORT_VICTIMS = ("pointnet", "dgcnn", "pointnet2", "pointconv")
+# the shipped configs' contents, where PyYAML is not installed
+SHIPPED_CONFIGS = {
+    "convonet_3plane_mn40.yaml": {
+        "method": "conv_onet", "data": {"pointcloud_n": 600, "padding": 0.1},
+        "model": {"c_dim": 32, "encoder_kwargs": {
+            "hidden_dim": 32, "plane_resolution": 64}}},
+    "onet_mn40.yaml": {
+        "method": "onet", "data": {"pointcloud_n": 300},
+        "model": {"c_dim": 512, "encoder_kwargs": {"hidden_dim": 512},
+                  "decoder_kwargs": {"hidden_size": 256}}},
+}
+
+
+def all_launches() -> dict:
+    from if_defense_tpu_torch.ops import (
+        cuda_ballquery,
+        cuda_fps,
+        cuda_interp,
+        cuda_repulsion,
+    )
+
+    return {k: v for c in (cuda_repulsion.launches, cuda_interp.launches,
+                           cuda_fps.launches, cuda_ballquery.launches)
+            for k, v in c.items()}
+
+
+def zero_launches() -> None:
+    from if_defense_tpu_torch.ops import (
+        cuda_ballquery,
+        cuda_fps,
+        cuda_interp,
+        cuda_repulsion,
+    )
+
+    for c in (cuda_repulsion.launches, cuda_interp.launches,
+              cuda_fps.launches, cuda_ballquery.launches):
+        for k in c:
+            c[k] = 0
+
+
+def same_tree(what: str, got: dict, want: dict) -> None:
+    from if_defense_tpu_torch.utils.params_io import flatten_params
+
+    got, want = flatten_params(got), flatten_params(want)
+    if got.keys() != want.keys() or any(
+            not np.array_equal(got[k], want[k]) for k in got):
+        fail(f"{what}: the converted tree is not its source, leaf for leaf")
+
+
+def converted_weights(dev, tmp: str) -> tuple[dict, dict, dict]:
+    """Phase 17 (a)'s weights: each seeded tree written as the reference's
+    `.pth` and converted back from the file. -> (seeded files, converted
+    files, seconds a conversion took)."""
+    from if_defense_tpu_torch.cli.defend_npz import DEFAULT_PUNET_WEIGHTS
+    from if_defense_tpu_torch.convert import (
+        implicit_weights,
+        punet_weights,
+        victim_weights,
+    )
+    from if_defense_tpu_torch.utils.checkpoint import save_eval_checkpoint
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        init_params,
+        load_params_npz,
+        params_to_jax,
+        save_params_npz,
+    )
+
+    ref = tool("reference_pth")
+    trees = {"convonet": init_params(0), "onet": flax_init_params(0, "onet"),
+             "punet": load_params_npz(DEFAULT_PUNET_WEIGHTS)}
+    clouds = victim_clouds(np.random.default_rng(17), VICTIM_B)
+    for name in SUPPORT_VICTIMS:
+        model = seeded_victim(name, dev, clouds)
+        trees[name] = params_to_jax(model.state_dict(), model)
+        del model
+    convert = {"convonet": implicit_weights.convert_convonet_pth,
+               "onet": implicit_weights.convert_onet_pth,
+               "punet": punet_weights.convert_punet_pth,
+               **{n: getattr(victim_weights, f"convert_{n}_pth")
+                  for n in SUPPORT_VICTIMS}}
+    seeded, converted, seconds = {}, {}, {}
+    for kind, tree in trees.items():
+        pth = os.path.join(tmp, f"{kind}.pth")
+        torch.save(ref.reference_state_dict(
+            kind, tree, module_prefix=kind == "pointnet2"), pth)
+        t0 = time.perf_counter()
+        out = convert[kind](pth)
+        seconds[kind] = time.perf_counter() - t0
+        same_tree(kind, out, tree)
+        if kind in SUPPORT_VICTIMS:
+            seeded[kind] = save_eval_checkpoint(
+                os.path.join(tmp, f"{kind}-seeded.npz"), tree, {"model": kind})
+            converted[kind] = save_eval_checkpoint(
+                os.path.join(tmp, f"{kind}-converted.npz"), out,
+                {"model": kind})
+        else:
+            seeded[kind] = save_params_npz(
+                os.path.join(tmp, f"{kind}-seeded.npz"), tree)
+            converted[kind] = save_params_npz(
+                os.path.join(tmp, f"{kind}-converted.npz"), out)
+        print(f"  {kind}: {os.path.getsize(pth) / 2**20:.1f} MiB .pth, "
+              f"converted in {seconds[kind] * 1e3:.1f} ms, equal to its "
+              "source tree")
+    return seeded, converted, seconds
+
+
+def support_opt_run(dev, data: str, weights: str,
+                    devices=None) -> np.ndarray:
+    """`cli/opt_defense.py` in the reference mode at phase 4's settings on
+    `data` (`--device cuda` for a card); the restored clouds."""
+    from if_defense_tpu_torch.cli import opt_defense
+    from if_defense_tpu_torch.data import load_npz
+
+    out, = opt_defense.main([
+        "--data_root", data, "--weights", weights, "--batch_size", str(B),
+        "--iterations", "200", "--sample_npoint", "1024", "--seed", "1",
+        "--device", dev.type], devices=devices)
+    got = load_npz(out).test_pc
+    if got.shape != (B, 1024, 3) or not np.isfinite(got).all():
+        fail(f"opt_defense on {data}: output {got.shape} or non-finite")
+    return got
+
+
+def check_converted(dev, tmp: str, seeded: dict, converted: dict) -> dict:
+    """Phase 17 (a): each converted file against its seeded twin through
+    the CLIs. -> the launches of the runs on converted weights."""
+    from if_defense_tpu_torch.cli import defend_npz, inference
+    from if_defense_tpu_torch.cli.inference import load_eval_model
+    from if_defense_tpu_torch.data import load_npz, save_npz
+
+    pc = ellipsoids(np.random.default_rng(0), B)
+    runs = {}
+    for tag in ("atomic", "seeded", "converted"):
+        data = save_npz(os.path.join(tmp, f"opt-{tag}", "x.npz"),
+                        {"test_pc": pc, "test_label": np.arange(B) % 40})
+        before = all_launches()
+        # the first run as the CLI runs, the encoder's scatter-mean summing
+        # with atomics; the seeded and converted runs deterministic
+        torch.use_deterministic_algorithms(tag != "atomic")
+        runs[tag] = support_opt_run(dev, data, (
+            seeded if tag == "seeded" else converted)["convonet"])
+        run_launches = {k: v - before[k] for k, v in all_launches().items()}
+    gap = np.abs(runs["atomic"] - runs["seeded"])
+    print(f"  opt_defense with atomics against a deterministic run: "
+          f"bit-equal {np.array_equal(runs['atomic'], runs['seeded'])}, "
+          f"{float((gap <= 1e-4).mean()):.6f} of coordinates within 1e-4, "
+          f"max abs diff {float(gap.max()):.3e}")
+    print(f"  opt_defense on converted ConvONet weights: launches "
+          f"{ {k: v for k, v in run_launches.items() if v} }")
+    if (run_launches["repulsion_loss"] != 402
+            or run_launches["plane_features"] != 201
+            or run_launches["plane_features_dp"] != 201):
+        fail(f"launches {run_launches} in opt_defense on converted weights, "
+             "not B1 402 and B4 201 + 201")
+    if not np.array_equal(runs["seeded"], runs["converted"]):
+        fail("opt_defense on converted ConvONet weights is not bit-equal to "
+             "the run on the seeded tree")
+    print("  opt_defense: converted == seeded, bit for bit")
+
+    clouds = ellipsoids(np.random.default_rng(7), DUP_B)
+    outs = {}
+    for tag, weights in (("seeded", seeded["punet"]),
+                         ("converted", converted["punet"])):
+        data = save_npz(os.path.join(tmp, f"dup-{tag}", "adv.npz"),
+                        {"test_pc": clouds,
+                         "test_label": np.arange(DUP_B) % 40})
+        before = all_launches()
+        path, = defend_npz.main(["--data_root", data, "--device", dev.type,
+                                 "--defense", "dup", "--punet_weights",
+                                 weights])
+        dup_launches = {k: all_launches()[k] - before[k]
+                        for k in ("fps", "ballquery")}
+        outs[tag] = load_npz(path).test_pc
+    print(f"  DUP-Net (defend_npz) on the converted PU-Net: launches "
+          f"{dup_launches}")
+    if dup_launches != {"fps": 4, "ballquery": 4}:
+        fail(f"B5/B6 launches {dup_launches} in DUP-Net, not 4 each")
+    if not np.array_equal(outs["seeded"], outs["converted"]):
+        fail("DUP-Net on the converted PU-Net is not bit-equal")
+    print("  DUP-Net: converted == repository weights, bit for bit")
+
+    vclouds = victim_clouds(np.random.default_rng(18), 2 * VICTIM_B)
+    label = np.arange(2 * VICTIM_B) % 40
+    data = save_npz(os.path.join(tmp, "victims.npz"), {
+        "test_pc": vclouds.numpy(), "test_label": label,
+        "target_label": (label + 7) % 40})
+    for name in SUPPORT_VICTIMS:
+        records = [inference.main(["--data", data, "--checkpoint", ckpt,
+                                   "--batch_size", str(VICTIM_B), "--mode",
+                                   "target", "--device", dev.type])
+                   for ckpt in (seeded[name], converted[name])]
+        with torch.no_grad():
+            logits = [load_eval_model(ckpt)[0].to(dev)(
+                vclouds[:VICTIM_B].to(dev))[0]
+                for ckpt in (seeded[name], converted[name])]
+        drop = ("data",)
+        same = ({k: v for k, v in records[0].items() if k not in drop}
+                == {k: v for k, v in records[1].items() if k not in drop})
+        print(f"  {name}: converted accuracy {records[1]['accuracy']:.4f}, "
+              f"target success {records[1]['target_success']:.4f}; the same "
+              f"record {same}, logits bit-equal "
+              f"{torch.equal(logits[0], logits[1])}")
+        if not same or not torch.equal(logits[0], logits[1]):
+            fail(f"{name}: the converted checkpoint scores otherwise than "
+                 "the seeded one")
+    return run_launches
+
+
+def check_sharding(dev, tmp: str, weights: str, ckpt: str) -> dict:
+    """Phase 17 (b) and (c)'s timer: ConvONet-Opt with its batch over one
+    shard of 48 and over [cuda:0, cuda:0], each run timed by PhaseTimer and
+    the host clock; the inference eval step split the same way."""
+    from if_defense_tpu_torch.cli import inference
+    from if_defense_tpu_torch.data import save_npz
+    from if_defense_tpu_torch.parallel import best_data_mesh
+    from if_defense_tpu_torch.utils.profiling import PhaseTimer
+
+    pc = ellipsoids(np.random.default_rng(0), B)
+    timer, host, outs, launches = PhaseTimer(), {}, {}, {}
+    split = [dev, dev]
+    for tag, devices in (("one shard", None), ("two shards", split)):
+        data = save_npz(os.path.join(tmp, f"shard-{tag[:3]}", "x.npz"),
+                        {"test_pc": pc, "test_label": np.arange(B) % 40})
+        before = all_launches()
+        probe = torch.zeros(1, device=dev)
+        PhaseTimer.sync(probe)
+        t0 = time.perf_counter()
+        with timer.phase(tag, probe):
+            outs[tag] = support_opt_run(dev, data, weights, devices)
+        host[tag] = time.perf_counter() - t0
+        launches[tag] = {k: v - before[k] for k, v in all_launches().items()
+                         if v - before[k]}
+    n_best = best_data_mesh(B, dev.type).size
+    a, b = outs["one shard"], outs["two shards"]
+    near = float((np.abs(a - b) <= 1e-4).mean())
+    summary = timer.summary()
+    print(f"  best_data_mesh({B}): {n_best} device(s); one shard of {B} "
+          f"{host['one shard']:.3f} s, two shards of {B // 2} on cuda:0 "
+          f"{host['two shards']:.3f} s (host clock around opt_defense.main)")
+    print(f"  split vs one shard: bit-equal {np.array_equal(a, b)}, "
+          f"{near:.6f} of coordinates within 1e-4, max abs diff "
+          f"{float(np.abs(a - b).max()):.3e}; launches {launches}")
+    if near < 0.999:
+        fail(f"the split ConvONet-Opt run holds {near} of coordinates "
+             "within 1e-4 of the unsplit one, under 0.999")
+    if (launches["two shards"].get("repulsion_loss") != 2 * 402
+            or launches["two shards"].get("plane_features") != 2 * 201
+            or launches["two shards"].get("plane_features_dp") != 2 * 201):
+        fail(f"launches {launches['two shards']} in the split run, not B1 "
+             "2 x 402 and B4 2 x (201 + 201)")
+    for tag in host:
+        gap = abs(summary[tag]["total_s"] - host[tag]) / host[tag]
+        print(f"  PhaseTimer {tag}: {summary[tag]['total_s']:.3f} s "
+              f"({summary[tag]['count']} phase), host clock "
+              f"{host[tag]:.3f} s, {gap:.4f} apart")
+        if gap > 0.05:
+            fail(f"PhaseTimer's {tag} total is {gap:.3f} off the host clock")
+
+    args = inference.parse_args(["--data", "unused", "--checkpoint", ckpt,
+                                 "--batch_size", str(VICTIM_B)])
+    clouds = victim_clouds(np.random.default_rng(19), VICTIM_B).to(dev)
+    logits = [inference._load_eval_cached(
+        args, best_data_mesh(VICTIM_B, devs))[2](clouds)
+        for devs in (dev.type, split)]
+    same = torch.equal(logits[0].argmax(-1), logits[1].argmax(-1))
+    gap = float((logits[0] - logits[1]).abs().max())
+    scale = float(logits[0].abs().max())
+    print(f"  inference eval step split over [cuda:0, cuda:0]: the same "
+          f"predictions {same}, logits bit-equal "
+          f"{torch.equal(logits[0], logits[1])}, max abs diff {gap:.3e} "
+          f"(bound 1e-5 of the largest, {1e-5 * scale:.3e})")
+    if not same:
+        fail("the split inference eval step predicts otherwise")
+    if gap > 1e-5 * scale:
+        fail(f"the split inference eval step's logits are {gap:.3e} off "
+             f"the unsplit ones, over 1e-5 of the largest")
+    return {"best_data_mesh_devices": n_best, "host_s": host,
+            "phase_timer_s": {k: v["total_s"] for k, v in summary.items()},
+            "bit_equal": bool(np.array_equal(a, b)), "within_1e-4": near,
+            "launches": launches["two shards"]}
+
+
+def check_trace(dev, weights: str) -> str:
+    """Phase 17 (c): `trace` around two reference-mode defense steps; the
+    trace file must name B1's and B4's kernels. -> its path."""
+    from if_defense_tpu_torch.defense.ifdefense import convonet_opt_defense
+    from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+    from if_defense_tpu_torch.utils.params_io import (
+        load_params_npz,
+        params_from_jax,
+    )
+    from if_defense_tpu_torch.utils.profiling import PhaseTimer, trace
+
+    model = ConvOccupancyNetwork()
+    model.load_state_dict(params_from_jax(load_params_npz(weights), model))
+    defend = convonet_opt_defense(model.to(dev).eval(), iterations=1)
+    pc = torch.from_numpy(ellipsoids(np.random.default_rng(3), 4)).to(dev)
+    defend(pc, torch.Generator(device=dev).manual_seed(0))      # warm
+    logdir = os.path.join(ROOT, "chiprun_out", "support_trace")
+    with trace(logdir) as out:
+        defend(pc, torch.Generator(device=dev).manual_seed(0))
+        PhaseTimer.sync(pc)
+    text = open(out["path"]).read()
+    found = {k: k in text for k in ("rep_fwd", "rep_bwd", "features_fwd",
+                                    "features_dp")}
+    print(f"  trace {os.path.relpath(out['path'], ROOT)} "
+          f"({os.path.getsize(out['path']) / 2**20:.1f} MiB): {found}")
+    if not all(found.values()):
+        fail(f"the trace names not every B1 and B4 kernel: {found}")
+    return out["path"]
+
+
+def check_configs(converted: dict) -> str:
+    """Phase 17 (d): the shipped configs through `get_model`, each module
+    strict-loading its converted weights. -> where the configs came from."""
+    from if_defense_tpu_torch.utils.config import get_model, load_config
+    from if_defense_tpu_torch.utils.params_io import (
+        load_params_npz,
+        params_from_jax,
+    )
+
+    try:
+        import yaml  # noqa: F401
+        source = "load_config (PyYAML imports)"
+        cfgs = {n: load_config(os.path.join(ROOT, "configs", n),
+                               os.path.join(ROOT, "configs", "default.yaml"))
+                for n in SHIPPED_CONFIGS}
+    except ImportError:
+        source = "literal dicts (PyYAML does not import)"
+        cfgs = SHIPPED_CONFIGS
+    for name, kind in (("convonet_3plane_mn40.yaml", "convonet"),
+                       ("onet_mn40.yaml", "onet")):
+        model = get_model(cfgs[name])
+        model.load_state_dict(params_from_jax(
+            load_params_npz(converted[kind]), model), strict=True)
+        print(f"  get_model({name}): {type(model).__name__}, "
+              f"{sum(p.numel() for p in model.parameters())} weights, "
+              "strict-loads the converted weights")
+    print(f"  configs from {source}")
+    return source
+
+
+def check_support(dev) -> tuple[dict, dict]:
+    """Phase 17: the converters, sharding, profiling and configs on the
+    card, under deterministic algorithms (restored on return): without
+    them the ConvONet encoder's scatter-mean sums with atomics, and two
+    runs of one file differ in their last bits. -> (the numbers printed,
+    the launches of the phase)."""
+    t0 = time.perf_counter()
+    zero_launches()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            seeded, converted, seconds = converted_weights(dev, tmp)
+            check_converted(dev, tmp, seeded, converted)
+            shards = check_sharding(dev, tmp, converted["convonet"],
+                                    converted["pointnet2"])
+            trace_path = check_trace(dev, converted["convonet"])
+            source = check_configs(converted)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    launches = all_launches()
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return {"conversion_ms": {k: v * 1e3 for k, v in seconds.items()},
+            **shards, "trace": os.path.relpath(trace_path, ROOT),
+            "configs": source}, launches
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -3666,16 +4064,24 @@ def main() -> int:
     keep_dir.cleanup()
     print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
 
+    print("phase 17: the support layer: reference .pth converters, "
+          "sharding over [cuda:0, cuda:0], PhaseTimer and trace, configs")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    support, launches["support"] = check_support(dev)
+    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
-    used_in = {"repulsion_loss": ("reference grid", ("repulsion_loss",)),
-               "plane_features": ("reference mesh", ("plane_features",
-                                                     "plane_features_dp")),
+    used_in = {"repulsion_loss": ("reference grid support",
+                                  ("repulsion_loss",)),
+               "plane_features": ("reference mesh support",
+                                  ("plane_features", "plane_features_dp")),
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup victims attack fit pointconv", ("fps",)),
-               "ballquery": ("dup victims attack fit pointconv",
+               "fps": ("dup victims attack fit pointconv support", ("fps",)),
+               "ballquery": ("dup victims attack fit pointconv support",
                              ("ballquery",)),
                "plane_sample": ("uv", ("plane_sample", "plane_sample_duv",
                                        "plane_sample_dplane")),
@@ -3708,6 +4114,7 @@ def main() -> int:
     print("remesh batch profiles: " + json.dumps(mesh_profiles))
     print("grid ConvONet and PointConvONet (phase 16): "
           + json.dumps(grid_rates) + f" on {card}")
+    print("support layer (phase 17): " + json.dumps(support) + f" on {card}")
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

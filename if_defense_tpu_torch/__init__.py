@@ -32,11 +32,17 @@ Subpackages
 - ``cli``       `python -m if_defense_tpu_torch.cli.opt_defense`,
                 `python -m if_defense_tpu_torch.cli.defend_npz`,
                 `python -m if_defense_tpu_torch.cli.train_implicit`,
-                `python -m if_defense_tpu_torch.cli.inference` and
-                `python -m if_defense_tpu_torch.cli.remesh_defense`
+                `python -m if_defense_tpu_torch.cli.inference`,
+                `python -m if_defense_tpu_torch.cli.remesh_defense` and
+                `python -m if_defense_tpu_torch.cli.attack`
 - ``utils``     flat-npz params, the flax-to-torch layout map both ways,
                 seeded init, victim checkpoints (flat npz), the checkpoint
-                registry, `BoundedCache`, the metrics sink, mesh files
+                registry, `BoundedCache`, the metrics sink, mesh files,
+                YAML configs (`config`), `PhaseTimer` and `trace`
+                (`profiling`)
+- ``convert``   the reference's pretrained `.pth` files to the flax tree
+- ``parallel``  device meshes; a batch split over the visible cards,
+                one thread a card (the eval CLIs use it)
 """
 
 __version__ = "0.1.0"

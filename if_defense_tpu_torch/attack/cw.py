@@ -32,7 +32,11 @@ import torch
 from torch.nn import functional as F
 
 from if_defense_tpu_torch.attack.clip import project_inner_clip_linf
-from if_defense_tpu_torch.attack.losses import l2_dist, logits_adv_loss
+from if_defense_tpu_torch.attack.losses import (
+    batch_mean,
+    l2_dist,
+    logits_adv_loss,
+)
 from if_defense_tpu_torch.ops import index_points
 
 BIG = 1e10
@@ -68,12 +72,23 @@ def normal_like(x: torch.Tensor, generator: torch.Generator | None,
                        generator=generator, dtype=x.dtype, device=x.device)
 
 
+def step_normals(x: torch.Tensor, binary_step: int,
+                 generator: torch.Generator | None,
+                 shape=None) -> torch.Tensor:
+    """[binary_step, *shape] standard normals of x's type and device (x's
+    shape by default), one draw a binary step: the draws `step_noise`
+    takes from `generator`, in its order."""
+    return torch.stack([normal_like(x, generator, shape)
+                        for _ in range(binary_step)])
+
+
 def step_noise(x: torch.Tensor, binary_step: int,
                generator: torch.Generator | None,
                draws: torch.Tensor | None) -> Callable[[int], torch.Tensor]:
-    """step -> x plus 1e-7 noise: draws[step] or fresh normals."""
+    """step -> x plus 1e-7 noise: draws[step], the draws from
+    `step_normals` where none are given."""
     if draws is None:
-        return lambda step: x + normal_like(x, generator) * 1e-7
+        draws = step_normals(x, binary_step, generator)
     if draws.shape[0] != binary_step:
         raise ValueError(f"draws hold {draws.shape[0]} binary steps, not "
                          f"{binary_step}")
@@ -134,8 +149,8 @@ def cw_binary_search(
             for _ in range(length):
                 logits = logits_from_adv(adv).float()
                 per_dist = dist_fn(adv).float()
-                loss = (adv_fn(logits, target).mean()
-                        + (weight * per_dist).mean())
+                loss = (batch_mean(adv_fn(logits, target))
+                        + batch_mean(weight * per_dist))
                 grads = torch.autograd.grad(loss, adv)
                 with torch.no_grad():
                     pred = logits.argmax(dim=-1)
@@ -215,7 +230,7 @@ def get_critical_points(logits_fn: Callable, data: torch.Tensor,
     the lower index, as `lax.top_k`'s do: a stable sort."""
     p = data.detach().requires_grad_(True)
     logp = F.log_softmax(logits_fn(p), dim=-1)
-    loss = -logp.gather(-1, label.long()[:, None]).mean()
+    loss = -batch_mean(logp.gather(-1, label.long()[:, None])[:, 0])
     (grad,) = torch.autograd.grad(loss, p)
     mag = (grad * grad).sum(dim=-1)                          # [B, K]
     idx = torch.sort(mag, dim=1, descending=True, stable=True).indices
@@ -302,8 +317,8 @@ def cw_knn(
     opt = adam([adv], attack_lr)
     for length in cw_chunk_sizes(num_iter, device_chunk_iters):
         for _ in range(length):
-            loss = (adv_fn(logits_fn(adv), target).mean()
-                    + dist_fn(adv, ori).mean() * K)
+            loss = (batch_mean(adv_fn(logits_fn(adv), target))
+                    + batch_mean(dist_fn(adv, ori)) * K)
             (adv.grad,) = torch.autograd.grad(loss, [adv])
             with torch.no_grad():
                 opt.step()

@@ -126,6 +126,42 @@ def _init_object_centers(cri_points: np.ndarray, num_add: int,
     return out
 
 
+def cluster_init(critical: np.ndarray, num_add: int = 3, cl_num_p: int = 32,
+                 seed: int = 0) -> np.ndarray:
+    """The clusters' starting points [B, num_add, cl_num_p, 3] that
+    `cw_add_cluster` draws with `np.random.default_rng(seed)` from the
+    critical points [B, 128, 3] (`get_critical_points`), one cloud after
+    another: made for a whole batch, then split, its shares see the
+    unsplit batch's draws."""
+    return _init_clusters(critical, num_add, cl_num_p,
+                          np.random.default_rng(seed))
+
+
+def object_init(critical: np.ndarray, num_add: int = 3, obj_num_p: int = 64,
+                scaling: float = 0.3, seed: int = 0) -> np.ndarray:
+    """The objects' placement seeds [B, num_add, 3] that `cw_add_object`
+    draws, after the template's draws, with `np.random.default_rng(seed)`
+    from the critical points (see `cluster_init`)."""
+    rng = np.random.default_rng(seed)
+    load_airplane(obj_num_p, num_add, scaling, rng)
+    return _init_object_centers(critical, num_add, rng)
+
+
+def object_draws(objects: torch.Tensor, centers: torch.Tensor,
+                 binary_step: int, generator: torch.Generator | None):
+    """(object normals, shift normals, angle uniforms), each [binary_step,
+    ...] of the shapes of `objects` [B, na, P, 3] and `centers` [B, na,
+    3]: the draws `cw_add_object` takes from `generator`, in its order
+    (the three of a binary step, then the next step's)."""
+    if generator is None:
+        raise ValueError("the attack needs a generator or draws")
+    steps = [(normal_like(objects, generator), normal_like(centers, generator),
+              torch.rand(centers.shape, generator=generator,
+                         dtype=centers.dtype, device=centers.device))
+             for _ in range(binary_step)]
+    return tuple(torch.stack(d) for d in zip(*steps))
+
+
 def far_chamfer_dist(added: torch.Tensor, ori: torch.Tensor, num_add: int,
                      chamfer_weight: float = 0.1) -> torch.Tensor:
     """FarthestDist + 0.1 Chamfer (`dist_utils.py:239-276`), [B]."""
@@ -153,14 +189,16 @@ def cw_add_cluster(
     seed: int = 0,
     device_chunk_iters: int | None = None,
     draws: torch.Tensor | None = None,
+    init: np.ndarray | None = None,
 ):
-    """CW adversarial-cluster attack.
+    """CW adversarial-cluster attack; `init` replaces the clusters'
+    starting points (`cluster_init`).
 
     Returns:
         (best distance [B], adv [B, K + num_add * cl_num_p, 3], success).
     """
-    clusters = _init_clusters(_critical_numpy(logits_fn, data, target),
-                              num_add, cl_num_p, np.random.default_rng(seed))
+    clusters = init if init is not None else cluster_init(
+        _critical_numpy(logits_fn, data, target), num_add, cl_num_p, seed)
     flat0 = torch.from_numpy(clusters.reshape(
         len(clusters), num_add * cl_num_p, 3)).to(data.device)
     return add_search(
@@ -217,11 +255,12 @@ def cw_add_object(
     seed: int = 0,
     device_chunk_iters: int | None = None,
     draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    init: np.ndarray | None = None,
 ):
     """CW adversarial-object attack: rigid copies of the template whose
     points, y rotation and placement are optimised together. The
     variables are (objects, angles, shifts); each step wraps the angles
-    into [0, 2 pi).
+    into [0, 2 pi). `init` replaces the placement seeds (`object_init`).
 
     Returns:
         (best distance [B], adv [B, K + num_add * obj_num_p, 3], success).
@@ -231,19 +270,17 @@ def cw_add_object(
     rng = np.random.default_rng(seed)
     template = load_airplane(obj_num_p, num_add, scaling, rng)
     objects0 = torch.from_numpy(np.tile(template[None], (B, 1, 1, 1))).to(dev)
-    centers = torch.from_numpy(_init_object_centers(
-        _critical_numpy(logits_fn, ori, target), num_add, rng)).to(dev)
-    if draws is not None and any(d.shape[0] != binary_step for d in draws):
+    if init is None:
+        init = _init_object_centers(_critical_numpy(logits_fn, ori, target),
+                                    num_add, rng)
+    centers = torch.from_numpy(init).to(dev)
+    if draws is None:
+        draws = object_draws(objects0, centers, binary_step, generator)
+    if any(d.shape[0] != binary_step for d in draws):
         raise ValueError(f"draws must hold {binary_step} binary steps")
 
-    def init(step):
-        if draws is None:
-            n_obj = normal_like(objects0, generator)
-            n_shift = normal_like(centers, generator)
-            u = torch.rand(centers.shape, generator=generator,
-                           dtype=centers.dtype, device=dev)
-        else:
-            n_obj, n_shift, u = (d[step] for d in draws)
+    def start(step):
+        n_obj, n_shift, u = (d[step] for d in draws)
         # jax.random.uniform(maxval=pi): u * (pi - 0) + 0 in f32
         return [objects0 + n_obj * 1e-7, u * math.pi,
                 centers + n_shift * 1e-7]
@@ -262,7 +299,7 @@ def cw_add_object(
 
     obd, best_added, success = cw_binary_search(
         lambda adv: logits_fn(torch.cat([ori, points(adv)], dim=1)),
-        dist, adv_fn, init, target, attack_lr=attack_lr,
+        dist, adv_fn, start, target, attack_lr=attack_lr,
         init_weight=init_weight, max_weight=max_weight,
         binary_step=binary_step, num_iter=num_iter, record_fn=points,
         postprocess_fn=wrap, device_chunk_iters=device_chunk_iters)

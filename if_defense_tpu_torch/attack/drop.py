@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 from torch.nn import functional as F
 
+from if_defense_tpu_torch.attack.losses import batch_mean
 from if_defense_tpu_torch.ops import index_points
 
 
@@ -38,7 +39,7 @@ def _saliency(pc: torch.Tensor, grad: torch.Tensor, center: torch.Tensor,
 def _true_class_grad(logits_fn, pc, label, *mask):
     p = pc.detach().requires_grad_(True)
     logp = F.log_softmax(logits_fn(p, *mask), dim=-1)
-    loss = -logp.gather(-1, label.long()[:, None]).mean()
+    loss = -batch_mean(logp.gather(-1, label.long()[:, None])[:, 0])
     return torch.autograd.grad(loss, p)[0]
 
 

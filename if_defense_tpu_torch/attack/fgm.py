@@ -20,7 +20,7 @@ from typing import Callable
 import torch
 
 from if_defense_tpu_torch.attack.clip import clip_points_l2
-from if_defense_tpu_torch.attack.losses import logits_adv_loss
+from if_defense_tpu_torch.attack.losses import batch_mean, logits_adv_loss
 
 
 def _global_l2(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +29,7 @@ def _global_l2(x: torch.Tensor) -> torch.Tensor:
 
 def _adv_grad(logits_fn, adv_fn, pc, target, normalize=True):
     p = pc.detach().requires_grad_(True)
-    (g,) = torch.autograd.grad(adv_fn(logits_fn(p), target).mean(), p)
+    (g,) = torch.autograd.grad(batch_mean(adv_fn(logits_fn(p), target)), p)
     if normalize:
         g = g / (_global_l2(g)[:, None, None] + 1e-9)
     return g
@@ -93,6 +93,16 @@ def mifgm(logits_fn: Callable, data: torch.Tensor, target: torch.Tensor,
                       step_size, num_iter, momentum_mu=mu)
 
 
+def pgd_draws(data: torch.Tensor, generator: torch.Generator | None):
+    """(uniforms in [0, 1), standard normals), each of data's shape: the
+    draws `pgd` takes from `generator`, in its order."""
+    if generator is None:
+        raise ValueError("the attack needs a generator or draws")
+    u = torch.rand(data.shape, generator=generator, dtype=data.dtype,
+                   device=data.device)
+    return u, _normal(data.shape, data, generator)
+
+
 def pgd(logits_fn: Callable, data: torch.Tensor, target: torch.Tensor,
         budget: float, step_size: float, num_iter: int = 50,
         adv_fn: Callable = logits_adv_loss,
@@ -101,13 +111,7 @@ def pgd(logits_fn: Callable, data: torch.Tensor, target: torch.Tensor,
     """PGD: I-FGM from a uniform start within budget / sqrt(K * 3) per
     coordinate; `draws` is (uniforms in [0, 1), standard normals), both
     [B, K, 3]. -> (adv, success)."""
-    if draws is None:
-        if generator is None:
-            raise ValueError("the attack needs a generator or draws")
-        u = torch.rand(data.shape, generator=generator, dtype=data.dtype,
-                       device=data.device)
-        draws = (u, _normal(data.shape, data, generator))
-    u, noise = draws
+    u, noise = pgd_draws(data, generator) if draws is None else draws
     eps = budget / (data.shape[1] * data.shape[2]) ** 0.5
     # jax.random.uniform's map in f32: max(u * (max - min) + min, min)
     lo = torch.full((), -eps, dtype=data.dtype, device=data.device)

@@ -3,7 +3,7 @@
 
 Writes one adversarial npz (`test_pc`, `test_label`, `target_label`) and a
 `.metrics.jsonl` beside it. The flags are the JAX CLI's, plus `--device`
-(default `cuda`; `cpu` only when asked). It runs on one device, eagerly,
+(default `cuda`; `cpu` only when asked). It runs eagerly,
 with TF32 off for matmuls and convolutions and under
 `torch.use_deterministic_algorithms(True)` (restored when `main` returns),
 so that a batch gives the same bits each time it is computed. Each batch
@@ -11,6 +11,15 @@ draws from its own `torch.Generator`, seeded from (`--seed`, batch index),
 so a `--resume`d run replays the draws of the batches it computes. Resume
 shards are fingerprinted by the results' arguments and the inputs'
 contents; a directory of other shards is refused.
+
+Each batch is split over the most visible cards that divide it
+(`--device cuda`: every card, `cuda:i`: that one;
+`parallel.best_data_mesh`), the victim copied to each once, as the JAX
+CLI shards it over its mesh. A split batch computes what the unsplit one
+does: its torch draws (`attack_draws`) and the cluster and object attacks'
+numpy inits are made for the whole batch and split, and the attacks' means
+over the batch divide by the whole batch's count (`attack.losses.
+shard_of`).
 
 Usage:
     python -m if_defense_tpu_torch.cli.attack --attack perturb \\
@@ -44,6 +53,18 @@ from if_defense_tpu_torch.attack import (
     pgd,
     saliency_drop,
 )
+from if_defense_tpu_torch.attack.cw import (
+    get_critical_points,
+    normal_like,
+    step_normals,
+)
+from if_defense_tpu_torch.attack.cw_cluster import (
+    cluster_init,
+    object_draws,
+    object_init,
+)
+from if_defense_tpu_torch.attack.fgm import pgd_draws
+from if_defense_tpu_torch.attack.losses import shard_of
 from if_defense_tpu_torch.cli import device_of
 from if_defense_tpu_torch.cli.inference import load_eval_model, resolve_checkpoint
 from if_defense_tpu_torch.data import (
@@ -51,6 +72,13 @@ from if_defense_tpu_torch.data import (
     ModelNet40NormalAttack,
     batch_iterator,
     save_npz,
+)
+from if_defense_tpu_torch.parallel import (
+    best_data_mesh,
+    mesh_devices,
+    replicate,
+    run_shards,
+    shard_batch,
 )
 from if_defense_tpu_torch.utils import MetricsWriter
 
@@ -189,9 +217,11 @@ def batch_generator(seed: int, batch: int,
 
 
 def build_attack(args, logits_fn, masked_logits_fn=None):
-    """-> (run(pc, label, target, normal, generator) -> (adv, success),
-    dataset mode). `masked_logits_fn(pc, mask)` is the mask-aware victim
-    forward of the fixed-shape Drop attack."""
+    """-> (run(pc, label, target, normal, generator, draws=None, init=None)
+    -> (adv, success), dataset mode). `masked_logits_fn(pc, mask)` is the
+    mask-aware victim forward of the fixed-shape Drop attack. `draws`
+    replaces the generator's draws (`attack_draws`' form), `init` the
+    cluster and object attacks' starting points."""
     name = args.attack
     chunk = None if args.device_chunk_iters <= 0 else args.device_chunk_iters
     cw = dict(attack_lr=args.attack_lr, device_chunk_iters=chunk)
@@ -199,10 +229,10 @@ def build_attack(args, logits_fn, masked_logits_fn=None):
     if name == "perturb":
         bsteps, iters = args.binary_step or 10, args.num_iter or 500
 
-        def run(pc, label, target, normal, gen):
+        def run(pc, label, target, normal, gen, draws=None, init=None):
             _, adv, succ = cw_perturb(logits_fn, pc, target, gen,
                                       binary_step=bsteps, num_iter=iters,
-                                      **cw)
+                                      draws=draws, **cw)
             return adv, succ
         return run, "target"
 
@@ -212,10 +242,11 @@ def build_attack(args, logits_fn, masked_logits_fn=None):
             chamfer_dist if args.adv_dist == "chamfer" else hausdorff_dist,
             method="adv2ori")
 
-        def run(pc, label, target, normal, gen):
+        def run(pc, label, target, normal, gen, draws=None, init=None):
             _, adv, succ = cw_add(logits_fn, pc, target, gen, dist,
                                   num_add=args.num_add or 512,
-                                  binary_step=bsteps, num_iter=iters, **cw)
+                                  binary_step=bsteps, num_iter=iters,
+                                  draws=draws, **cw)
             return adv, succ
         return run, "target"
 
@@ -223,22 +254,23 @@ def build_attack(args, logits_fn, masked_logits_fn=None):
         attack = cw_add_cluster if name == "add_cluster" else cw_add_object
         bsteps, iters = args.binary_step or 5, args.num_iter or 500
 
-        def run(pc, label, target, normal, gen):
+        def run(pc, label, target, normal, gen, draws=None, init=None):
             _, adv, succ = attack(logits_fn, pc, target, gen,
                                   num_add=args.num_add or 3,
                                   binary_step=bsteps, num_iter=iters,
-                                  seed=args.seed, **cw)
+                                  seed=args.seed, draws=draws, init=init,
+                                  **cw)
             return adv, succ
         return run, "target"
 
     if name == "knn":
         iters = args.num_iter or 2500
 
-        def run(pc, label, target, normal, gen):
+        def run(pc, label, target, normal, gen, draws=None, init=None):
             return cw_knn(logits_fn, pc, target, gen, chamfer_knn_dist,
                           normal=normal, attack_lr=1e-3, num_iter=iters,
                           budget=args.knn_budget, kappa=args.kappa,
-                          device_chunk_iters=chunk)
+                          device_chunk_iters=chunk, draws=draws)
         return run, "target_normal"
 
     if name in ("fgm", "ifgm", "mifgm", "pgd"):
@@ -249,21 +281,92 @@ def build_attack(args, logits_fn, masked_logits_fn=None):
         step_size = budget / iters
         iterative = {"ifgm": ifgm, "mifgm": mifgm, "pgd": pgd}.get(name)
 
-        def run(pc, label, target, normal, gen):
+        def run(pc, label, target, normal, gen, draws=None, init=None):
             if iterative is None:
                 return fgm(logits_fn, pc, target, budget)
             return iterative(logits_fn, pc, target, budget, step_size, iters,
-                             generator=gen)
+                             generator=gen, draws=draws)
         return run, "target"
 
     if name == "drop":
-        def run(pc, label, target, normal, gen):
+        def run(pc, label, target, normal, gen, draws=None, init=None):
             adv, still_correct = saliency_drop(masked_logits_fn, pc, label,
                                                args.num_drop)
             return adv, ~still_correct
         return run, "untarget"
 
     raise ValueError(name)
+
+
+def attack_draws(args, pc: torch.Tensor, gen: torch.Generator):
+    """The draws that `build_attack`'s run makes from `gen` for the batch
+    `pc`, made whole by the attacks' own draw functions: a tree whose
+    tensors have the batch on their first axis, or None."""
+    B = len(pc)
+    na = args.num_add
+    name = args.attack
+    if name in ("perturb", "add", "add_cluster"):
+        # [binary_step, B, ...] -> batch first
+        shape = {"perturb": None, "add": (B, na or 512, 3),
+                 "add_cluster": (B, (na or 3) * 32, 3)}[name]
+        steps = args.binary_step or (5 if name == "add_cluster" else 10)
+        return step_normals(pc, steps, gen, shape).transpose(0, 1)
+    if name == "add_object":
+        draws = object_draws(pc.new_empty((B, na or 3, 64, 3)),
+                             pc.new_empty((B, na or 3, 3)),
+                             args.binary_step or 5, gen)
+        return tuple(d.transpose(0, 1) for d in draws)
+    if name in ("knn", "ifgm", "mifgm"):
+        return normal_like(pc, gen)
+    if name == "pgd":
+        return pgd_draws(pc, gen)
+    return None
+
+
+def _steps_first(draws, binary: bool):
+    """A share of `attack_draws`' tree in the attacks' own layout (binary
+    steps first)."""
+    if draws is None or not binary:
+        return draws
+    if isinstance(draws, tuple):
+        return tuple(d.transpose(0, 1) for d in draws)
+    return draws.transpose(0, 1)
+
+
+def attack_batch(args, runs: list, logits_fns: list, mesh, pc, label,
+                 target, normal, gen) -> tuple:
+    """One batch (on the mesh's first device) -> (adv, success) there. The
+    whole batch's draws (and the cluster and object attacks' numpy inits,
+    from the whole batch's critical points) are made first, then each
+    device attacks its share (the calling thread when there is one) with
+    the means over the whole batch."""
+    devices = mesh_devices(mesh)
+    B = len(pc)
+    draws = attack_draws(args, pc, gen)
+    shards = shard_batch((pc, label, target, normal, draws), mesh)
+    inits = [None] * len(runs)
+    if args.attack in ("add_cluster", "add_object"):
+        def critical(i, part):
+            with shard_of(B):
+                return get_critical_points(logits_fns[i], part[0], part[2],
+                                           128).detach().cpu().numpy()
+
+        cri = run_shards(critical, shards, devices)
+        num_add = args.num_add or 3
+        init = (cluster_init(cri, num_add, 32, args.seed)
+                if args.attack == "add_cluster"
+                else object_init(cri, num_add, 64, 0.3, args.seed))
+        inits = np.split(init, len(runs))
+    binary = args.attack in ("perturb", "add", "add_cluster", "add_object")
+
+    def one(i, part):
+        x, lab, tgt, nrm, d = part
+        with shard_of(B):
+            adv, succ = runs[i](x, lab, tgt, nrm, None,
+                                draws=_steps_first(d, binary), init=inits[i])
+        return adv.detach().to(devices[0]), succ.to(devices[0])
+
+    return run_shards(one, shards, devices)
 
 
 def _victim_fns(model, victim_dtype: str):
@@ -315,30 +418,36 @@ def _load_shard(path: str):
         return None
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """Run the attack; (output path or None, success rate). `devices` (for
+    tests) replaces the devices `--device` names, repeats allowed."""
     args = parse_args(argv)
     device = device_of(args.device)
     if device.type == "cuda":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    mesh = best_data_mesh(args.batch_size,
+                          args.device if devices is None else devices)
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        return _attack(args, device)
+        return _attack(args, mesh)
     finally:
         torch.use_deterministic_algorithms(deterministic)
 
 
-def _attack(args, device: torch.device):
+def _attack(args, mesh):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    device = mesh_devices(mesh)[0]
     resolved_ckpt = resolve_checkpoint(
         args.checkpoint, args.model, args.num_points, args.registry)
     model, meta = load_eval_model(resolved_ckpt, args.model)
     model.to(device)
     for p in model.parameters():
         p.requires_grad_(False)
-    logits_fn, masked_logits_fn = _victim_fns(model, args.victim_dtype)
-    run, mode = build_attack(args, logits_fn, masked_logits_fn)
+    fns = [_victim_fns(m, args.victim_dtype) for m in replicate(model, mesh)]
+    runs, modes = zip(*[build_attack(args, *f) for f in fns])
+    mode = modes[0]
 
     if mode == "target_normal":
         ds = ModelNet40NormalAttack(args.data, args.num_points)
@@ -380,8 +489,9 @@ def _attack(args, device: torch.device):
         label = torch.from_numpy(np.asarray(batch[1])).long().to(device)
         target = (torch.from_numpy(np.asarray(batch[2])).long().to(device)
                   if len(batch) > 2 else label)
-        adv, succ = run(pc, label, target, normal,
-                        batch_generator(args.seed, bi, device))
+        adv, succ = attack_batch(
+            args, runs, [f[0] for f in fns], mesh, pc, label, target, normal,
+            batch_generator(args.seed, bi, device))
         adv, succ = adv.detach().cpu().numpy(), succ.cpu().numpy()
         b_label = np.asarray(batch[1][:valid])
         b_target = np.asarray(batch[2][:valid] if len(batch) > 2

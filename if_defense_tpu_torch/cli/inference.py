@@ -5,7 +5,10 @@ Normal mode reports accuracy; target mode also reports targeted success
 (pred == target). Add-family attack outputs get their point count grown
 from the filename (+512 Add, +3*32 Cluster, +3*64 Object), like the
 reference. The flags and the JSON metrics line are the JAX CLI's, plus
-`--device` (default `cuda`; `cpu` only when asked). Checkpoints are the
+`--device` (default `cuda`; `cpu` only when asked). Each batch is split
+over the most visible cards that divide it (`--device cuda`: every card,
+`cuda:i`: that one; `parallel.best_data_mesh`), the victim copied to each
+once, as the JAX CLI shards it over its mesh. Checkpoints are the
 port's flat npz (`utils/checkpoint.py`; `tools/victim_ckpt_to_npz.py`
 converts the JAX package's orbax directories). TF32 is off for matmuls and
 convolutions, so `--boundary_tau` changes the scoring alone: the forward
@@ -27,6 +30,13 @@ import torch
 from if_defense_tpu_torch.cli import device_of
 from if_defense_tpu_torch.data import ModelNet40, ModelNet40Attack, batch_iterator
 from if_defense_tpu_torch.models import build_model
+from if_defense_tpu_torch.parallel import (
+    best_data_mesh,
+    mesh_devices,
+    replicate,
+    run_shards,
+    shard_batch,
+)
 from if_defense_tpu_torch.training import make_eval_step
 from if_defense_tpu_torch.utils import MetricsWriter
 from if_defense_tpu_torch.utils.cache import BoundedCache
@@ -132,8 +142,11 @@ def parse_args(argv=None):
 _EVAL_CACHE = BoundedCache()
 
 
-def _load_eval_cached(args, device: torch.device):
-    """(model, meta, eval_step) on `device`, cached across main() calls.
+def _load_eval_cached(args, mesh):
+    """(model, meta, eval_step) over the mesh's devices, cached across
+    main() calls; `eval_step` takes a batch on the first device, runs a
+    share on each device (a victim copy on each) and returns the logits
+    there.
 
     Scoring many npz files against one victim in one process loads the
     checkpoint once. registry: names are resolved before keying (the
@@ -145,22 +158,35 @@ def _load_eval_cached(args, device: torch.device):
     ck = resolve_checkpoint(
         args.checkpoint, args.model, args.num_points, args.registry)
     mtime = os.path.getmtime(ck) if os.path.exists(ck) else None
-    key = (os.path.abspath(ck), mtime, args.model, str(device))
+    devices = mesh_devices(mesh)
+    key = (os.path.abspath(ck), mtime, args.model,
+           tuple(str(d) for d in devices))
 
     def build():
         model, meta = load_eval_model(ck, args.model)
-        model.to(device)
-        return model, meta, make_eval_step(model)
+        model.to(devices[0])
+        steps = [make_eval_step(m) for m in replicate(model, mesh)]
+
+        def eval_step(pc: torch.Tensor) -> torch.Tensor:
+            return run_shards(lambda i, x: steps[i](x).to(devices[0]),
+                              shard_batch(pc, mesh), devices)
+
+        return model, meta, eval_step
 
     return _EVAL_CACHE.get_or_build(key, build)
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """Score the npz; the metrics record. `devices` (for tests) replaces
+    the devices `--device` names, repeats allowed."""
     args = parse_args(argv)
-    device = device_of(args.device)
+    device_of(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _, meta, eval_step = _load_eval_cached(args, device)
+    mesh = best_data_mesh(args.batch_size,
+                          args.device if devices is None else devices)
+    device = mesh_devices(mesh)[0]
+    _, meta, eval_step = _load_eval_cached(args, mesh)
 
     num_points = args.num_points
     if not args.no_adjust_points:

@@ -6,9 +6,15 @@ implicit-surface optimisation, writes `convonet_opt-<file>.npz` into a
 `ConvONet-Opt/` subfolder beside the input (`onet_opt-<file>.npz` into
 `ONet-Opt/` for `--variant onet`, whose weights npz holds `params` and
 `batch_stats`), with a `.metrics.jsonl`
-sidecar. One device, eager (CUDA unless `--device cpu`); the tail batch
-is padded to the full batch size, because the loss (and so Adam's step
-near its eps) depends on B.
+sidecar. Eager, on the card unless `--device cpu`; the tail batch is
+padded to the full batch size, because the loss (and so Adam's step near
+its eps) depends on B. Each batch is split over the most visible cards
+that divide it (`--device cuda`: every card, `cuda:i`: that one;
+`parallel.best_data_mesh`), as the JAX CLI shards it over its mesh: the
+draws are made for the whole batch on the first card and split, each
+card restores its share in a thread of its own, and the loss's means
+divide by the whole batch's count, so a split batch computes what the
+unsplit one does.
 f32 modes run with TF32 off for matmuls and cuDNN convolutions.
 
 Usage:
@@ -33,6 +39,13 @@ from if_defense_tpu_torch.defense.ifdefense import (
     onet_opt_defense,
 )
 from if_defense_tpu_torch.implicit import ConvOccupancyNetwork, OccupancyNetwork
+from if_defense_tpu_torch.parallel import (
+    best_data_mesh,
+    mesh_devices,
+    replicate,
+    run_shards,
+    shard_batch,
+)
 from if_defense_tpu_torch.utils.params_io import (
     load_params_npz,
     params_from_jax,
@@ -83,10 +96,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_defend_fn(args, device: torch.device):
-    """The ConvONet-Opt or ONet-Opt defense over the weights file, on
-    `device`. As in the JAX CLI, `--interp_refresh` and
-    `--rep_graph_cache` apply to ConvONet only."""
+def build_defend_fns(args, mesh) -> list:
+    """The ConvONet-Opt or ONet-Opt defense over the weights file, one on
+    each device of the mesh (the model replicated once). As in the JAX
+    CLI, `--interp_refresh` and `--rep_graph_cache` apply to ConvONet
+    only."""
     if args.variant == "convonet":
         model, make = ConvOccupancyNetwork(), convonet_opt_defense
         extra = dict(interp_refresh=args.interp_refresh,
@@ -95,9 +109,9 @@ def build_defend_fn(args, device: torch.device):
         model, make, extra = OccupancyNetwork(), onet_opt_defense, {}
     model.load_state_dict(
         params_from_jax(load_params_npz(args.weights), model))
-    model.to(device).eval()
-    return make(
-        model,
+    model.to(mesh_devices(mesh)[0]).eval()
+    return [make(
+        replica,
         sample_npoint=args.sample_npoint,
         padding_scale=args.padding_scale,
         init_sigma=args.init_sigma,
@@ -112,26 +126,46 @@ def build_defend_fn(args, device: torch.device):
         exact_knn=args.exact_knn,
         compute_dtype=args.compute_dtype,
         **extra,
-    )
+    ) for replica in replicate(model, mesh)]
 
 
-def defend_clouds(defend, pc: np.ndarray, args, device: torch.device,
+def defend_batch(defends: list, mesh, batch: torch.Tensor,
+                 generator: torch.Generator) -> tuple:
+    """One batch (on the mesh's first device) -> (restored clouds there,
+    first-step occupancy loss, last-step one). The whole batch's draws are
+    made there and split; each device restores its share (the calling
+    thread when there is one) with the loss's means over the whole
+    batch."""
+    def one(i, draws):
+        part = {}
+        out = defends[i](None, draws=draws, stats=part,
+                         batch_total=len(batch))
+        return out, part["occ_loss_first"], part["occ_loss_last"]
+
+    shards = shard_batch(defends[0].draw(batch, generator), mesh)
+    parts = run_shards(one, shards, mesh_devices(mesh), concat=False)
+    out = torch.cat([o.to(batch.device) for o, _, _ in parts])
+    return (out, *(sum(p[j].to(batch.device) for p in parts)
+                   for j in (1, 2)))
+
+
+def defend_clouds(defends: list, mesh, pc: np.ndarray, args,
                   generator: torch.Generator, losses: list) -> np.ndarray:
     """Run the defense over all clouds in batches, padding the tail batch
     with copies of its last cloud. Appends each batch's first- and
     last-step occupancy losses to `losses`."""
     B = args.batch_size
+    device = mesh_devices(mesh)[0]
     outs = []
     for i in range(0, len(pc), B):
         batch = pc[i : i + B].astype(np.float32)
         pad = B - len(batch)
         if pad:
             batch = np.concatenate([batch, batch[-1:].repeat(pad, 0)], 0)
-        stats = {}
-        out = defend(torch.from_numpy(batch).to(device), generator,
-                     stats=stats)
+        out, first, last = defend_batch(
+            defends, mesh, torch.from_numpy(batch).to(device), generator)
         outs.append(out[: B - pad] if pad else out)
-        losses.append((stats["occ_loss_first"], stats["occ_loss_last"]))
+        losses.append((first, last))
     return torch.cat(outs, 0).cpu().numpy()
 
 
@@ -143,8 +177,9 @@ def get_save_name(path: str, variant: str) -> str:
     return os.path.join(folder, f"{variant}_opt-{os.path.basename(path)}")
 
 
-def defend_file(path: str, defend, args, device: torch.device) -> str:
+def defend_file(path: str, defends: list, mesh, args) -> str:
     d = load_npz(path)
+    device = mesh_devices(mesh)[0]
     generator = torch.Generator(device=device).manual_seed(args.seed)
     losses: list = []
     if device.type == "cuda":
@@ -153,12 +188,12 @@ def defend_file(path: str, defend, args, device: torch.device) -> str:
     out = {"test_label": d.test_label}
     if d.target_label is not None:
         out["target_label"] = d.target_label
-    out["test_pc"] = defend_clouds(defend, d.test_pc[..., :3], args, device,
+    out["test_pc"] = defend_clouds(defends, mesh, d.test_pc[..., :3], args,
                                    generator, losses)
     n = len(out["test_pc"])
     if args.train:
-        out["train_pc"] = defend_clouds(defend, d.train_pc[..., :3], args,
-                                        device, generator, losses)
+        out["train_pc"] = defend_clouds(defends, mesh, d.train_pc[..., :3],
+                                        args, generator, losses)
         out["train_label"] = d.train_label
         n += len(out["train_pc"])
     dt = time.perf_counter() - t0        # ends in a device-to-host copy
@@ -171,6 +206,7 @@ def defend_file(path: str, defend, args, device: torch.device) -> str:
         seconds=dt, clouds_per_sec=n / max(dt, 1e-9), output=save_path,
         device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu"),
+        devices=len(defends),
         occ_loss_first=float(np.mean(first)),
         occ_loss_last=float(np.mean(last)))
     line = json.dumps(record)
@@ -182,14 +218,18 @@ def defend_file(path: str, defend, args, device: torch.device) -> str:
     return save_path
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """Defend every npz of `--data_root`; the saved paths. `devices` (for
+    tests) replaces the devices `--device` names, repeats allowed."""
     args = parse_args(argv)
     device = device_of(args.device)
     if device.type == "cuda" and args.compute_dtype is None:
         # f32 reference numerics: no TF32 in matmuls or cuDNN convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    defend = build_defend_fn(args, device)
+    mesh = best_data_mesh(args.batch_size,
+                          args.device if devices is None else devices)
+    defends = build_defend_fns(args, mesh)
     if os.path.isdir(args.data_root):
         files = [
             os.path.join(args.data_root, f)
@@ -198,7 +238,7 @@ def main(argv=None):
         ]
     else:
         files = [args.data_root]
-    return [defend_file(f, defend, args, device) for f in files]
+    return [defend_file(f, defends, mesh, args) for f in files]
 
 
 if __name__ == "__main__":

@@ -6,8 +6,13 @@ encode -> occupancy on a lattice -> isosurface and 1024-point surface
 sampling -> unit-sphere normalisation -> npz, written as
 `<variant>_remesh-<file>.npz` into `ONet-Mesh/` (or `ConvONet-Mesh/`)
 beside the input, with a `.metrics.jsonl` sidecar. Encoding and occupancy
-run batched on one device, eagerly (CUDA unless `--device cpu`; f32 with
-TF32 off unless `--compute_dtype bfloat16`); the value grids cross to the
+run batched and eagerly on the card unless `--device cpu` (f32 with TF32
+off unless `--compute_dtype bfloat16`), each batch split over the most
+visible cards that divide it (`--device cuda`: every card, `cuda:i`: that
+one; `parallel.best_data_mesh`) as the JAX CLI shards it over its mesh:
+SOR and the encoder subset are computed for the whole batch on the first
+card, then each card encodes and evaluates its share; the value grids
+cross to the
 host in the `--wire` format, and the native isosurface code marches and
 samples each cloud there, one cloud per worker thread. The CLI runs under
 deterministic algorithms (restored on return; on the card it sets
@@ -55,6 +60,14 @@ from if_defense_tpu_torch.implicit.generation import (
     sample_value_grid,
 )
 from if_defense_tpu_torch.ops import normalize_unit_cube
+from if_defense_tpu_torch.parallel import (
+    best_data_mesh,
+    data_parallel_mesh,
+    mesh_devices,
+    replicate,
+    run_shards,
+    shard_batch,
+)
 from if_defense_tpu_torch.utils import MetricsWriter
 from if_defense_tpu_torch.utils.meshio import export_mesh
 from if_defense_tpu_torch.utils.params_io import (
@@ -144,9 +157,17 @@ def _sync(device: torch.device) -> None:
 def remesh_batch(model, input_n, batch_pc, args, rng, generator,
                  dense_fn=None, decode_fn=None, encode_fn=None,
                  sparse_fn=None, mesh_tag="", mesh_base=0, mesh_valid=None,
-                 draws=None, timings=None):
+                 draws=None, timings=None, mesh=None, replicas=None):
     """Defend one [B, K, 3] batch; returns ([B, sample_npoint, 3], [B]
     failed flags).
+
+    SOR and the encoder subset are computed for the whole batch on
+    `model`'s device, then split over the devices of `mesh` (by default
+    that device alone), where the model's `replicas` (`parallel.
+    replicate`) encode and evaluate each share, the calling thread when
+    there is one share, else a thread each (`timings` then gets the
+    phases' times, not `compute_value_grids`' keys); the host work runs
+    over the whole batch.
 
     `draws` replaces the random encoder subset ([B, input_n, 3] on the
     model's device; tests pass JAX's). `mesh_tag`/`mesh_base` name the
@@ -162,6 +183,9 @@ def remesh_batch(model, input_n, batch_pc, args, rng, generator,
     B = batch_pc.shape[0]
     if mesh_valid is None:
         mesh_valid = B
+    if mesh is None:
+        mesh, replicas = data_parallel_mesh(device=device), [model]
+    devices = mesh_devices(mesh)
 
     if args.save_mesh:
         mesh_dir = os.path.join(args.save_mesh, mesh_tag)
@@ -192,7 +216,8 @@ def remesh_batch(model, input_n, batch_pc, args, rng, generator,
         proc = normalize_unit_cube(pc, args.padding_scale, mask)
         sel = (sample_valid(proc, mask, input_n, generator)
                if draws is None else draws)
-        c = encode_fn(model, sel)
+        latents = run_shards(lambda i, s: encode_fn(replicas[i], s),
+                             shard_batch(sel, mesh), devices, concat=False)
         proc_np = proc.cpu().numpy()
         mask_np = mask.cpu().numpy() > 0.5
     if timings is not None:
@@ -206,17 +231,23 @@ def remesh_batch(model, input_n, batch_pc, args, rng, generator,
     )
     box = 1.0 + DEFAULT_PADDING
 
-    def occupancy(fn, *a, **kw):
+    def occupancy(fn):
+        """fn(model, latent, timings) on each share of the batch, timed as
+        the occupancy phase; the results in shard order. Split shares
+        keep no inner timings."""
+        inner = timings if len(devices) == 1 else None
         t1 = time.perf_counter()
         with torch.profiler.record_function("remesh.occupancy"):
-            out = fn(*a, **kw)
+            out = run_shards(lambda i, cc: fn(replicas[i], cc, inner),
+                             latents, devices, concat=False)
         if timings is not None:
             timings["occupancy_s"] = time.perf_counter() - t1
         return out
 
     def grids(**kw):
-        return occupancy(compute_value_grids, decode_fn, model, c,
-                         **{**gen_kwargs, "timings": timings, **kw})
+        parts = occupancy(lambda m, cc, t: compute_value_grids(
+            decode_fn, m, cc, **{**gen_kwargs, "timings": t, **kw}))
+        return np.concatenate([v for v, _ in parts]), parts[0][1]
 
     def seeds():
         # one base draw + per-cloud offset, fixed up front: the output
@@ -229,33 +260,33 @@ def remesh_batch(model, input_n, batch_pc, args, rng, generator,
         degenerate surface)."""
         if args.sample_mode == "direct" and sparse_fn is not None:
             meta = sparse_fn.sparse_meta
-            out_np = occupancy(lambda: {
-                k: v.cpu().numpy() for k, v in sparse_fn(model, c).items()})
+            # one dict a share: each share sizes its own block budget
+            parts = occupancy(lambda m, cc, t: {
+                k: v.cpu().numpy() for k, v in sparse_fn(m, cc).items()})
+            share = B // len(parts)
             if timings is not None:
-                timings["wire_bytes"] = sum(v.nbytes for v in out_np.values())
-            if "dense" in out_np:
+                timings["wire_bytes"] = sum(v.nbytes for out_np in parts
+                                            for v in out_np.values())
+            if any("dense" in out_np for out_np in parts):
                 # auto-demoted to the dense int8 wire (active blocks nearly
                 # everywhere): the same int8 values, so the same samples
                 print("NOTE: sparse wire auto-demoted to dense int8 "
                       "(active blocks ≥ dense-wire bytes)")
-                s = seeds()
-                for b in range(B):
-                    def one(b=b):
-                        vol = out_np["dense"][b]
-                        save_mesh(b, vol=vol, iso=meta["iso"])
-                        return sample_value_grid(
-                            vol, meta["iso"], box, args.sample_npoint,
-                            seed=s[b])
-                    yield one
-                return
             dense_cache = []                  # lazy per-batch fallback
             fallback_lock = threading.Lock()
             s = seeds()
             for b in range(B):
                 def one(b=b):
+                    out_np, bl = parts[b // share], b % share
+                    if "dense" in out_np:
+                        vol = out_np["dense"][bl]
+                        save_mesh(b, vol=vol, iso=meta["iso"])
+                        return sample_value_grid(
+                            vol, meta["iso"], box, args.sample_npoint,
+                            seed=s[b])
                     try:
                         vol = assemble_sparse_grid(
-                            out_np, b, block=meta["block"],
+                            out_np, bl, block=meta["block"],
                             nb=meta["nb"], rp=meta["rp"])
                     except RuntimeError:
                         # block budget clipped: the dense int8 wire for
@@ -285,8 +316,10 @@ def remesh_batch(model, input_n, batch_pc, args, rng, generator,
                 yield one
         else:
             # the marching runs inside generate_meshes here
-            meshes = occupancy(generate_meshes, decode_fn, model, c,
-                               **gen_kwargs)
+            meshes = [surface for part in occupancy(
+                lambda m, cc, t: generate_meshes(decode_fn, m, cc,
+                                                 **gen_kwargs))
+                for surface in part]
             for b, (verts, tris) in enumerate(meshes):
                 def one(b=b, v=verts, t=tris):
                     save_mesh(b, verts=v, tris=t)
@@ -339,11 +372,12 @@ def remesh_batch(model, input_n, batch_pc, args, rng, generator,
 
 
 def defend_clouds(model, input_n, pc, args, dense_fn=None, decode_fn=None,
-                  encode_fn=None, sparse_fn=None, mesh_tag="", draws=None):
+                  encode_fn=None, sparse_fn=None, mesh_tag="", draws=None,
+                  mesh=None, replicas=None):
     """Every cloud of `pc` in batches of `--batch_size`, the tail batch
     padded with copies of its last cloud. `draws`: an iterator of encoder
-    subsets, one per batch (see `remesh_batch`). -> (defended clouds,
-    fallback count)."""
+    subsets, one per batch; `mesh`, `replicas`: the split (see
+    `remesh_batch`). -> (defended clouds, fallback count)."""
     device = next(model.parameters()).device
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -358,7 +392,8 @@ def defend_clouds(model, input_n, pc, args, dense_fn=None, decode_fn=None,
             model, input_n, batch, args, rng, generator, dense_fn,
             decode_fn, encode_fn, sparse_fn, mesh_tag=mesh_tag,
             mesh_base=i, mesh_valid=B - pad,
-            draws=None if draws is None else next(draws))
+            draws=None if draws is None else next(draws), mesh=mesh,
+            replicas=replicas)
         if pad:
             out, failed = out[: B - pad], failed[: B - pad]
         outs.append(out)
@@ -401,27 +436,33 @@ def build_eval_fns(args, model):
 CUBLAS_WORKSPACE = ":4096:8"     # cuBLAS's deterministic workspace
 
 
-def main(argv=None, draws=None):
+def main(argv=None, draws=None, devices=None):
     """Defend every npz of `--data_root`; the saved paths. `draws` (for
-    tests): an iterator of encoder subsets, one per batch in run order."""
+    tests): an iterator of encoder subsets, one per batch in run order;
+    `devices` (for tests) replaces the devices `--device` names, repeats
+    allowed."""
     args = parse_args(argv)
     device = device_of(args.device)
     if device.type == "cuda":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    mesh = best_data_mesh(args.batch_size,
+                          args.device if devices is None else devices)
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        return _remesh(args, device, draws)
+        return _remesh(args, mesh, draws)
     finally:
         torch.use_deterministic_algorithms(deterministic)
 
 
-def _remesh(args, device: torch.device, draws) -> list:
+def _remesh(args, mesh, draws) -> list:
+    device = mesh_devices(mesh)[0]
     if device.type == "cuda" and args.compute_dtype is None:
         # f32 reference numerics: no TF32 in matmuls or cuDNN convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     model, input_n = build_model(args, device)
+    split = dict(mesh=mesh, replicas=replicate(model, mesh))
     dense_fn, sparse_fn, decode_fn, encode_fn = build_eval_fns(args, model)
     # dense_fn is None for ONet: there the coarse+refine path runs and
     # honours --compute_dtype
@@ -453,12 +494,12 @@ def _remesh(args, device: torch.device, draws) -> list:
         stem = os.path.splitext(os.path.basename(path))[0]
         out["test_pc"], fails = defend_clouds(
             model, input_n, d.test_pc[..., :3], args, *fns,
-            mesh_tag=os.path.join(stem, "test"), draws=draws)
+            mesh_tag=os.path.join(stem, "test"), draws=draws, **split)
         n = len(out["test_pc"])
         if args.train:
             out["train_pc"], f2 = defend_clouds(
                 model, input_n, d.train_pc[..., :3], args, *fns,
-                mesh_tag=os.path.join(stem, "train"), draws=draws)
+                mesh_tag=os.path.join(stem, "train"), draws=draws, **split)
             out["train_label"] = d.train_label
             n += len(out["train_pc"])
             fails += f2

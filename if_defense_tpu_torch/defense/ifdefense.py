@@ -64,10 +64,31 @@ def sample_valid(pc: torch.Tensor, mask: torch.Tensor, n: int,
     return index_points(pc, order.gather(1, j[None, :] % cnt[:, None]))
 
 
-def occupancy_bce(logits: torch.Tensor, threshold: float) -> torch.Tensor:
-    """BCE-with-logits against the soft occupancy target, mean over all."""
-    return F.binary_cross_entropy_with_logits(
-        logits, torch.full_like(logits, threshold))
+def occupancy_bce(logits: torch.Tensor, threshold: float,
+                  count: int) -> torch.Tensor:
+    """BCE-with-logits against the soft occupancy target: the sum over
+    these logits divided by `count`, the logits of the whole batch (so a
+    shard's part of the batch's mean; the mean for the whole batch)."""
+    return _ShardBCE.apply(logits, torch.full_like(logits, threshold), count)
+
+
+class _ShardBCE(torch.autograd.Function):
+    """A shard's part of the mean BCE over the whole batch. Its gradient,
+    `(sigmoid(x) - t) * g / count`, is rounded as the built-in mean's
+    backward rounds it, so each logit gets the bits the unsplit batch
+    gives it."""
+
+    @staticmethod
+    def forward(ctx, logits, target, count):
+        ctx.save_for_backward(logits, target)
+        ctx.count = count
+        return F.binary_cross_entropy_with_logits(
+            logits, target, reduction="sum") / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, target = ctx.saved_tensors
+        return (logits.sigmoid() - target) * g / ctx.count, None, None
 
 
 class Adam:
@@ -120,7 +141,7 @@ def make_opt_defense(
     rep_graph_cache: bool = False,
 ):
     """Build the defense: (model, pc [B, K, 3], generator=None, draws=None,
-    stats=None) -> [B, sample_npoint, 3].
+    stats=None, batch_total=None) -> [B, sample_npoint, 3].
 
     `encode_fn(model, pc)` / `decode_fn(model, p, c)` apply the frozen
     implicit model. `draws=(sel [B, input_npoint, 3], pts [B,
@@ -134,6 +155,15 @@ def make_opt_defense(
     decoder and repulsion in bf16 with f32 master points and Adam state;
     `interp_refresh=R > 1` re-lerps cached bilinear corners for R steps;
     `rep_graph_cache` freezes the repulsion neighbour mask per window.
+
+    Sharding a batch (`parallel`): `defend.draw(pc, generator)` makes the
+    draws of the whole batch as `defend` would (SOR, unit cube, the subset,
+    the noisy initial points), to be split and handed to each shard's
+    `defend` as `draws`; `batch_total`, the whole batch's cloud count
+    (this call's own B by default), is what the loss's means over the
+    batch divide by, so a shard's gradients are the unsplit batch's. The
+    shard's `stats` are then its parts of the batch's losses, which sum
+    to them.
     """
     if rep_graph_cache and interp_refresh <= 1:
         raise ValueError(
@@ -149,25 +179,29 @@ def make_opt_defense(
     # exact_knn / knn_refresh > 1 keep the index-carrying path
     use_fused = knn_refresh == 1 and not exact_knn
 
-    def defend(model, pc: torch.Tensor, generator: torch.Generator | None = None,
-               draws=None, stats: dict | None = None) -> torch.Tensor:
-        if draws is None:
-            if generator is None:
-                raise ValueError("defend needs a generator or draws")
-            if sor:
-                pc, mask = sor_defense(pc, sor_k, sor_alpha)
-            else:
-                mask = torch.ones(pc.shape[:2], dtype=pc.dtype,
-                                  device=pc.device)
-            proc = normalize_unit_cube(pc, padding_scale, mask)
-            sel = sample_valid(proc, mask, input_npoint, generator)
-            pts = sample_valid(proc, mask, sample_npoint, generator)
-            noise = torch.randn(pts.shape, generator=generator,
-                                device=pts.device, dtype=pts.dtype)
-            pts = (pts + noise * init_sigma).clamp(
-                -0.5 * padding_scale, 0.5 * padding_scale)
+    def draw(pc: torch.Tensor, generator: torch.Generator):
+        """(encoder subset [B, input_npoint, 3], initial points [B,
+        sample_npoint, 3]) of the batch, drawn from `generator`."""
+        if generator is None:
+            raise ValueError("defend needs a generator or draws")
+        if sor:
+            pc, mask = sor_defense(pc, sor_k, sor_alpha)
         else:
-            sel, pts = draws
+            mask = torch.ones(pc.shape[:2], dtype=pc.dtype, device=pc.device)
+        proc = normalize_unit_cube(pc, padding_scale, mask)
+        sel = sample_valid(proc, mask, input_npoint, generator)
+        pts = sample_valid(proc, mask, sample_npoint, generator)
+        noise = torch.randn(pts.shape, generator=generator,
+                            device=pts.device, dtype=pts.dtype)
+        pts = (pts + noise * init_sigma).clamp(
+            -0.5 * padding_scale, 0.5 * padding_scale)
+        return sel, pts
+
+    def defend(model, pc: torch.Tensor, generator: torch.Generator | None = None,
+               draws=None, stats: dict | None = None,
+               batch_total: int | None = None) -> torch.Tensor:
+        sel, pts = draw(pc, generator) if draws is None else draws
+        total = len(pts) if batch_total is None else batch_total
 
         # frozen, and in eval mode: ONet's batch norms use running stats
         loop_model = copy.deepcopy(model).requires_grad_(False).eval()
@@ -184,14 +218,15 @@ def make_opt_defense(
                 occ = decode_fn(loop_model, p, c)
             else:
                 occ = decode_cached_fn(loop_model, p, c, cache)
-            occ_loss = occupancy_bce(occ.float(), threshold) * sample_npoint
+            occ_loss = occupancy_bce(occ.float(), threshold,
+                                     total * sample_npoint) * sample_npoint
             if rep_mask is not None:
                 rep_each = repulsion_loss_masked_auto(p, rep_mask)
             elif use_fused:
                 rep_each = repulsion_loss_auto(p)
             else:
                 rep_each = repulsion_loss_with_idx(p, idx)
-            rep = rep_each.float().mean() * rep_weight
+            rep = rep_each.float().sum() / total * rep_weight
             return occ_loss + rep, occ_loss
 
         adam = Adam(pts, lr)
@@ -236,6 +271,7 @@ def make_opt_defense(
                 p = step(p, i, idx, cache, rep_mask)
         return normalize_unit_sphere(p)
 
+    defend.draw = draw
     return defend
 
 
@@ -258,7 +294,8 @@ def _convonet_corner_fns(padding: float):
 
 
 def convonet_opt_defense(model, **kwargs):
-    """ConvONet-Opt: (pc, generator=None, draws=None, stats=None) ->
+    """ConvONet-Opt: (pc, generator=None, draws=None, stats=None,
+    batch_total=None) ->
     restored clouds. `interp_refresh > 1` enables the corner-cache decoder
     fast path for plane latents; a `grid` latent keeps the exact path (the
     reference mode's steps)."""
@@ -271,7 +308,8 @@ def convonet_opt_defense(model, **kwargs):
 
 
 def onet_opt_defense(model, **kwargs):
-    """ONet-Opt (z_dim 0): (pc, generator=None, draws=None, stats=None) ->
+    """ONet-Opt (z_dim 0): (pc, generator=None, draws=None, stats=None,
+    batch_total=None) ->
     restored clouds; 300 encoder points unless `input_npoint` says
     otherwise."""
     kwargs.setdefault("input_npoint", 300)
@@ -283,4 +321,6 @@ def _model_opt_defense(model, **kwargs):
         lambda m, p, c: m.decode(p, c),
         lambda m, pc: m.encode_inputs(pc),
         **kwargs)
-    return functools.partial(defend, model)
+    out = functools.partial(defend, model)
+    out.draw = defend.draw
+    return out

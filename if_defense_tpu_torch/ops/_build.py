@@ -20,8 +20,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -33,6 +36,8 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_info: dict = {}
+_count_lock = threading.Lock()
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -77,9 +82,19 @@ def _compile(sources, out_dir: Path) -> None:
 
 
 def libraries() -> dict[str, ctypes.CDLL]:
-    """{source stem: loaded library}, building first where needed."""
+    """{source stem: loaded library}, building first where needed. Safe
+    under threads: the first caller builds and loads every library under
+    a lock, and the dict is published only when it is whole."""
+    global _libs
     if _libs:
         return _libs
+    with _load_lock:
+        if not _libs:
+            _libs = _load()
+    return _libs
+
+
+def _load() -> dict[str, ctypes.CDLL]:
     sources = sorted(CSRC.glob("*.cu"))
     out = BUILD / _digest()
     t0 = time.perf_counter()
@@ -97,13 +112,13 @@ def libraries() -> dict[str, ctypes.CDLL]:
                     raise
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-    for src in sources:
-        _libs[src.stem] = ctypes.CDLL(str(out / f"lib{src.stem}.so"))
+    libs = {src.stem: ctypes.CDLL(str(out / f"lib{src.stem}.so"))
+            for src in sources}
     build_info.update(
         dir=str(out), cached=cached,
         seconds=time.perf_counter() - t0,
         logs={s.stem: (out / f"{s.stem}.log").read_text() for s in sources})
-    return _libs
+    return libs
 
 
 def bind(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
@@ -123,3 +138,18 @@ def check(lib: str, err: int, what: str) -> None:
         text.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({text(err).decode()})")
+
+
+def launch(lib: str, what: str, fn, args, t: torch.Tensor, launches: dict,
+           key: str) -> None:
+    """Call a kernel's C entry point `fn(*args, stream)` on the card that
+    holds `t`, count the launch in `launches[key]` and raise on a CUDA
+    error. The C side launches, and sets its kernels' shared-memory limits,
+    on the thread's current device: `torch.cuda.device` makes that `t`'s
+    card, and the stream is that card's current stream. The count is taken
+    under a lock, so it stays exact when threads launch at once."""
+    with torch.cuda.device(t.device):
+        err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    with _count_lock:
+        launches[key] += 1
+    check(lib, err, what)

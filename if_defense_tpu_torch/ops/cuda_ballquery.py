@@ -56,10 +56,8 @@ def ballquery_cuda(radius: float, nsample: int, xyz: torch.Tensor,
     fn = _build.bind("ballquery", "ifdef_ballquery",
                      [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P])
     # r2 rounds to f32 as the plain version's comparison with radius ** 2 does
-    err = fn(xyz.data_ptr(), new_xyz.data_ptr(),
-             None if valid is None else valid.data_ptr(), B, N, S, nsample,
-             float(radius) ** 2, out.data_ptr(),
-             torch.cuda.current_stream(xyz.device).cuda_stream)
-    launches["ballquery"] += 1
-    _build.check("ballquery", err, "ballquery")
+    _build.launch("ballquery", "ballquery", fn, (
+        xyz.data_ptr(), new_xyz.data_ptr(),
+        None if valid is None else valid.data_ptr(), B, N, S, nsample,
+        float(radius) ** 2, out.data_ptr()), xyz, launches, "ballquery")
     return out

@@ -65,10 +65,9 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
     dist = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
             if N > _register_n() else None)
     fn = _build.bind("fps", "ifdef_fps", [_P, _P, _P, _I, _I, _I, _P, _P, _P])
-    err = fn(xyz.data_ptr(), None if valid is None else valid.data_ptr(),
-             None if start is None else start.data_ptr(), B, N, npoint,
-             out.data_ptr(), None if dist is None else dist.data_ptr(),
-             torch.cuda.current_stream(xyz.device).cuda_stream)
-    launches["fps"] += 1
-    _build.check("fps", err, "fps")
+    _build.launch("fps", "fps", fn, (
+        xyz.data_ptr(), None if valid is None else valid.data_ptr(),
+        None if start is None else start.data_ptr(), B, N, npoint,
+        out.data_ptr(), None if dist is None else dist.data_ptr()),
+        xyz, launches, "fps")
     return out

@@ -44,10 +44,6 @@ _HEAD = [_P, _I, _PP, _PI, _I, _I, _I, _I, _I, _I, _F, _F]
 _UV_HEAD = [_P, _I, _P, _I, _I, _I, _I, _I]
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _head(p, planes, axes, inv_scale, hi) -> list:
     """The arguments the three C entry points share."""
     B, Q, _ = p.shape
@@ -66,10 +62,9 @@ class _PlaneFeatures(torch.autograd.Function):
         out = torch.empty((B, Q, C), dtype=planes[0].dtype, device=p.device)
         fn = _build.bind("interp", "ifdef_plane_features_fwd",
                          _HEAD + [_P, _P])
-        err = fn(*_head(p, planes, axes, inv_scale, hi), out.data_ptr(),
-                 _stream(p))
-        launches["plane_features"] += 1
-        _build.check("interp", err, "plane_features forward")
+        _build.launch("interp", "plane_features forward", fn,
+                      (*_head(p, planes, axes, inv_scale, hi), out.data_ptr()),
+                      p, launches, "plane_features")
         ctx.save_for_backward(p, *planes)
         ctx.params = (axes, inv_scale, hi)
         return out
@@ -93,9 +88,9 @@ class _PlaneFeatures(torch.autograd.Function):
             dp = torch.empty_like(p)
             fn = _build.bind("interp", "ifdef_plane_features_dp",
                              _HEAD + [_P, _P, _P])
-            err = fn(*head, g.data_ptr(), dp.data_ptr(), _stream(p))
-            launches["plane_features_dp"] += 1
-            _build.check("interp", err, "plane_features gradient to p")
+            _build.launch("interp", "plane_features gradient to p", fn,
+                          (*head, g.data_ptr(), dp.data_ptr()), p, launches,
+                          "plane_features_dp")
         if any(need_planes):
             # every cell of a plane asked for is written: no fill
             dplanes = [torch.empty_like(pl) if need else None
@@ -104,9 +99,9 @@ class _PlaneFeatures(torch.autograd.Function):
                 *[0 if d is None else d.data_ptr() for d in dplanes])
             fn = _build.bind("interp", "ifdef_plane_features_dplane",
                              _HEAD + [_P, _PP, _P])
-            err = fn(*head, g.data_ptr(), ptrs, _stream(p))
-            launches["plane_features_dplane"] += 1
-            _build.check("interp", err, "plane_features plane gradients")
+            _build.launch("interp", "plane_features plane gradients", fn,
+                          (*head, g.data_ptr(), ptrs), p, launches,
+                          "plane_features_dplane")
         return (dp, None, None, None, *dplanes)
 
 
@@ -169,9 +164,9 @@ class _PlaneSample(torch.autograd.Function):
                           device=uv.device)
         fn = _build.bind("interp", "ifdef_plane_sample_fwd",
                          _UV_HEAD + [_P, _P])
-        err = fn(*_uv_head(uv, plane), out.data_ptr(), _stream(uv))
-        launches["plane_sample"] += 1
-        _build.check("interp", err, "plane_sample forward")
+        _build.launch("interp", "plane_sample forward", fn,
+                      (*_uv_head(uv, plane), out.data_ptr()), uv, launches,
+                      "plane_sample")
         ctx.save_for_backward(uv, plane)
         return out
 
@@ -189,16 +184,16 @@ class _PlaneSample(torch.autograd.Function):
             duv = torch.empty_like(uv)
             fn = _build.bind("interp", "ifdef_plane_sample_duv",
                              _UV_HEAD + [_P, _P, _P])
-            err = fn(*head, g.data_ptr(), duv.data_ptr(), _stream(uv))
-            launches["plane_sample_duv"] += 1
-            _build.check("interp", err, "plane_sample gradient to uv")
+            _build.launch("interp", "plane_sample gradient to uv", fn,
+                          (*head, g.data_ptr(), duv.data_ptr()), uv, launches,
+                          "plane_sample_duv")
         if ctx.needs_input_grad[1]:
             dplane = torch.empty_like(plane)      # every cell is written
             fn = _build.bind("interp", "ifdef_plane_sample_dplane",
                              _UV_HEAD + [_P, _P, _P])
-            err = fn(*head, g.data_ptr(), dplane.data_ptr(), _stream(uv))
-            launches["plane_sample_dplane"] += 1
-            _build.check("interp", err, "plane_sample plane gradient")
+            _build.launch("interp", "plane_sample plane gradient", fn,
+                          (*head, g.data_ptr(), dplane.data_ptr()), uv,
+                          launches, "plane_sample_dplane")
         return duv, dplane
 
 

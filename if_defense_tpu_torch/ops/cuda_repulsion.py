@@ -31,10 +31,6 @@ launches = {"repulsion_loss": 0, "repulsion_mask": 0,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_points(pc: torch.Tensor, k: int) -> None:
     if not pc.is_cuda:
         raise ValueError("the CUDA repulsion kernels take CUDA tensors")
@@ -71,11 +67,10 @@ class _RepulsionLoss(torch.autograd.Function):
             (3, B, N), dtype=torch.float32, device=pc.device).unbind(0)
         fn = _build.bind("repulsion", "ifdef_repulsion_fwd",
                          [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P])
-        err = fn(pc.data_ptr(), _is_bf16(pc), B, N, k, radius, h, eps,
-                 loss.data_ptr(), thr.data_ptr(), frac.data_ptr(),
-                 rows.data_ptr(), _stream(pc))
-        launches["repulsion_loss"] += 1
-        _build.check("repulsion", err, "repulsion_loss forward")
+        _build.launch("repulsion", "repulsion_loss forward", fn, (
+            pc.data_ptr(), _is_bf16(pc), B, N, k, radius, h, eps,
+            loss.data_ptr(), thr.data_ptr(), frac.data_ptr(),
+            rows.data_ptr()), pc, launches, "repulsion_loss")
         ctx.save_for_backward(pc, thr, frac)
         ctx.params = (k, radius, h, eps)
         return loss
@@ -89,11 +84,10 @@ class _RepulsionLoss(torch.autograd.Function):
         grad = torch.empty_like(pc)
         fn = _build.bind("repulsion", "ifdef_repulsion_bwd",
                          [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P])
-        err = fn(pc.data_ptr(), _is_bf16(pc), B, N, k, radius, h, eps,
-                 thr.data_ptr(), frac.data_ptr(), g.data_ptr(),
-                 grad.data_ptr(), _stream(pc))
-        launches["repulsion_loss"] += 1
-        _build.check("repulsion", err, "repulsion_loss backward")
+        _build.launch("repulsion", "repulsion_loss backward", fn, (
+            pc.data_ptr(), _is_bf16(pc), B, N, k, radius, h, eps,
+            thr.data_ptr(), frac.data_ptr(), g.data_ptr(),
+            grad.data_ptr()), pc, launches, "repulsion_loss")
         return grad, None, None, None, None
 
 
@@ -105,11 +99,10 @@ class _RepulsionLossMasked(torch.autograd.Function):
         rows = torch.empty((B, N), dtype=torch.float32, device=pc.device)
         fn = _build.bind("repulsion", "ifdef_repulsion_masked_fwd",
                          [_P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P])
-        err = fn(pc.data_ptr(), _is_bf16(pc), mask.data_ptr(), B, N, k,
-                 radius, h, eps, loss.data_ptr(), rows.data_ptr(),
-                 _stream(pc))
-        launches["repulsion_loss_masked"] += 1
-        _build.check("repulsion", err, "repulsion_loss_masked forward")
+        _build.launch("repulsion", "repulsion_loss_masked forward", fn, (
+            pc.data_ptr(), _is_bf16(pc), mask.data_ptr(), B, N, k,
+            radius, h, eps, loss.data_ptr(), rows.data_ptr()),
+            pc, launches, "repulsion_loss_masked")
         ctx.save_for_backward(pc, mask)
         ctx.params = (k, radius, h, eps)
         return loss
@@ -123,10 +116,10 @@ class _RepulsionLossMasked(torch.autograd.Function):
         grad = torch.empty_like(pc)
         fn = _build.bind("repulsion", "ifdef_repulsion_masked_bwd",
                          [_P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P])
-        err = fn(pc.data_ptr(), _is_bf16(pc), mask.data_ptr(), B, N, k,
-                 radius, h, eps, g.data_ptr(), grad.data_ptr(), _stream(pc))
-        launches["repulsion_loss_masked"] += 1
-        _build.check("repulsion", err, "repulsion_loss_masked backward")
+        _build.launch("repulsion", "repulsion_loss_masked backward", fn, (
+            pc.data_ptr(), _is_bf16(pc), mask.data_ptr(), B, N, k,
+            radius, h, eps, g.data_ptr(), grad.data_ptr()),
+            pc, launches, "repulsion_loss_masked")
         return grad, None, None, None, None, None
 
 
@@ -147,10 +140,9 @@ def repulsion_mask_cuda(pc: torch.Tensor, nn_size: int = 5) -> torch.Tensor:
     mask = torch.empty((B, N, N), dtype=torch.int8, device=pc.device)
     fn = _build.bind("repulsion", "ifdef_repulsion_mask",
                      [_P, _I, _I, _I, _I, _P, _P])
-    err = fn(pc.data_ptr(), _is_bf16(pc), B, N, nn_size, mask.data_ptr(),
-             _stream(pc))
-    launches["repulsion_mask"] += 1
-    _build.check("repulsion", err, "repulsion_mask")
+    _build.launch("repulsion", "repulsion_mask", fn, (
+        pc.data_ptr(), _is_bf16(pc), B, N, nn_size, mask.data_ptr()),
+        pc, launches, "repulsion_mask")
     return mask
 
 

@@ -1018,3 +1018,55 @@ def test_cuda_grid_decode_matches_cpu(cuda):
     # its gradient on one device only: >= 99.9 % of the entries
     near = (gx - gx_c).abs() <= 1e-4 * float(gx_c.abs().max())
     assert float(near.float().mean()) >= 0.999, float(near.float().mean())
+
+
+def test_cuda_kernels_launch_on_their_tensors_card(cuda):
+    """B1-B6 on the last visible card while the current device is card 0:
+    each wrapper launches under its tensor's device, on that card's stream,
+    and matches its plain version there (B1, B3 rtol 1e-5, B2, B5, B6
+    bit-equal, B4's p form bit-equal forward and its gradient to p within
+    rtol 1e-4, its uv form forward bit-equal). Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (the kernels' device guard)")
+    from if_defense_tpu_torch.ops import cuda_repulsion as cr
+    from if_defense_tpu_torch.ops.cuda_ballquery import ballquery_cuda
+    from if_defense_tpu_torch.ops.cuda_fps import fps_cuda
+    from if_defense_tpu_torch.ops.cuda_interp import (
+        plane_features_cuda,
+        plane_sample_cuda,
+    )
+    from if_defense_tpu_torch.ops.interp import bilinear_plane_sample
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    pc = torch.from_numpy(_points(21)).to(last)
+    w = torch.tensor([1.0, 2.0], device=last)
+    lk, gk = _value_grad(cr.repulsion_loss_cuda, pc, w)
+    lp, gp = _value_grad(repulsion_loss_threshold, pc, w)
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-9)
+    _grad_close(gk, gp, 1e-4)
+    mask = cr.repulsion_mask_cuda(pc)
+    assert mask.device == last and torch.equal(mask, repulsion_mask(pc))
+    lk, _ = _value_grad(lambda x: cr.repulsion_loss_masked_cuda(x, mask),
+                        pc, w)
+    lp, _ = _value_grad(lambda x: repulsion_loss_masked(x, mask), pc, w)
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-9)
+
+    p, planes, g = _plane_inputs(last, 22, 3, torch.float32)
+    ok, dk = _features(plane_features_cuda, p, planes, g, True, False)
+    op, dp = _features(_plain_f32, p, planes, g, True, False)
+    assert torch.equal(ok, op)
+    _grad_close(dk.cpu(), dp.cpu(), 1e-4)
+    uv = p[..., :2].clamp(0, 1).contiguous()
+    plane = planes["xz"]
+    assert torch.equal(plane_sample_cuda(plane, uv),
+                       bilinear_plane_sample(plane, uv))
+
+    for level, (n, s, radius) in enumerate(SA_LEVELS):
+        x, _ = _sa_inputs(last, 30 + level, n, False)
+        assert torch.equal(fps_cuda(x, s), farthest_point_sample_plain(x, s))
+        q = x[:, :s].contiguous()
+        assert torch.equal(ballquery_cuda(radius, 32, x, q),
+                           query_ball_point_plain(radius, 32, x, q))
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0
