@@ -225,11 +225,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      two defense steps writing a trace that names B1's and B4's kernels;
      (d) `utils.config.get_model` on the two shipped configs (read with
      `load_config` where PyYAML imports, else as literal dicts) building
-     modules that strict-load (a)'s converted weights.
+     modules that strict-load (a)'s converted weights;
+ 18. sharded victim training (`training.make_train_step` and
+     `cli/train.py` with each batch split over [cuda:0, cuda:0]: two
+     shards, two threads, every train-mode batch norm on the whole batch's
+     statistics through `parallel.StatsExchange`), TF32 off: (a) each of
+     TRAIN_VICTIMS for 3 steps at B=4, N=1024, split against the card's
+     one-shard step from the same `flax_init_params(0)` values, batches
+     and dropout masks, each split step from the one-shard run's state:
+     loss rtol 1e-4, gradients and batch statistics by phase 14 (a)'s
+     bounds (`step_differs`), B5/B6 launches 2 x a forward's a step (each
+     shard launches its own); (b) PointNet++ at batch 32 for 5 steps held
+     the same way (B5 and B6 2 x 2 a step), two split runs of 5 steps
+     under deterministic algorithms bit-equal, and a train step's wall,
+     CUDA-event and device ms on one shard and split
+     (`tools/profile_train_step.py --devices`); (c) `cli/train.py` on
+     PointNet++ for 1 epoch at batch 32 on phase 14's data through the
+     `devices=` seam, split against one shard: the same record fields,
+     the epoch's train loss within TRAIN_CLI_RTOL (float32 trajectories
+     part; see the constant), each run's best checkpoint scored by
+     `cli/inference.py` at the accuracy the run recorded but for near
+     ties.
 The last lines are the rates, the defense step, victim batch, CW
 iteration, train step and remesh batch profiles, phase 16's rates, phase
-17's numbers, the card's name and power limit, one JSON line of the
-kernels, and `{"ok": true, "device": {...}}`.
+17's and phase 18's numbers, the card's name and power limit, one JSON
+line of the kernels, and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -359,6 +379,15 @@ TRAIN_B, TRAIN_EPOCHS, TRAIN_PER_CLASS = 32, 2, (40, 10)
 TRAIN_FORWARD_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (2, 2),
                           "dgcnn": (0, 0), "pointconv": (2, 0),
                           "rscnn": (2, 2)}
+# phase 18: sharded victim training, each batch split over [cuda:0,
+# cuda:0]; (b) PointNet++ at TRAIN_B for SPLIT_FULL_STEPS steps; (c) the
+# train CLI's epoch loss, split against one shard: their trajectories part
+# (float32 rounding differs with the split, and Adam turns a gradient near
+# rounding level into a step of the rate of either sign: at 128 points and
+# batch 4 on the CPU two such runs of PointNet++ part by 1e-3 after two
+# steps, 3.6e-2 after six), so the steps are held one by one in (a) and
+# (b), and the CLI's epoch mean loosely
+SPLIT_FULL_STEPS, TRAIN_CLI_RTOL = 5, 5e-2
 # phase 15: the mesh restoration. (a) small runs CUDA vs CPU at B clouds,
 # resolution0 x upsample, logits within MESH_TOL of the largest; (b)
 # cli/remesh_defense.py at its defaults (batch 32, a 129^3 lattice)
@@ -1738,6 +1767,33 @@ class KnnTap:
         dgcnn.knn_points = pointconv.knn_points = self.saved
 
 
+class SplitKnnTap(KnnTap):
+    """A `KnnTap` replay for a split forward: each shard's c-th kNN call
+    (the shard read from `parallel.current_exchange()`) gets its rows of
+    the c-th graph that a one-shard recording kept. `changed` counts the
+    rows whose own graph (as a set) differs from the replayed one."""
+
+    def __init__(self, graphs: list, sizes: list):
+        super().__init__(graphs)
+        self.starts = [sum(sizes[:i]) for i in range(len(sizes))]
+        self.sizes, self.calls = sizes, [0] * len(sizes)
+        self.changed = 0
+
+    def __call__(self, k, xyz, query=None, candidate_mask=None):
+        from if_defense_tpu_torch.ops import knn_points
+        from if_defense_tpu_torch.parallel import current_exchange
+
+        i = current_exchange()[1]
+        c, self.calls[i] = self.calls[i], self.calls[i] + 1
+        rows = slice(self.starts[i], self.starts[i] + self.sizes[i])
+        want = self.graphs[c][0][rows, ..., :k].to(xyz.device)
+        own = knn_points(k, xyz, xyz if query is None else query,
+                         candidate_mask=candidate_mask)
+        differs = (own.sort(-1).values != want.sort(-1).values).any(-1)
+        self.changed += int(differs.sum())       # one shard a thread
+        return want
+
+
 def regraphed(cpu: list, card: list) -> torch.Tensor:
     """Clouds whose kNN graph on the card (each call on the replayed
     graph's inputs) differs from the CPU's; fails unless each differing
@@ -2288,7 +2344,8 @@ def train_draw(gen: torch.Generator, masks: list):
 
 def step_differs(cpu, card) -> tuple[str | None, float, float]:
     """A train step on the card (`card`, after backward) against the same
-    step on the CPU (`cpu`): (what is out of phase 14 (a)'s bounds or None,
+    step on the CPU (`cpu`; in phase 18 the one-shard step on the card):
+    (what is out of phase 14 (a)'s bounds or None,
     the least gradient cosine, the largest batch-statistics error of its
     scale). Gradients: the
     biases that feed a batch norm (`batch_norm_fed_biases`: 0 but for
@@ -2300,7 +2357,7 @@ def step_differs(cpu, card) -> tuple[str | None, float, float]:
     first norms see centred clouds, whose means are 0 but for rounding)."""
     from if_defense_tpu_torch.models.common import batch_norm_fed_biases
 
-    grads = {n: p.grad.double() for n, p in cpu.named_parameters()}
+    grads = {n: p.grad.cpu().double() for n, p in cpu.named_parameters()}
     top = max(float(g.abs().max()) for g in grads.values())
     least, worst = 1.0, 0.0
     zero = batch_norm_fed_biases(cpu)
@@ -2319,7 +2376,7 @@ def step_differs(cpu, card) -> tuple[str | None, float, float]:
             if not cos >= GRAD_COS:
                 return (f"gradient of {n} at cosine {cos:.6f} to the "
                         "CPU's", least, 0)
-    stats = dict(cpu.named_buffers())
+    stats = {n: b.cpu() for n, b in cpu.named_buffers()}
     for n, g in card.named_buffers():
         w = stats[n]
         scale = float(w.abs().max())
@@ -2447,13 +2504,30 @@ def train_data(tmp: str) -> tuple[str, str]:
     return data, defended
 
 
+def near_ties(dev, model, data: str) -> int:
+    """The test clouds of `data` whose two best classes lie within
+    VICTIM_TOL of the largest logit magnitude of their batch (batches of
+    TRAIN_B, as `cli/inference.py` scores them)."""
+    from if_defense_tpu_torch.data import ModelNet40, batch_iterator
+    from if_defense_tpu_torch.training import make_eval_step
+
+    step = make_eval_step(model.to(dev))
+    near = 0
+    for (pc, _), valid in batch_iterator(
+            ModelNet40(data, 1024, partition="test"), TRAIN_B,
+            pad_last=True):
+        logits = step(torch.from_numpy(pc).to(dev)).cpu()[:valid]
+        top2 = logits.topk(2, -1).values
+        near += int((top2[:, 0] - top2[:, 1] <= VICTIM_TOL * float(
+            logits.abs().max())).sum())
+    return near
+
+
 def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
     """Phase 14 (b); see the module docstring. -> (steps/s per run and
     epoch, B5/B6 launches summed over the runs)."""
     from if_defense_tpu_torch.cli import inference, train
     from if_defense_tpu_torch.cli.inference import load_eval_model
-    from if_defense_tpu_torch.data import ModelNet40, batch_iterator
-    from if_defense_tpu_torch.training import make_eval_step
     from if_defense_tpu_torch.utils.checkpoint import load_metadata
     from if_defense_tpu_torch.utils.params_io import (
         adam_state_to_jax,
@@ -2513,16 +2587,8 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
                               "--registry", registry, "--normalize",
                               "--batch_size", str(TRAIN_B), "--device",
                               "cuda"])
-        step = make_eval_step(load_eval_model(
-            "registry:synth", name, 1024, registry)[0].to(dev))
-        near = 0
-        for (pc, _), valid in batch_iterator(
-                ModelNet40(data, 1024, partition="test"), TRAIN_B,
-                pad_last=True):
-            logits = step(torch.from_numpy(pc).to(dev)).cpu()[:valid]
-            top2 = logits.topk(2, -1).values
-            near += int((top2[:, 0] - top2[:, 1] <= VICTIM_TOL * float(
-                logits.abs().max())).sum())
+        near = near_ties(dev, load_eval_model(
+            "registry:synth", name, 1024, registry)[0], data)
         differ = round(abs(out["accuracy"] - best[name]) * out["n"])
         print(f"  cli/inference.py {name} (registry:synth): accuracy "
               f"{out['accuracy']:.4f}, the run's {best[name]:.4f}; "
@@ -3835,6 +3901,254 @@ def check_support(dev) -> tuple[dict, dict]:
             "configs": source}, launches
 
 
+def train_counts() -> dict:
+    """B5's and B6's launch counters (FPS, ball query)."""
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+
+    return {"fps": sum(cuda_fps.launches.values()),
+            "ballquery": sum(cuda_ballquery.launches.values())}
+
+
+def copy_train_state(dst, src) -> None:
+    """dst's weights, batch statistics, Adam state and count set to src's
+    (a copy: `load_state_dict` keeps tensors of the same device and
+    type)."""
+    import copy
+
+    dst.model.load_state_dict(src.model.state_dict())
+    dst.optimizer.load_state_dict(copy.deepcopy(src.optimizer.state_dict()))
+    dst.set_step(src.step)
+
+
+def split_states(dev, name: str, kw: dict, steps: int, split: list):
+    """Two train states of one victim on `dev` from the same
+    `flax_init_params(0)` values, with their steps: one shard, and split
+    over `split`. -> ((state, step), (state, step))."""
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    weights = params_from_jax(flax_init_params(0, name, **kw),
+                              build_model(name, **kw))
+    fea = 0.001 if kw else 0.0
+    out = []
+    for devices in (None, split):
+        state = create_train_state(build_model(name, **kw).to(dev),
+                                   total_epochs=1, steps_per_epoch=steps)
+        state.model.load_state_dict(weights)
+        out.append((state, make_train_step(state.model, False, fea,
+                                           devices=devices)))
+    return out
+
+
+def hold_split_steps(tag: str, dev, name: str, kw: dict, pc, label,
+                     b: int, split: list) -> dict:
+    """Phase 18 (a) and (b)'s comparison: len(pc) // b train steps of one
+    victim, split over `split` and on one shard, each split step from the
+    one-shard run's state with its dropout masks (drawn on the card,
+    replayed). Each step: loss rtol TRAIN_LOSS_RTOL, gradients and batch
+    statistics by `step_differs`; B5/B6 launches counted over the split
+    steps. DGCNN and PointConv replay the one-shard step's kNN graphs in
+    the split step (`SplitKnnTap`): the split moves the features' last
+    bits, and a near tie of DGCNN's feature-space kNN picks another
+    neighbour; the rows whose own graph differs are counted. -> the worst
+    figures, those launches and that count."""
+    steps = len(pc) // b
+    (one, one_step), (two, two_step) = split_states(dev, name, kw, steps,
+                                                    split)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    worst = dict(loss=0.0, cos=1.0, stats=0.0)
+    launches = {"fps": 0, "ballquery": 0}
+    regraphed_rows = 0
+    for i in range(steps):
+        copy_train_state(two, one)
+        x, y = pc[i * b:(i + 1) * b], label[i * b:(i + 1) * b]
+        masks = []
+        with KnnTap() as tap:
+            _, want = one_step(one, x, y, train_draw(gen, masks))
+        replay = iter(masks)
+        before = train_counts()
+        sizes = [b // len(split)] * len(split)
+        with SplitKnnTap(tap.log, sizes) as split_tap:
+            _, got = two_step(two, x, y, lambda shape, rate: next(replay))
+        torch.cuda.synchronize()
+        regraphed_rows += split_tap.changed
+        for k, v in train_counts().items():
+            launches[k] += v - before[k]
+        loss = abs(float(got["loss"]) - float(want["loss"])) / abs(
+            float(want["loss"]))
+        worst["loss"] = max(worst["loss"], loss)
+        if loss > TRAIN_LOSS_RTOL:
+            fail(f"{tag} step {i + 1}: loss {float(got['loss'])} split, "
+                 f"{float(want['loss'])} on one shard")
+        err, cos, stats = step_differs(one.model, two.model)
+        if err:
+            fail(f"{tag} step {i + 1}, split against one shard: {err}")
+        worst["cos"] = min(worst["cos"], cos)
+        worst["stats"] = max(worst["stats"], stats)
+    print(f"  {tag}: {steps} steps split over {len(split)} shards, loss "
+          f"rel {worst['loss']:.2e}, gradient cosine >= "
+          f"{worst['cos']:.7f}, batch statistics {worst['stats']:.2e} of "
+          f"their scale; B5/B6 launches {launches}; kNN rows of its own "
+          f"graph differing {regraphed_rows}")
+    return {**worst, "launches": launches, "regraphed_rows": regraphed_rows}
+
+
+def check_split_small(dev, split: list) -> dict:
+    """Phase 18 (a): each of TRAIN_VICTIMS, TRAIN_SMALL_STEPS steps at
+    TRAIN_SMALL_B, split in two against one shard."""
+    b, steps = TRAIN_SMALL_B, TRAIN_SMALL_STEPS
+    pc = victim_clouds(np.random.default_rng(16), b * steps).to(dev)
+    label = torch.from_numpy(np.random.default_rng(17).integers(
+        0, 40, b * steps)).to(dev)
+    out = {}
+    for name, kw in TRAIN_VICTIMS:
+        tag = name + ("_ft" if kw else "")
+        out[tag] = hold_split_steps(tag, dev, name, kw, pc, label, b, split)
+        forwards = TRAIN_FORWARD_LAUNCHES[name]
+        want = {"fps": steps * len(split) * forwards[0],
+                "ballquery": steps * len(split) * forwards[1]}
+        if out[tag]["launches"] != want:
+            fail(f"B5/B6 launches {out[tag]['launches']} in {tag}'s split "
+                 f"steps, not {want}")
+    return out
+
+
+def check_split_full(dev, split: list) -> dict:
+    """Phase 18 (b): PointNet++ at batch TRAIN_B, SPLIT_FULL_STEPS steps
+    split in two against one shard, then two split runs under
+    deterministic algorithms bit-equal, then a split and an unsplit step
+    profiled."""
+    from if_defense_tpu_torch.models.common import generator_draw
+
+    b, steps = TRAIN_B, SPLIT_FULL_STEPS
+    pc = victim_clouds(np.random.default_rng(20), b * steps).to(dev)
+    label = (torch.arange(b * steps, device=dev) * 7) % 40
+    held = hold_split_steps("pointnet2, full width", dev, "pointnet2", {},
+                            pc, label, b, split)
+    want = {k: steps * len(split) * v for k, v in zip(
+        ("fps", "ballquery"), TRAIN_FORWARD_LAUNCHES["pointnet2"])}
+    if held["launches"] != want:
+        fail(f"B5/B6 launches {held['launches']} in PointNet++'s split "
+             f"steps, not {want} (each shard launches its own)")
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            _, (state, step) = split_states(dev, "pointnet2", {}, steps,
+                                            split)
+            draw = generator_draw(torch.Generator(device=dev).manual_seed(21))
+            losses = [step(state, pc[i * b:(i + 1) * b],
+                           label[i * b:(i + 1) * b], draw)[1]["loss"]
+                      for i in range(steps)]
+            runs.append((torch.stack(losses).cpu(),
+                         {k: v.clone() for k, v in
+                          state.model.state_dict().items()}))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (la, sa), (lb, sb) = runs
+    same = torch.equal(la, lb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+    print(f"  two split runs of {steps} steps under deterministic "
+          f"algorithms: bit-equal {same}; losses {la.tolist()}")
+    if not same:
+        fail("two split PointNet++ runs under deterministic algorithms "
+             "differ")
+
+    print("  a PointNet++ train step, one shard and split "
+          "(tools/profile_train_step.py):")
+    prof = tool("profile_train_step")
+    times = {"one": prof.profile(dev, "pointnet2", b),
+             "split": prof.profile(dev, "pointnet2", b, devices=split)}
+    return {"held": held, "deterministic_bit_equal": same,
+            "step_ms": {k: {f: v[f] for f in ("wall_ms", "event_ms",
+                                              "device_ms", "busy_share")}
+                        for k, v in times.items()}}
+
+
+def check_split_cli(dev, tmp: str, split: list) -> dict:
+    """Phase 18 (c): `cli/train.py` on PointNet++ (1 epoch at batch
+    TRAIN_B on phase 14's data) through the `devices=` seam, one shard and
+    split: the same record fields, train loss within TRAIN_CLI_RTOL
+    (accuracies printed); each best checkpoint scored by `cli/inference.py`
+    at the accuracy its run recorded, but for near ties."""
+    from if_defense_tpu_torch.cli import inference, train
+    from if_defense_tpu_torch.cli.inference import load_eval_model
+
+    data, _ = train_data(tmp)
+    records, seconds, near = {}, {}, {}
+    for tag, devices in (("one", [dev]), ("split", split)):
+        out = os.path.join(tmp, f"split-cli-{tag}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train.main(["--data", data, "--model", "pointnet2", "--batch_size",
+                    str(TRAIN_B), "--epochs", "1", "--output", out,
+                    "--registry", os.path.join(out, "registry.json"),
+                    "--device", "cuda"], devices=devices)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records[tag] = [json.loads(line) for line in f][0]
+        best = os.path.join(out, "best.npz")
+        scored = inference.main(["--data", data, "--checkpoint", best,
+                                 "--model", "pointnet2", "--normalize",
+                                 "--batch_size", str(TRAIN_B), "--device",
+                                 "cuda"])
+        near[tag] = near_ties(dev, load_eval_model(best, "pointnet2")[0],
+                              data)
+        differ = round(abs(scored["accuracy"] - records[tag]["test_acc"])
+                       * scored["n"])
+        print(f"  cli/train.py pointnet2 ({tag}, {len(devices)} shard(s)): "
+              f"{seconds[tag]:.2f} s, train_loss "
+              f"{records[tag]['train_loss']:.6f}, train_acc "
+              f"{records[tag]['train_acc']:.4f}, test_acc "
+              f"{records[tag]['test_acc']:.4f}; cli/inference.py on its "
+              f"best.npz {scored['accuracy']:.4f} ({near[tag]} near ties)")
+        if differ > near[tag]:
+            fail(f"scoring the {tag} run's best checkpoint: "
+                 f"{scored['accuracy']}, the run recorded "
+                 f"{records[tag]['test_acc']}")
+    one, two = records["one"], records["split"]
+    loss = abs(two["train_loss"] - one["train_loss"]) / one["train_loss"]
+    print(f"  split against one shard: train_loss rel {loss:.2e} (bound "
+          f"{TRAIN_CLI_RTOL:g}), train_acc {two['train_acc']} / "
+          f"{one['train_acc']}, test_acc {two['test_acc']} / "
+          f"{one['test_acc']}")
+    if set(one) != set(two) or one["epoch"] != two["epoch"]:
+        fail(f"the split cli/train.py run's record {two}, the unsplit "
+             f"one's {one}")
+    if loss > TRAIN_CLI_RTOL:
+        fail(f"the split cli/train.py run's train loss {two['train_loss']}"
+             f" is {loss:.2e} off the unsplit one's {one['train_loss']}")
+    return {"seconds": seconds, "train_loss_rel": loss}
+
+
+def check_split_training(dev) -> tuple[dict, dict]:
+    """Phase 18: sharded victim training over [cuda:0, cuda:0] (two shards,
+    two threads), TF32 off; see the module docstring. -> (the numbers
+    printed, B5/B6 launches of the phase)."""
+    t0 = time.perf_counter()
+    zero_launches()
+    split = [dev, dev]
+    small = check_split_small(dev, split)
+    full = check_split_full(dev, split)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = check_split_cli(dev, tmp, split)
+    launches = train_counts()
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s; B5/B6 "
+          f"launches {launches}")
+    return {"small": {k: {f: v[f] for f in ("loss", "cos", "stats")}
+                      for k, v in small.items()},
+            "full": full, "cli": cli}, launches
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -4071,6 +4385,14 @@ def main() -> int:
     support, launches["support"] = check_support(dev)
     print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
 
+    print("phase 18: sharded victim training over [cuda:0, cuda:0]: small "
+          f"steps split against one shard, PointNet++ at batch {TRAIN_B} "
+          "split, deterministic reruns and step times, cli/train.py split")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharded, launches["sharded"] = check_split_training(dev)
+    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
     used_in = {"repulsion_loss": ("reference grid support",
@@ -4080,9 +4402,10 @@ def main() -> int:
                "repulsion_mask": ("fast", ("repulsion_mask",)),
                "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
                "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup victims attack fit pointconv support", ("fps",)),
-               "ballquery": ("dup victims attack fit pointconv support",
-                             ("ballquery",)),
+               "fps": ("dup victims attack fit pointconv support sharded",
+                       ("fps",)),
+               "ballquery": ("dup victims attack fit pointconv support "
+                             "sharded", ("ballquery",)),
                "plane_sample": ("uv", ("plane_sample", "plane_sample_duv",
                                        "plane_sample_dplane")),
                "plane_features_dplane": ("train", ("plane_features",
@@ -4115,6 +4438,8 @@ def main() -> int:
     print("grid ConvONet and PointConvONet (phase 16): "
           + json.dumps(grid_rates) + f" on {card}")
     print("support layer (phase 17): " + json.dumps(support) + f" on {card}")
+    print("sharded victim training (phase 18): " + json.dumps(sharded)
+          + f" on {card}")
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

@@ -13,9 +13,6 @@ as `jnp.maximum` does.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
 from torch.nn import functional as F
 
@@ -24,30 +21,10 @@ from if_defense_tpu_torch.ops import (
     hausdorff_distance,
     knn_self,
 )
-
-
-# the whole batch's count while this thread runs a share of it
-_BATCH_TOTAL = contextvars.ContextVar("batch_total", default=None)
-
-
-@contextlib.contextmanager
-def shard_of(total: int):
-    """Inside, `batch_mean` divides by `total`, the count of the batch that
-    this thread's examples are a share of."""
-    token = _BATCH_TOTAL.set(total)
-    try:
-        yield
-    finally:
-        _BATCH_TOTAL.reset(token)
-
-
-def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over the batch of per-example values [B], `x.sum() /
-    total`: inside `shard_of(total)` this share's part of the whole
-    batch's mean, else `total` is B. Each example's gradient is the
-    incoming one over the count, rounded as `x.mean()`'s is."""
-    total = _BATCH_TOTAL.get()
-    return x.sum() / (len(x) if total is None else total)
+from if_defense_tpu_torch.parallel.batch_stats import (  # noqa: F401
+    batch_mean,
+    shard_of,
+)
 
 
 def logits_adv_loss(logits: torch.Tensor, target: torch.Tensor,

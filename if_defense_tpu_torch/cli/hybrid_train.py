@@ -16,11 +16,12 @@ from __future__ import annotations
 from if_defense_tpu_torch.cli.train import main as train_main, parse_args
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """`cli.train.main` with `--def_data` required; `devices` as there."""
     args = parse_args(argv)
     if not args.def_data:
         raise SystemExit("hybrid training requires --def_data")
-    return train_main(argv)
+    return train_main(argv, devices)
 
 
 if __name__ == "__main__":

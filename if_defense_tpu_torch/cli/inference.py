@@ -30,13 +30,7 @@ import torch
 from if_defense_tpu_torch.cli import device_of
 from if_defense_tpu_torch.data import ModelNet40, ModelNet40Attack, batch_iterator
 from if_defense_tpu_torch.models import build_model
-from if_defense_tpu_torch.parallel import (
-    best_data_mesh,
-    mesh_devices,
-    replicate,
-    run_shards,
-    shard_batch,
-)
+from if_defense_tpu_torch.parallel import best_data_mesh, mesh_devices
 from if_defense_tpu_torch.training import make_eval_step
 from if_defense_tpu_torch.utils import MetricsWriter
 from if_defense_tpu_torch.utils.cache import BoundedCache
@@ -144,9 +138,9 @@ _EVAL_CACHE = BoundedCache()
 
 def _load_eval_cached(args, mesh):
     """(model, meta, eval_step) over the mesh's devices, cached across
-    main() calls; `eval_step` takes a batch on the first device, runs a
-    share on each device (a victim copy on each) and returns the logits
-    there.
+    main() calls; `eval_step` (`training.make_eval_step`) takes a batch
+    on the first device, runs a share on each device (a victim copy on
+    each) and returns the logits there.
 
     Scoring many npz files against one victim in one process loads the
     checkpoint once. registry: names are resolved before keying (the
@@ -165,13 +159,7 @@ def _load_eval_cached(args, mesh):
     def build():
         model, meta = load_eval_model(ck, args.model)
         model.to(devices[0])
-        steps = [make_eval_step(m) for m in replicate(model, mesh)]
-
-        def eval_step(pc: torch.Tensor) -> torch.Tensor:
-            return run_shards(lambda i, x: steps[i](x).to(devices[0]),
-                              shard_batch(pc, mesh), devices)
-
-        return model, meta, eval_step
+        return model, meta, make_eval_step(model, devices)
 
     return _EVAL_CACHE.get_or_build(key, build)
 

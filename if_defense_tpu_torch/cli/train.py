@@ -5,7 +5,20 @@ Adam(1e-3, wd 1e-4) + cosine anneal, periodic eval (every `--eval_every`
 epochs and in the last 20), best-checkpoint snapshot by test accuracy (by
 defended accuracy with --def_data), `--resume`. The flags and the
 `metrics.jsonl` records are the JAX CLI's, plus `--device` (default `cuda`;
-`cpu` only when asked). One device, eager; TF32 off.
+`cpu` only when asked). Eager; TF32 off.
+
+Each train and eval batch is split over `parallel.best_data_mesh(
+--batch_size, --device)`, the most devices that divide the batch, as the
+JAX CLI shards it: `--device cuda` is every visible card, `cuda:i` that
+card alone, `cpu` one CPU device. A split train step computes what the
+unsplit one does (the whole batch's batch-norm statistics, means and
+gradient, the same dropout masks; `training.make_train_step`); one
+device runs the same code as one shard. The split runs in one process,
+one thread a card, under one interpreter lock, with a rendezvous at
+every batch norm: on an H100 node a PointNet++ step at batch 32 split
+over four cards took 5.9x as long as on one card (PERF.md, PR 15). So
+`--device cuda:0` trains faster today than `--device cuda` on a node of
+several cards.
 
 The victim starts from `utils.params_io.flax_init_params(--seed)` (flax's
 distributions, drawn with numpy), and dropout draws its keep masks from one
@@ -34,6 +47,7 @@ from if_defense_tpu_torch.cli import device_of
 from if_defense_tpu_torch.data import ModelNet40, ModelNet40Hybrid, batch_iterator
 from if_defense_tpu_torch.models import build_model
 from if_defense_tpu_torch.models.common import Draw, generator_draw
+from if_defense_tpu_torch.parallel import best_data_mesh, mesh_devices
 from if_defense_tpu_torch.training import (
     AverageMeter,
     create_train_state,
@@ -93,20 +107,27 @@ def dropout_draws(seed: int, device: torch.device) -> Iterator[Draw]:
         yield draw
 
 
-def evaluate(eval_step, dataset, batch_size: int,
-             device: torch.device) -> float:
+def evaluate(eval_step, dataset, batch_size: int) -> float:
+    """Test accuracy: padded batches (`pad_last`, so each splits over the
+    eval step's devices), only the valid rows scored."""
     correct, total = 0, 0
     for (pc, label), valid in batch_iterator(dataset, batch_size, pad_last=True):
-        logits = eval_step(torch.from_numpy(pc.astype(np.float32)).to(device))
+        logits = eval_step(torch.from_numpy(pc.astype(np.float32)))
         pred = logits.argmax(-1).cpu().numpy()[:valid]
         correct += int((pred == label[:valid]).sum())
         total += valid
     return correct / max(total, 1)
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """Train; the best test accuracy. `devices` (for tests) replaces the
+    devices `--device` names, repeats allowed."""
     args = parse_args(argv)
-    device = device_of(args.device)
+    device_of(args.device)
+    mesh = best_data_mesh(args.batch_size,
+                          args.device if devices is None else devices)
+    devices = mesh_devices(mesh)
+    device = devices[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.output, exist_ok=True)
@@ -150,8 +171,9 @@ def main(argv=None):
     train_step = make_train_step(
         model, smoothing=args.smoothing,
         fea_reg_weight=0.001 if args.feature_transform else 0.0,
+        devices=devices,
     )
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, devices)
 
     best_acc, best_epoch = 0.0, 0
     best_def_acc, best_def_epoch = 0.0, 0
@@ -164,8 +186,8 @@ def main(argv=None):
             train_ds, args.batch_size, shuffle=True, drop_last=True,
             seed=args.seed + epoch,
         ):
-            pc = torch.from_numpy(pc.astype(np.float32)).to(device)
-            label = torch.from_numpy(label).long().to(device)
+            pc = torch.from_numpy(pc.astype(np.float32))
+            label = torch.from_numpy(label).long()
             state, m = train_step(state, pc, label, next(draws))
             steps.append((torch.stack([m["loss"], m["acc"]]), len(label)))
         # the step metrics come back to the host once an epoch
@@ -175,7 +197,7 @@ def main(argv=None):
                 loss_meter.update(loss, n)
                 acc_meter.update(acc, n)
         if epoch % args.eval_every == 0 or epoch > args.epochs - 20:
-            acc = evaluate(eval_step, test_ds, args.batch_size, device)
+            acc = evaluate(eval_step, test_ds, args.batch_size)
             record = {
                 "epoch": epoch, "train_loss": loss_meter.avg,
                 "train_acc": acc_meter.avg, "test_acc": acc,
@@ -183,8 +205,7 @@ def main(argv=None):
             }
             def_acc = None
             if def_test_ds is not None:
-                def_acc = evaluate(eval_step, def_test_ds, args.batch_size,
-                                   device)
+                def_acc = evaluate(eval_step, def_test_ds, args.batch_size)
                 record["def_test_acc"] = def_acc
             metrics.write(**record)
             # ">= at first eval": an all-wrong eval (acc exactly 0.0) must

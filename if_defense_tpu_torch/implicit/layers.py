@@ -15,6 +15,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from if_defense_tpu_torch.parallel.batch_stats import current_exchange
+
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5          # every batch norm of the JAX package
 
 
@@ -44,10 +46,14 @@ class BatchNorm(nn.Module):
     the last.
 
     In training mode it normalises with the batch's mean and biased
-    variance (flax's E[x^2] - E[x]^2, clipped at 0) and moves the running
-    buffers `mean` and `var` to 0.9 old + 0.1 batch; `torch.nn.BatchNorm1d`
-    would keep the unbiased variance, n/(n-1) larger. In eval mode it uses
-    the buffers. `affine` adds flax's `scale` and `bias`.
+    variance (flax's E[x^2] - E[x]^2, clipped at 0), mean = sum x / n and
+    E[x^2] = sum x^2 / n, and moves the running buffers `mean` and `var`
+    to 0.9 old + 0.1 batch; `torch.nn.BatchNorm1d` would keep the unbiased
+    variance, n/(n-1) larger. Inside a shard of a split step
+    (`parallel.batch_stats.StatsExchange.shard`) the sums and n are the
+    whole split batch's, so every shard normalises, and moves its
+    buffers, as the unsplit batch would. In eval mode it uses the
+    buffers. `affine` adds flax's `scale` and `bias`.
     """
 
     def __init__(self, features: int, affine: bool = True):
@@ -60,8 +66,13 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+            sums = torch.stack([x.sum(axes), (x * x).sum(axes)])
+            n = x.numel() // x.shape[-1]
+            context = current_exchange()
+            if context is not None:
+                sums, n = context[0].all_sum(sums, n)
+            mean, mean_sq = sums / n
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean
                                 + (1 - BN_MOMENTUM) * mean)

@@ -13,11 +13,13 @@ where flax passes `train`.
 Dropout takes its keep masks from a `draw` callable `(shape, rate) -> keep
 mask`, which each victim's forward accepts and calls once per dropout
 layer in call order (flax draws a mask per `nn.Dropout` from a key folded
-per module); `generator_draw` makes one from a `torch.Generator`.
+per module); `generator_draw` makes one from a `torch.Generator`, and
+`split_draw` shares one among the shards of a split batch.
 """
 
 from __future__ import annotations
 
+import threading
 from collections.abc import Callable, Sequence
 
 import torch
@@ -38,6 +40,39 @@ def generator_draw(gen: torch.Generator) -> Draw:
         return torch.rand(shape, generator=gen, device=gen.device) >= rate
 
     return draw
+
+
+def split_draw(draw: Draw, sizes: Sequence[int]) -> list[Draw]:
+    """One `draw` per shard of a batch split into shards of `sizes` rows,
+    in order. The k-th call of any shard gets its rows of one whole-batch
+    mask, drawn from `draw` once, by whichever shard makes its k-th call
+    first: the masks are drawn in the unsplit forward's order and are its
+    bits, whatever the threads' timing."""
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    total, masks, lock = sum(sizes), [], threading.Lock()
+
+    def shard(i: int) -> Draw:
+        calls = 0
+
+        def draw_rows(shape: tuple, rate: float) -> torch.Tensor:
+            nonlocal calls
+            if shape[0] != sizes[i]:
+                raise ValueError(f"shard {i} of {sizes[i]} rows draws "
+                                 f"{tuple(shape)}")
+            with lock:
+                if calls == len(masks):
+                    masks.append(draw((total, *shape[1:]), rate))
+                mask = masks[calls]
+            calls += 1
+            if tuple(mask.shape[1:]) != tuple(shape[1:]):
+                raise ValueError(f"shard {i}'s dropout call {calls - 1} "
+                                 f"draws {tuple(shape)}, another shard's "
+                                 f"{tuple(mask.shape)}")
+            return mask[starts[i]:starts[i] + sizes[i]]
+
+        return draw_rows
+
+    return [shard(i) for i in range(len(sizes))]
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

@@ -21,6 +21,7 @@ from if_defense_tpu_torch.models.common import (
     dropout,
     max_pool_points,
 )
+from if_defense_tpu_torch.parallel.batch_stats import batch_mean
 
 
 class STN(nn.Module):
@@ -99,7 +100,8 @@ class PointNetCls(nn.Module):
 
 
 def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
-    """|| T T^t - I ||_F penalty, averaged over the batch."""
+    """|| T T^t - I ||_F penalty, averaged over the batch (`batch_mean`:
+    over the whole batch inside a shard of a split step)."""
     eye = torch.eye(trans.shape[1], dtype=trans.dtype, device=trans.device)
     m = torch.bmm(trans, trans.transpose(1, 2)) - eye
-    return torch.linalg.matrix_norm(m).mean()
+    return batch_mean(torch.linalg.matrix_norm(m))

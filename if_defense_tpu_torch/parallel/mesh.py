@@ -20,6 +20,10 @@ import torch
 BATCH_AXIS = "dp"
 
 
+class ShardAborted(RuntimeError):
+    """Raised in a shard that stopped because another shard failed."""
+
+
 class Mesh:
     """An n-d array of torch devices with one name per axis."""
 
@@ -175,8 +179,10 @@ def run_shards(fn: Callable[[int, Any], Any], shards: list,
     caller's grad and inference modes, in the idiom of
     `torch.nn.parallel.parallel_apply`. One shard runs in the calling
     thread. The first exception of any shard (by shard index) is
-    re-raised once every thread has ended. -> the results concatenated in
-    shard order (`concat_results`), or their list with `concat=False`."""
+    re-raised once every thread has ended, a `ShardAborted` (a shard
+    stopped by another's failure) only where no shard has another. -> the
+    results concatenated in shard order (`concat_results`), or their list
+    with `concat=False`."""
     if len(shards) != len(devices):
         raise ValueError(f"{len(shards)} shards for {len(devices)} devices")
     grad, inference = torch.is_grad_enabled(), \
@@ -202,7 +208,10 @@ def run_shards(fn: Callable[[int, Any], Any], shards: list,
             t.start()
         for t in threads:
             t.join()
+    errors = [e for e in errors if e is not None]
     for e in errors:
-        if e is not None:
+        if not isinstance(e, ShardAborted):
             raise e
+    if errors:
+        raise errors[0]
     return concat_results(results) if concat else results

@@ -6,15 +6,26 @@ added to the gradient (torch's `Adam(weight_decay=)`, which is optax's
 `add_decayed_weights` before `scale_by_adam`), a per-step cosine decay to
 `eta_min` over the epoch budget (`optax.cosine_decay_schedule`), cross
 entropy with optional eps-0.2 label smoothing, and PointNet's optional
-feature-transform regulariser. The step is eager on one device; the
-batch-norm statistics move inside the train-mode forward (the port's
-`BatchNorm` has flax's semantics), and dropout draws its keep masks from
-the `draw` passed to the step (`models.common.dropout`).
+feature-transform regulariser. The step is eager; the batch-norm
+statistics move inside the train-mode forward (the port's `BatchNorm` has
+flax's semantics), and dropout draws its keep masks from the `draw` passed
+to the step (`models.common.dropout`).
+
+Data parallelism, as the JAX step's over a sharded batch: the steps split
+each batch over a list of devices (one shard a device, one thread a
+shard, `parallel.run_shards`), on replicas of the model made once. In a
+train step every train-mode batch norm takes the whole batch's statistics
+(`parallel.StatsExchange`), the losses and the accuracy are whole-batch
+means (`parallel.batch_mean`), dropout takes the unsplit run's masks
+(`models.common.split_draw`), and the replicas' gradients are added into
+the model's (the master, the first replica) in shard order before Adam
+steps it. One device is one shard of the same code.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable
 
@@ -23,7 +34,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from if_defense_tpu_torch.models import feature_transform_regularizer
-from if_defense_tpu_torch.models.common import Draw
+from if_defense_tpu_torch.models.common import Draw, split_draw
+from if_defense_tpu_torch.parallel import (
+    StatsExchange,
+    batch_mean,
+    data_parallel_mesh,
+    mesh_devices,
+    replicate,
+    run_shards,
+    shard_batch,
+    shard_of,
+)
 from if_defense_tpu_torch.utils.params_io import params_to_jax
 
 
@@ -50,15 +71,17 @@ class TrainState:
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        smoothing: bool = False) -> torch.Tensor:
-    """CE loss, optionally with eps=0.2 label smoothing."""
+    """CE loss, optionally with eps=0.2 label smoothing; the mean over the
+    batch is `batch_mean` (over the whole batch in a shard of a split
+    step)."""
     n_class = logits.shape[-1]
     logp = F.log_softmax(logits, dim=-1)
     if smoothing:
         eps = 0.2
         one_hot = F.one_hot(labels.long(), n_class).to(logits.dtype)
         soft = one_hot * (1.0 - eps) + (1.0 - one_hot) * eps / (n_class - 1)
-        return -(soft * logp).sum(-1).mean()
-    return -logp.gather(-1, labels.long()[:, None]).mean()
+        return batch_mean(-(soft * logp).sum(-1))
+    return batch_mean(-logp.gather(-1, labels.long()[:, None])[:, 0])
 
 
 def cosine_decay(learning_rate: float, decay_steps: int,
@@ -92,46 +115,137 @@ def create_train_state(model: nn.Module, learning_rate: float = 1e-3,
     return TrainState(model, optimizer, scheduler)
 
 
+def _shards(model: nn.Module, devices):
+    """(the mesh over `devices`, or over the model's device where None;
+    the model's replicas on it, the model itself first)."""
+    home = next(model.parameters()).device
+    mesh = data_parallel_mesh(device=[home] if devices is None else devices)
+    if mesh_devices(mesh)[0] != home:
+        raise ValueError(f"the model is on {home}, the first of the "
+                         f"devices is {mesh_devices(mesh)[0]}")
+    return mesh, replicate(model, mesh)
+
+
+def _sync(replicas: list) -> None:
+    """Set every replica's weights and batch statistics to the first's
+    (the master's)."""
+    master = replicas[0]
+    with torch.no_grad():
+        for r in replicas[1:]:
+            for a, b in zip(master.parameters(), r.parameters()):
+                b.copy_(a)
+            for a, b in zip(master.buffers(), r.buffers()):
+                b.copy_(a)
+
+
+def _versions(module: nn.Module) -> tuple:
+    """The version counters of a module's weights and buffers: every
+    in-place write moves one (an optimiser step, a train-mode batch
+    norm's running statistics, `load_state_dict`)."""
+    return tuple(t._version for t in itertools.chain(module.parameters(),
+                                                     module.buffers()))
+
+
+def _add_grads(replicas: list) -> None:
+    """Add the other replicas' gradients into the master's, in shard
+    order."""
+    master = list(replicas[0].parameters())
+    for r in replicas[1:]:
+        for p, q in zip(master, r.parameters()):
+            if q.grad is None:
+                continue
+            if p.grad is None:
+                p.grad = q.grad.to(p.device, copy=True)
+            else:
+                p.grad.add_(q.grad.to(p.device))
+
+
 def make_train_step(model: nn.Module, smoothing: bool = False,
-                    fea_reg_weight: float = 0.0):
+                    fea_reg_weight: float = 0.0, devices=None):
     """The train step: (state, xyz [B, N, 3], label [B], draw) -> (state,
-    {"loss", "acc"} as 0-d tensors on the model's device, read back only
+    {"loss", "acc"} as 0-d tensors on the first device, read back only
     when the caller asks). A train-mode forward (the batch statistics move
     inside it), the loss (+ `fea_reg_weight` x PointNet's
     feature-transform regulariser where the forward returns
     `trans_feat`), backward, then the Adam and schedule steps. `draw` gives
-    the dropout keep masks (`models.common.generator_draw`)."""
+    the dropout keep masks (`models.common.generator_draw`).
+
+    `devices` (default: the model's device; the first must be the model's)
+    split each batch into as many shards, one a device, repeats allowed;
+    B must divide. Each shard's forward runs on its replica inside a
+    `StatsExchange` shard, its losses and accuracy as its part of the
+    whole batch's means, moved to the first device and added in shard
+    order; one backward, then the replicas' gradients added into the
+    master's in shard order. The replicas take the master's weights and
+    statistics at the start of every step. `state` holds the master."""
+    mesh, replicas = _shards(model, devices)
+    devices = mesh_devices(mesh)
 
     def train_step(state: TrainState, xyz: torch.Tensor, label: torch.Tensor,
                    draw: Draw | None):
-        model.train()
+        _sync(replicas)
         state.optimizer.zero_grad(set_to_none=True)
-        logits, aux = model(xyz, draw=draw)
-        loss = cross_entropy_loss(logits, label, smoothing)
-        if fea_reg_weight > 0.0 and "trans_feat" in aux:
-            loss = loss + fea_reg_weight * feature_transform_regularizer(
-                aux["trans_feat"])
+        for r in replicas:
+            r.train()
+        for r in replicas[1:]:
+            r.zero_grad(set_to_none=True)
+        shards = shard_batch((xyz, label), mesh)
+        total = len(label)
+        exchange = StatsExchange(devices)
+        draws = (None if draw is None
+                 else split_draw(draw, [len(y) for _, y in shards]))
+
+        def forward(i: int, shard):
+            pc, y = shard
+            with shard_of(total):
+                with exchange.shard(i):
+                    logits, aux = replicas[i](
+                        pc, draw=None if draws is None else draws[i])
+                loss = cross_entropy_loss(logits, y, smoothing)
+                if fea_reg_weight > 0.0 and "trans_feat" in aux:
+                    loss = loss + fea_reg_weight * \
+                        feature_transform_regularizer(aux["trans_feat"])
+                acc = batch_mean((logits.detach().argmax(-1) == y).float())
+            return loss.to(devices[0]), acc.to(devices[0])
+
+        parts = run_shards(forward, shards, devices, concat=False)
+        loss, acc = parts[0]
+        for shard_loss, shard_acc in parts[1:]:
+            loss, acc = loss + shard_loss, acc + shard_acc
         loss.backward()
+        _add_grads(replicas)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        acc = (logits.detach().argmax(-1) == label).float().mean()
         return state, {"loss": loss.detach(), "acc": acc}
 
     return train_step
 
 
-def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The eval step: [B, N, 3] clouds -> logits [B, num_classes], the
-    model in eval mode (running batch-norm statistics, no dropout) and no
-    autograd graph. The JAX package's step takes the variables as an
-    argument; here they live in the module."""
+def make_eval_step(model: nn.Module, devices=None
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The eval step: [B, N, 3] clouds -> logits [B, num_classes] on the
+    first device, the model in eval mode (running batch-norm statistics,
+    no dropout) and no autograd graph. `devices` splits the batch as
+    `make_train_step`'s do (no exchange: eval mode mixes no clouds); the
+    replicas take the master's weights at a call where these have moved
+    since the last (a train step, a load). The JAX package's step takes
+    the variables as an argument; here they live in the module."""
+    mesh, replicas = _shards(model, devices)
+    devices = mesh_devices(mesh)
+    synced = None
 
     def eval_step(xyz: torch.Tensor) -> torch.Tensor:
-        model.eval()
+        nonlocal synced
+        if len(replicas) > 1 and _versions(model) != synced:
+            _sync(replicas)
+            synced = _versions(model)
+        for r in replicas:
+            r.eval()
         with torch.no_grad():
-            logits, _ = model(xyz)
-        return logits
+            return run_shards(
+                lambda i, x: replicas[i](x)[0].to(devices[0]),
+                shard_batch(xyz, mesh), devices)
 
     return eval_step
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The five eval CLIs with their batches split over every visible card
-(`--device cuda`) against the same CLI on card 0 alone (`--device
-cuda:0`), and against the same split over card 0 alone, on the same
-files and weights.
+"""The five eval CLIs and victim training with their batches split over
+every visible card (`--device cuda`) against the same CLI on card 0 alone
+(`--device cuda:0`), and against the same split over card 0 alone, on the
+same files and weights.
 
     python3 tools/multicard_check.py [--out runs/multicard.json]
+        [--only train,inference,...]
 
 Inputs are made from seeds, at the CLIs' widths: 48 ellipsoid clouds of
 1024 points (8 outliers each); a ConvONet from the port's seeded init
@@ -16,7 +17,11 @@ Inputs are made from seeds, at the CLIs' widths: 48 ellipsoid clouds of
   logits on one 16-cloud batch;
 - `defend_npz`, SRS, SOR and DUP-Net (batch 48);
 - `attack`, PGD (10 steps, batch 16) on the victim;
-- `remesh_defense`, ConvONet-Mesh (batch 8, a 33^3 lattice).
+- `remesh_defense`, ConvONet-Mesh (batch 8, a 33^3 lattice);
+- `train`, PointNet++ from `flax_init_params(0)`, one epoch at batch 32
+  (10 steps, then the test split) on 320 train and 64 test clouds of 8
+  classes, deterministic; compared: the final weights (flat), each
+  epoch's train loss and test accuracy.
 
 Each runs five times, in this order: on card 0 (`one`), split over every
 card (`split`; `best_data_mesh` takes the most cards that divide the
@@ -28,9 +33,11 @@ pick other kernels), `split` against `same_card` (the same shares on
 other cards: bit-equal unless a card computes otherwise), and each
 against its warm rerun; and the wall time of every run (host clock
 around `main`). Prints the card's name and power limit, then one JSON
-line, also written to `--out`. Exits non-zero when fewer than two cards
-are visible, or when an output is not finite. Differences are reported,
-not failed on.
+line, also written to `--out`. `--only` runs the entries named
+(`opt_defense`, `inference`, `defend_npz`, `attack_pgd`,
+`remesh_defense`, `train`). Exits non-zero when fewer than two cards are
+visible, or when an output is not finite. Differences are reported, not
+failed on.
 """
 
 from __future__ import annotations
@@ -75,6 +82,8 @@ def compare(a: np.ndarray, b: np.ndarray) -> dict:
             "within_1e-4": float((gap <= 1e-4).mean())}
 
 
+ENTRIES = ("opt_defense", "inference", "defend_npz", "attack_pgd",
+           "remesh_defense", "train")
 RUNS = ("one", "split", "same_card", "split_warm", "one_warm")
 PAIRS = (("one", "split"), ("split", "same_card"), ("split", "split_warm"),
          ("one", "one_warm"))
@@ -116,7 +125,12 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "runs",
                                                  "multicard.json"))
+    p.add_argument("--only", default=",".join(ENTRIES),
+                   help="comma list of the entries to run")
     args = p.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(ENTRIES):
+        p.error(f"--only: {sorted(only - set(ENTRIES))} not in {ENTRIES}")
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < 2:
         print(f"needs two or more cards, {n} visible", file=sys.stderr)
@@ -132,6 +146,7 @@ def main() -> int:
         inference,
         opt_defense,
         remesh_defense,
+        train,
     )
     from if_defense_tpu_torch.data import load_npz
     from if_defense_tpu_torch.models import build_model
@@ -140,7 +155,9 @@ def main() -> int:
     from if_defense_tpu_torch.parallel import best_data_mesh
     from if_defense_tpu_torch.utils.checkpoint import save_eval_checkpoint
     from if_defense_tpu_torch.utils.params_io import (
+        flatten_params,
         init_params,
+        load_params_npz,
         params_to_jax,
         save_params_npz,
     )
@@ -150,7 +167,9 @@ def main() -> int:
     data = {"test_pc": pc, "test_label": label,
             "target_label": (label + 7) % 40}
     victim_pc = normalize_unit_sphere(torch.from_numpy(pc)).numpy()
+    vdata = {**data, "test_pc": victim_pc}
     results = {"cards": n}
+    deterministic = torch.are_deterministic_algorithms_enabled()
     with tempfile.TemporaryDirectory() as tmp:
         weights = save_params_npz(os.path.join(tmp, "convonet.npz"),
                                   init_params(0))
@@ -164,9 +183,7 @@ def main() -> int:
             {"model": "pointnet2"})
         del victim
 
-        deterministic = torch.are_deterministic_algorithms_enabled()
-        torch.use_deterministic_algorithms(True)
-        try:
+        if "opt_defense" in only:
             def opt(src, device, devices):
                 out, = opt_defense.main([
                     "--data_root", src, "--weights", weights,
@@ -174,58 +191,91 @@ def main() -> int:
                     "--sample_npoint", "1024", "--device", device],
                     devices=devices)
                 return load_npz(out).test_pc
-            results["opt_defense"] = runs(opt, tmp, "opt", data, 48)
-        finally:
-            torch.use_deterministic_algorithms(deterministic)
+            torch.use_deterministic_algorithms(True)
+            try:
+                results["opt_defense"] = runs(opt, tmp, "opt", data, 48)
+            finally:
+                torch.use_deterministic_algorithms(deterministic)
 
-        vdata = {**data, "test_pc": victim_pc}
+        if "inference" in only:
+            def score(src, device, devices):
+                record = inference.main([
+                    "--data", src, "--checkpoint", ckpt, "--batch_size",
+                    "16", "--mode", "target", "--device", device],
+                    devices=devices)
+                return {k: record[k] for k in ("accuracy", "target_success")}
+            results["inference"] = runs(score, tmp, "inference", vdata, 16)
+            iargs = inference.parse_args(["--data", "unused", "--checkpoint",
+                                          ckpt, "--batch_size", "16"])
+            x = torch.from_numpy(victim_pc[:16]).cuda()
+            cards = results["inference"]["cards"]
+            logits = {tag: inference._load_eval_cached(
+                iargs, best_data_mesh(16, devs))[2](x).cpu().numpy()
+                for tag, devs in (("one", "cuda:0"), ("split", "cuda"),
+                                  ("same_card", ["cuda:0"] * cards))}
+            results["inference"]["logits"] = {
+                "one_vs_split": compare(logits["one"], logits["split"]),
+                "split_vs_same_card": compare(logits["split"],
+                                              logits["same_card"])}
 
-        def score(src, device, devices):
-            record = inference.main([
-                "--data", src, "--checkpoint", ckpt, "--batch_size", "16",
-                "--mode", "target", "--device", device], devices=devices)
-            return {k: record[k] for k in ("accuracy", "target_success")}
-        results["inference"] = runs(score, tmp, "inference", vdata, 16)
-        iargs = inference.parse_args(["--data", "unused", "--checkpoint",
-                                      ckpt, "--batch_size", "16"])
-        x = torch.from_numpy(victim_pc[:16]).cuda()
-        cards = results["inference"]["cards"]
-        logits = {tag: inference._load_eval_cached(
-            iargs, best_data_mesh(16, devs))[2](x).cpu().numpy()
-            for tag, devs in (("one", "cuda:0"), ("split", "cuda"),
-                              ("same_card", ["cuda:0"] * cards))}
-        results["inference"]["logits"] = {
-            "one_vs_split": compare(logits["one"], logits["split"]),
-            "split_vs_same_card": compare(logits["split"],
-                                          logits["same_card"])}
+        if "defend_npz" in only:
+            def defend(src, device, devices):
+                return {name: load_npz(path).test_pc
+                        for name, path in zip(("srs", "sor", "dup"),
+                                              defend_npz.main([
+                                                  "--data_root", src,
+                                                  "--batch_size", "48",
+                                                  "--device", device],
+                                                  devices=devices))}
+            results["defend_npz"] = runs(defend, tmp, "defend", data, 48)
 
-        def defend(src, device, devices):
-            return {name: load_npz(path).test_pc
-                    for name, path in zip(("srs", "sor", "dup"),
-                                          defend_npz.main([
-                                              "--data_root", src,
-                                              "--batch_size", "48",
-                                              "--device", device],
-                                              devices=devices))}
-        results["defend_npz"] = runs(defend, tmp, "defend", data, 48)
+        if "attack_pgd" in only:
+            def pgd(src, device, devices):
+                out, rate = attack.main([
+                    "--attack", "pgd", "--data", src, "--checkpoint", ckpt,
+                    "--num_iter", "10", "--batch_size", "16", "--output",
+                    src + ".adv.npz", "--device", device], devices=devices)
+                return {"adv": load_npz(out).test_pc, "success_rate": rate}
+            results["attack_pgd"] = runs(
+                pgd, tmp, "attack", {**vdata, "test_pc": victim_pc[:16]}, 16)
 
-        def pgd(src, device, devices):
-            out, rate = attack.main([
-                "--attack", "pgd", "--data", src, "--checkpoint", ckpt,
-                "--num_iter", "10", "--batch_size", "16", "--output",
-                src + ".adv.npz", "--device", device], devices=devices)
-            return {"adv": load_npz(out).test_pc, "success_rate": rate}
-        results["attack_pgd"] = runs(pgd, tmp, "attack",
-                                     {**vdata, "test_pc": victim_pc[:16]}, 16)
+        if "remesh_defense" in only:
+            def remesh(src, device, devices):
+                out, = remesh_defense.main([
+                    "--variant", "convonet", "--data_root", src, "--weights",
+                    weights, "--batch_size", "8", "--resolution0", "32",
+                    "--device", device], devices=devices)
+                return load_npz(out).test_pc
+            results["remesh_defense"] = runs(remesh, tmp, "remesh",
+                                             {**data, "test_pc": pc[:8]}, 8)
 
-        def remesh(src, device, devices):
-            out, = remesh_defense.main([
-                "--variant", "convonet", "--data_root", src, "--weights",
-                weights, "--batch_size", "8", "--resolution0", "32",
-                "--device", device], devices=devices)
-            return load_npz(out).test_pc
-        results["remesh_defense"] = runs(remesh, tmp, "remesh",
-                                         {**data, "test_pc": pc[:8]}, 8)
+        if "train" in only:
+            def fit(src, device, devices):
+                out = src + ".run"
+                train.main(["--data", src, "--model", "pointnet2",
+                            "--batch_size", "32", "--epochs", "1",
+                            "--seed", "0", "--output", out, "--registry",
+                            os.path.join(out, "registry.json"),
+                            "--device", device], devices=devices)
+                with open(os.path.join(out, "metrics.jsonl")) as f:
+                    epochs = [r for r in map(json.loads, f) if "epoch" in r]
+                final = flatten_params(load_params_npz(
+                    os.path.join(out, "final.npz")))
+                return {"weights": np.concatenate(
+                            [np.ravel(v) for v in final.values()]),
+                        "train_loss": np.array([r["train_loss"]
+                                                for r in epochs]),
+                        "test_acc": np.array([r["test_acc"]
+                                              for r in epochs])}
+            fit_data = {"train_pc": clouds(1, 320),
+                        "train_label": np.arange(320) % 8,
+                        "test_pc": clouds(2, 64),
+                        "test_label": np.arange(64) % 8}
+            torch.use_deterministic_algorithms(True)
+            try:
+                results["train"] = runs(fit, tmp, "train", fit_data, 32)
+            finally:
+                torch.use_deterministic_algorithms(deterministic)
 
     line = json.dumps(results)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
