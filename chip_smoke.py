@@ -15,7 +15,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      points that the normalisation clamps) with two launches bit-identical;
      times each kernel, its plain version and B4's PyTorch yardstick (three
      `F.grid_sample` calls summed, forward + grid gradient) as set out
-     below;
+     below; then the encoder's scatter-mean kernel (`csrc/scatter.cu`,
+     which replaces no TPU kernel: on a line of its own, not in the
+     kernels' table) at the encoder's shapes (B=48, 600 points, 32
+     channels, into each of the three 64x64 planes' cells and the grid's
+     32^3): bit-equal to its plain version on a CPU copy, two launches
+     bit-equal, its gather backward bit-equal to the CPU's; timed at the
+     xz plane and the grid beside the plain version (`scatter_add_`) and
+     one `scatter_reduce_` mean call;
   3. checks the ConvONet-Opt path on a small input against the port's own
      CPU run (the plain versions) with the same draws, in both modes, at
      256 optimised points and at 6000;
@@ -25,7 +32,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      cache every 16 steps, cached repulsion graph), with every kernel
      launch counter set to 0 just before each run and read just after (B1
      402 and B4 201 + 201 launches in the reference mode, B3 402 in the
-     fast mode, B2 exactly 13: once per 16-step window); then profiles a
+     fast mode, B2 exactly 13: once per 16-step window; the scatter-mean
+     3 in each), then a second run of each mode, its output bit-equal to
+     the first run's (same --seed and file; on a failure the first module
+     input or output that differs between two hooked runs is named); then
+     profiles a
      reference-mode step of ConvONet-Opt and ONet-Opt
      (`tools/profile_defense_step.py`: 5 and 10 warm steps, differenced:
      wall ms, device ms, busy share, device operations);
@@ -70,7 +81,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      2048 queries, 64x64 planes, c_dim 32) and ONet at c_dim 512, hidden
      512, decoder 256, each twice (first and warm run), with B4's launch
      counters set to 0 just before the ConvONet runs and read just after
-     (one forward and one plane-gradient launch a step);
+     (one forward and one plane-gradient launch a step), and whether each
+     variant's two runs' weights are bit-equal (printed);
      then profiles 10 ConvONet steps with torch.profiler;
  11. checks a small ONet-Opt on the card against the port's CPU run, then
      runs `if_defense_tpu_torch.cli.opt_defense --variant onet` on phase 4's
@@ -206,11 +218,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      `module.` and PointConv seeded and calibrated), written with
      `torch.save` and converted through `if_defense_tpu_torch.convert`
      from the file (each tree equal to its source, each conversion timed);
-     the rest under deterministic algorithms (the ConvONet encoder's
-     scatter-mean otherwise sums with atomics, so two runs of one file
-     differ; one such run is held against a deterministic one and the
-     gap printed): `cli/opt_defense.py` (reference mode) on phase 4's
-     48 x 1024 clouds
+     the rest under deterministic algorithms, but for one
+     `cli/opt_defense.py` run as the CLI runs, which must be bit-equal to
+     the deterministic run: `cli/opt_defense.py` (reference mode) on
+     phase 4's 48 x 1024 clouds
      with the converted npz bit-equal to the run with the seeded tree (B1
      402, B4 201 + 201 launches), DUP-Net through `cli/defend_npz.py`
      with the converted PU-Net bit-equal to the repository's weights (B5
@@ -245,11 +256,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      the epoch's train loss within TRAIN_CLI_RTOL (float32 trajectories
      part; see the constant), each run's best checkpoint scored by
      `cli/inference.py` at the accuracy the run recorded but for near
-     ties.
+     ties;
+ 19. the accuracy protocol's tool, `tools/accuracy_benchmark_torch.py`,
+     end to end on cuda:0 at tiny sizes (8 classes x 8 train and 4 test
+     clouds of 1024 points, 2 epochs, 20 ConvONet steps; clean, kNN and
+     perturb x none, SRS, SOR, DUP-Net and ConvONet-Opt f32 and bf16_r16,
+     10 defense iterations), every launch counter set to 0 just before and
+     read just after: its results.json with every cell a share of the 32
+     clouds, every leg on cuda:0 with TF32 off, and B1, B4, the
+     scatter-mean, B5 and B6 launched. The full protocol is a separate
+     run of the tool (RESULTS_DISCRIM_TORCH.md).
 The last lines are the rates, the defense step, victim batch, CW
 iteration, train step and remesh batch profiles, phase 16's rates, phase
-17's and phase 18's numbers, the card's name and power limit, one JSON
-line of the kernels, and `{"ok": true, "device": {...}}`.
+17's, 18's and 19's numbers, the scatter-mean kernel's line (its times and
+launches), the card's name and power limit, one JSON line of the kernels,
+and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
 (B2 also in bf16, the fast mode's type, as the row `repulsion_mask_bf16`):
@@ -312,6 +333,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
 B, N, R, C = 48, 1024, 64, 32
+SCATTER_N = 600                          # the encoder's input points
 LR, SMALL_ITERS = 1e-3, 5
 DUP_B, DUP_CLOUDS = 128, 256             # defend_npz's batch; clouds in its file
 SA_LEVELS = ((1024, 0.05), (512, 0.1), (256, 0.2), (128, 0.3))
@@ -784,6 +806,91 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
+def check_scatter(dev) -> dict:
+    """Phase 2's encoder scatter-mean kernel (`csrc/scatter.cu`; it replaces
+    no TPU kernel, so its line stands apart from the kernels' table) at the
+    encoder's shapes: B=48 clouds of SCATTER_N points normalised as the
+    defense does, C=32 channels, into each of the three 64x64 planes' cells
+    and the grid's 32^3 cells. Bit-equal to the plain version on a CPU copy
+    (means and each point's count) and from one launch to the next; the
+    gather backward bit-equal to the CPU's. Timed at the xz plane and the
+    grid: the wrapper's device time (sort, fill, kernel) over 20 calls by
+    the profiler, its whole call, the plain version on the card
+    (`scatter_add_`, atomics) and one `scatter_reduce_(..., "mean")` call;
+    the bound counts the features and indices read once and the cells and
+    counts written once. -> the printed numbers."""
+    from if_defense_tpu_torch.implicit.convonet import (
+        coordinate2index,
+        coordinate2index_3d,
+        normalize_3d_coordinate,
+    )
+    from if_defense_tpu_torch.ops import cuda_scatter, normalize_coordinate
+    from if_defense_tpu_torch.ops.normalize import normalize_unit_cube
+    from if_defense_tpu_torch.ops.scatter import (
+        scatter_mean_2d,
+        scatter_mean_2d_plain,
+    )
+
+    gen = np.random.default_rng(19)
+    pc = normalize_unit_cube(torch.from_numpy(
+        ellipsoids(gen, B)[:, :SCATTER_N]), 0.9)
+    feat = torch.from_numpy(
+        gen.normal(size=(B, SCATTER_N, C)).astype(np.float32))
+    cells = {pl: (coordinate2index(normalize_coordinate(pc, pl, 0.1), R),
+                  R * R) for pl in PLANE_NAMES}
+    cells["grid 32^3"] = (coordinate2index_3d(normalize_3d_coordinate(pc),
+                                              32), 32**3)
+    fd = feat.to(dev)
+    g_out = {}
+    before = cuda_scatter.launches["scatter_mean"]
+    for name, (idx, k) in cells.items():
+        want, counts = scatter_mean_2d_plain(feat, idx, k)
+        idd = idx.to(dev)
+        got = [cuda_scatter.scatter_mean_cuda(fd, idd, k) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(m.cpu(), want) and torch.equal(
+            n.cpu(), torch.gather(counts, 1, idx.long())) for m, n in got)
+        repeat = torch.equal(got[0][0], got[1][0])
+        g = torch.randn((B, k, C), generator=torch.Generator().manual_seed(k))
+        grads = []
+        for d in ("cpu", dev):
+            x = feat.detach().to(d).requires_grad_(True)
+            scatter_mean_2d(x, idx.to(d), k).backward(g.to(d))
+            grads.append(x.grad.cpu())
+        occupied = int((counts > 0).sum(1).max())
+        print(f"  scatter-mean {name}: {k} cells, up to {occupied} occupied "
+              f"a cloud, up to {int(counts.max())} points a cell; bit-equal "
+              f"to the plain version on a CPU copy {same}, two launches "
+              f"{repeat}, backward {torch.equal(grads[0], grads[1])}")
+        if not (same and repeat and torch.equal(grads[0], grads[1])):
+            fail(f"the scatter-mean kernel ({name}) is not bit-equal to its "
+                 "plain version on a CPU copy, or from launch to launch")
+        g_out[name] = (idd, k)
+    out = {"launches_check": cuda_scatter.launches["scatter_mean"] - before}
+    for name in ("xz", "grid 32^3"):
+        idd, k = g_out[name]
+        ixp = idd.long()[..., None].expand(-1, -1, C)
+        got = device_ms(lambda: cuda_scatter.scatter_mean_cuda(fd, idd, k))
+        call = median_ms(lambda: cuda_scatter.scatter_mean_cuda(fd, idd, k))
+        plain = median_ms(lambda: scatter_mean_2d_plain(fd, idd, k))
+        library = device_ms(lambda: torch.zeros(B, k, C, device=dev)
+                            .scatter_reduce_(1, ixp, fd, "mean",
+                                             include_self=False))
+        bnd = bound(B * SCATTER_N * C + B * k * C,
+                    4 * B * SCATTER_N * C + 8 * B * SCATTER_N
+                    + 4 * B * k * C + 4 * B * SCATTER_N)
+        row = {"device_ms": got[0], "call_ms": call, "plain_ms": plain,
+               "library_ms": library[0], "bound_ms": bnd[0],
+               "bound_by": bnd[1], "kernels": got[1]}
+        out[name] = row
+        print(f"  scatter-mean {name}: device {got[0]:.4f} ms "
+              f"({', '.join(f'{n} {v:.4f}' for n, v in got[1].items())}), "
+              f"whole call {call:.4f} ms, plain (scatter_add_) {plain:.4f} "
+              f"ms, scatter_reduce mean device {library[0]:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+    return out
+
+
 def print_row(r: dict) -> None:
     lib = r.get("library_device_ms")
     print(f"  {r['id']} {r['name']}: device {r['device_ms']:.4f} ms "
@@ -840,8 +947,127 @@ def check_small_path(dev) -> None:
                      "disagrees with the CPU run")
 
 
+def check_opt_cli() -> tuple[dict, dict]:
+    """Phase 4: `cli/opt_defense.py` at full width in both modes, each run
+    twice, with the launch checks and each mode's repeat bit for bit. ->
+    (clouds/s by run, launches by mode)."""
+    from if_defense_tpu_torch.data import save_npz
+    from if_defense_tpu_torch.utils.params_io import (
+        init_params,
+        save_params_npz,
+    )
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pc = ellipsoids(np.random.default_rng(0), B)
+        for name in ("reference", "fast"):
+            save_npz(os.path.join(tmp, f"{name}.npz"),
+                     {"test_pc": pc, "test_label": np.arange(B) % 40})
+        save_params_npz(os.path.join(tmp, "weights.npz"), init_params(0))
+        modes = {"reference": [],
+                 "fast": ["--compute_dtype", "bfloat16",
+                          "--interp_refresh", "16", "--rep_graph_cache"]}
+        rates, restored = {}, {}
+        for name, extra in modes.items():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            zero_launches()
+            run = run_cli(tmp, name, extra)
+            rates[name], restored[name] = (run["clouds_per_sec"],
+                                           run["restored"])
+            launches[name] = all_launches()
+            print(f"  {name}: launches "
+                  f"{ {k: v for k, v in launches[name].items() if v} }")
+        # B1 forward and backward a step, B4 once each way a step (three
+        # planes a launch); the fast mode bypasses B4 (corner cache) and
+        # builds B2's mask once per 16-step window (13 of 201 steps)
+        # the encoder's scatter-mean once a plane for the one batch of 48
+        ref, fast = launches["reference"], launches["fast"]
+        if (ref["repulsion_loss"] != 402 or ref["plane_features"] != 201
+                or ref["plane_features_dp"] != 201
+                or ref["plane_features_dplane"]
+                or fast["repulsion_loss_masked"] != 402
+                or fast["repulsion_mask"] != 13
+                or ref["scatter_mean"] != 3 or fast["scatter_mean"] != 3):
+            fail(f"launches {launches} in ConvONet-Opt: not B1 402, B4 "
+                 "201 + 201 and the scatter-mean 3 in the reference mode, "
+                 "B3 402, B2 13 and the scatter-mean 3 in the fast mode")
+        # a second, warm run of each mode for the rate, which repeats the
+        # first's output bit for bit: the same --seed and data
+        for name, extra in modes.items():
+            warm = run_cli(tmp, name, extra)
+            rates[name + " warm"] = warm["clouds_per_sec"]
+            same = np.array_equal(warm.pop("restored"), restored[name])
+            print(f"  {name}: the second run bit-equal to the first {same}")
+            if not same:
+                where = first_difference(tmp, name, extra)
+                fail(f"two {name}-mode runs of cli/opt_defense.py with one "
+                     f"--seed and file differ; first at {where}")
+    return rates, launches
+
+
+def first_difference(tmp: str, name: str, extra: list[str]) -> str:
+    """Where two runs of `run_cli(tmp, name, extra)` part. Every module
+    call's inputs and outputs are digested in call order (the encoder's
+    layers on the draws, then the decoder's at each step) as the integer
+    sums of their bits, which are exact in any order; then the restored
+    clouds. -> the first tensor that differs: its module, call, role and
+    shape."""
+    from torch.nn.modules.module import register_module_forward_hook
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                yield from tensors(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from tensors(v)
+
+    def digest(t):
+        t = t.detach().reshape(-1)
+        if t.is_floating_point():
+            t = t.view({2: torch.int16, 4: torch.int32,
+                        8: torch.int64}[t.element_size()])
+        return t.sum(dtype=torch.int64)
+
+    runs = []
+    for _ in range(2):
+        seen, calls = [], {}
+
+        def hook(module, args, output):
+            kind = type(module).__name__
+            calls[kind] = calls.get(kind, 0) + 1
+            for role, x in (("input", args), ("output", output)):
+                for i, t in enumerate(tensors(x)):
+                    seen.append((f"{kind} call {calls[kind]} {role} {i} "
+                                 f"{tuple(t.shape)}", digest(t)))
+
+        handle = register_module_forward_hook(hook)
+        try:
+            restored = run_cli(tmp, name, extra)["restored"]
+        finally:
+            handle.remove()
+        labels = [label for label, _ in seen]
+        values = torch.stack([d for _, d in seen]).cpu().tolist()
+        runs.append((labels, values, restored))
+    (la, va, ra), (lb, vb, rb) = runs
+    for i, (a, b) in enumerate(zip(la, lb)):
+        if a != b or va[i] != vb[i]:
+            return a if a == b else f"{a} / {b} (the call order)"
+    if len(la) != len(lb):
+        return f"the module calls: {len(la)} against {len(lb)}"
+    if not np.array_equal(ra, rb):
+        return ("the restored clouds (every module call equal: the Adam "
+                "steps or the repulsion outside the modules)")
+    return "none: the two diagnostic runs were bit-equal"
+
+
 def run_cli(tmp: str, name: str, extra: list[str],
             weights: str | None = None) -> dict:
+    """`cli/opt_defense.py` at phase 4's settings on `<tmp>/<name>.npz`;
+    its metrics record and the restored clouds (`restored`)."""
     from if_defense_tpu_torch.cli import opt_defense
     from if_defense_tpu_torch.data import load_npz
 
@@ -866,7 +1092,7 @@ def run_cli(tmp: str, name: str, extra: list[str],
         fail(f"{name}: max radius {radius} > 1 + 1e-5")
     if not metrics["occ_loss_last"] < metrics["occ_loss_first"]:
         fail(f"{name}: occupancy loss did not fall")
-    return metrics
+    return {**metrics, "restored": out}
 
 
 def sa_level_inputs(dev, clouds: np.ndarray):
@@ -3324,8 +3550,8 @@ def grid_defense(dev, model) -> tuple[dict, dict]:
     modes = {"reference f32": {}, "interp_refresh 16": {"interp_refresh": 16},
              "bf16": {"compute_dtype": "bfloat16"}}
     outs, rates, launches = {}, {}, {}
-    # the encoder's scatter-mean adds with atomics unless deterministic
-    # algorithms are on (as cli/remesh_defense.py runs): on for the bits
+    # deterministic algorithms on for the bits, as cli/remesh_defense.py
+    # runs (the encoder's scatter-mean repeats its bits either way)
     torch.use_deterministic_algorithms(True)
     for name, kw in modes.items():
         defend = convonet_opt_defense(model, **kw)
@@ -3544,29 +3770,26 @@ SHIPPED_CONFIGS = {
 }
 
 
-def all_launches() -> dict:
+def counters() -> tuple:
+    """Every kernel wrapper's launch counter."""
     from if_defense_tpu_torch.ops import (
         cuda_ballquery,
         cuda_fps,
         cuda_interp,
         cuda_repulsion,
+        cuda_scatter,
     )
 
-    return {k: v for c in (cuda_repulsion.launches, cuda_interp.launches,
-                           cuda_fps.launches, cuda_ballquery.launches)
-            for k, v in c.items()}
+    return (cuda_repulsion.launches, cuda_interp.launches, cuda_fps.launches,
+            cuda_ballquery.launches, cuda_scatter.launches)
+
+
+def all_launches() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
 
 
 def zero_launches() -> None:
-    from if_defense_tpu_torch.ops import (
-        cuda_ballquery,
-        cuda_fps,
-        cuda_interp,
-        cuda_repulsion,
-    )
-
-    for c in (cuda_repulsion.launches, cuda_interp.launches,
-              cuda_fps.launches, cuda_ballquery.launches):
+    for c in counters():
         for k in c:
             c[k] = 0
 
@@ -3664,21 +3887,24 @@ def check_converted(dev, tmp: str, seeded: dict, converted: dict) -> dict:
 
     pc = ellipsoids(np.random.default_rng(0), B)
     runs = {}
-    for tag in ("atomic", "seeded", "converted"):
+    for tag in ("cli", "seeded", "converted"):
         data = save_npz(os.path.join(tmp, f"opt-{tag}", "x.npz"),
                         {"test_pc": pc, "test_label": np.arange(B) % 40})
         before = all_launches()
-        # the first run as the CLI runs, the encoder's scatter-mean summing
-        # with atomics; the seeded and converted runs deterministic
-        torch.use_deterministic_algorithms(tag != "atomic")
+        # the first run as the CLI runs, without deterministic algorithms;
+        # the seeded and converted runs deterministic
+        torch.use_deterministic_algorithms(tag != "cli")
         runs[tag] = support_opt_run(dev, data, (
             seeded if tag == "seeded" else converted)["convonet"])
         run_launches = {k: v - before[k] for k, v in all_launches().items()}
-    gap = np.abs(runs["atomic"] - runs["seeded"])
-    print(f"  opt_defense with atomics against a deterministic run: "
-          f"bit-equal {np.array_equal(runs['atomic'], runs['seeded'])}, "
-          f"{float((gap <= 1e-4).mean()):.6f} of coordinates within 1e-4, "
-          f"max abs diff {float(gap.max()):.3e}")
+    gap = np.abs(runs["cli"] - runs["seeded"])
+    same = np.array_equal(runs["cli"], runs["seeded"])
+    print(f"  opt_defense as the CLI runs against a deterministic run: "
+          f"bit-equal {same}, {float((gap <= 1e-4).mean()):.6f} of "
+          f"coordinates within 1e-4, max abs diff {float(gap.max()):.3e}")
+    if not same:
+        fail("cli/opt_defense.py as it runs is not bit-equal to its run "
+             "under deterministic algorithms")
     print(f"  opt_defense on converted ConvONet weights: launches "
           f"{ {k: v for k, v in run_launches.items() if v} }")
     if (run_launches["repulsion_loss"] != 402
@@ -3876,10 +4102,10 @@ def check_configs(converted: dict) -> str:
 
 def check_support(dev) -> tuple[dict, dict]:
     """Phase 17: the converters, sharding, profiling and configs on the
-    card, under deterministic algorithms (restored on return): without
-    them the ConvONet encoder's scatter-mean sums with atomics, and two
-    runs of one file differ in their last bits. -> (the numbers printed,
-    the launches of the phase)."""
+    card, under deterministic algorithms (restored on return) but for the
+    first ConvONet-Opt run, which runs as the CLI does and must give the
+    deterministic run's bits. -> (the numbers printed, the launches of the
+    phase)."""
     t0 = time.perf_counter()
     zero_launches()
     deterministic = torch.are_deterministic_algorithms_enabled()
@@ -4149,6 +4375,64 @@ def check_split_training(dev) -> tuple[dict, dict]:
             "full": full, "cli": cli}, launches
 
 
+# phase 19: the accuracy protocol's tool end to end at tiny sizes: 8
+# classes x (ACC_TRAIN train, ACC_TEST test) clouds of 1024 points, the
+# attacks and defenses of the protocol, few steps each
+ACC_TRAIN, ACC_TEST = 8, 4
+ACC_ARGV = ["--seeds", "0", "--attacks", "clean", "knn", "perturb",
+            "--defenses", "none", "srs", "sor", "dup", "convonet_opt",
+            "--opt_modes", "f32", "bf16_r16",
+            "--train_per_class", str(ACC_TRAIN),
+            "--test_per_class", str(ACC_TEST), "--occ_per_class", "2",
+            "--epochs", "2", "--occ_steps", "20", "--defense_iters", "10",
+            "--batch_size", "16", "--knn_iter", "10", "--cw_steps", "1", "10",
+            "--device", "cuda:0"]
+
+
+def check_accuracy_tool(dev) -> dict:
+    """Phase 19: `tools/accuracy_benchmark_torch.py` end to end on the card
+    at tiny sizes (ACC_ARGV), every launch counter set to 0 just before
+    and read just after: results.json with the JAX tool's key tree, every
+    accuracy a share of the 32 clouds, every leg on cuda:0 with TF32 off,
+    and the kernels of the defenses launched (B1 and B4 in ConvONet-Opt's
+    reference mode, the scatter-mean in its encoder, B5 and B6 in
+    DUP-Net). -> (seconds, launches, the table's cells)."""
+    acc = tool("accuracy_benchmark_torch")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        summary = acc.main(["--out_dir", tmp, *ACC_ARGV])
+        launches = {k: v for k, v in all_launches().items() if v}
+        with open(os.path.join(tmp, "seed0", "results.json")) as f:
+            results = json.load(f)
+        with open(os.path.join(tmp, "seed0", "legs.json")) as f:
+            legs = json.load(f)
+    seconds = time.perf_counter() - t0
+    defenses = {"none", "srs", "sor", "dup", "convonet_opt:f32",
+                "convonet_opt:bf16_r16"}
+    attacks = results["victims"]["pointnet"]["attacks"]
+    records = [r for a in attacks.values()
+               for r in (a["attacked"], *a["defended"].values())]
+    n = 8 * ACC_TEST
+    print(f"  {len(legs)} legs in {seconds:.1f} s; launches {launches}")
+    print("  " + ", ".join(f"{k} {v['mean']:.3f}" for k, v in summary.items()))
+    if (set(attacks) != {"clean", "knn", "perturb"}
+            or any(set(a["defended"]) != defenses for a in attacks.values())
+            or any(r["n"] != n or not 0 <= r["accuracy"] <= 1
+                   for r in records)):
+        fail("the accuracy tool's results.json lacks cells or shares")
+    if any(leg["device"] != "cuda:0" or leg["tf32_matmul"]
+           or leg["tf32_cudnn"] for leg in legs):
+        fail("an accuracy-tool leg ran off cuda:0 or with TF32 on")
+    if not all(launches.get(k, 0) > 0 for k in (
+            "repulsion_loss", "plane_features", "plane_features_dp",
+            "scatter_mean", "fps", "ballquery")):
+        fail(f"the accuracy tool's defenses did not launch every kernel of "
+             f"their path: {launches}")
+    return {"seconds": seconds, "launches": launches,
+            "cells": {k: v["mean"] for k, v in summary.items()}}
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -4167,10 +4451,6 @@ def main() -> int:
         return 1
     from if_defense_tpu_torch.data import save_npz
     from if_defense_tpu_torch.ops import _build, cuda_interp, cuda_repulsion
-    from if_defense_tpu_torch.utils.params_io import (
-        init_params,
-        save_params_npz,
-    )
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4199,47 +4479,15 @@ def main() -> int:
 
     print("phase 2: kernels vs plain versions at the slice's shapes")
     rows = check_kernels(dev)
+    print(f"the encoder's scatter-mean kernel (no TPU kernel) at B={B}, "
+          f"{SCATTER_N} points, {C} channels:")
+    scatter = check_scatter(dev)
 
     print("phase 3: small whole path, CUDA vs CPU, same draws")
     check_small_path(dev)
 
     print("phase 4: ConvONet-Opt through the CLI, full width, 201 steps")
-    counters = (cuda_repulsion.launches, cuda_interp.launches)
-    launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        pc = ellipsoids(np.random.default_rng(0), B)
-        for name in ("reference", "fast"):
-            save_npz(os.path.join(tmp, f"{name}.npz"),
-                     {"test_pc": pc, "test_label": np.arange(B) % 40})
-        save_params_npz(os.path.join(tmp, "weights.npz"), init_params(0))
-        modes = {"reference": [],
-                 "fast": ["--compute_dtype", "bfloat16",
-                          "--interp_refresh", "16", "--rep_graph_cache"]}
-        rates = {}
-        for name, extra in modes.items():
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            for counter in counters:
-                for k in counter:
-                    counter[k] = 0
-            rates[name] = run_cli(tmp, name, extra)["clouds_per_sec"]
-            launches[name] = {k: v for c in counters for k, v in c.items()}
-            print(f"  {name}: launches {launches[name]}")
-        # B1 forward and backward a step, B4 once each way a step (three
-        # planes a launch); the fast mode bypasses B4 (corner cache) and
-        # builds B2's mask once per 16-step window (13 of 201 steps)
-        ref, fast = launches["reference"], launches["fast"]
-        if (ref["repulsion_loss"] != 402 or ref["plane_features"] != 201
-                or ref["plane_features_dp"] != 201
-                or ref["plane_features_dplane"]
-                or fast["repulsion_loss_masked"] != 402
-                or fast["repulsion_mask"] != 13):
-            fail(f"launches {launches} in ConvONet-Opt: not B1 402 and B4 "
-                 "201 + 201 in the reference mode, B3 402 and B2 13 in the "
-                 "fast mode")
-        # a second, warm run of each mode for the rate
-        for name, extra in modes.items():
-            rates[name + " warm"] = run_cli(tmp, name, extra)["clouds_per_sec"]
+    rates, launches = check_opt_cli()
     print("  a step of the reference mode, profiled "
           "(tools/profile_defense_step.py):")
     step_profiles = [tool("profile_defense_step").profile(dev, v, steps=5)
@@ -4293,6 +4541,14 @@ def main() -> int:
                          "gradient (and no gradient to p)")
         train_rates = {f"{v} {t}": r["steps_per_sec"]
                        for (v, t), r in runs.items()}
+        # whether training repeats its bits from one seed (printed only:
+        # the gathers' and convolutions' backwards add in a free order)
+        for variant in ("convonet", "onet"):
+            with np.load(runs[variant, "first"]["path"]) as a, np.load(
+                    runs[variant, "warm"]["path"]) as b:
+                gap = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+            print(f"  {variant}: the two runs' weights bit-equal "
+                  f"{gap == 0}, largest gap {gap:.3e}")
         for variant in ("convonet", "onet"):
             shutil.copy(runs[variant, "warm"]["path"],
                         os.path.join(keep, f"{variant}.npz"))
@@ -4393,6 +4649,15 @@ def main() -> int:
     sharded, launches["sharded"] = check_split_training(dev)
     print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
 
+    print("phase 19: the accuracy protocol's tool "
+          "(tools/accuracy_benchmark_torch.py) end to end at tiny sizes")
+    accuracy = check_accuracy_tool(dev)
+    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
+    scatter["launches"] = {k: launches[k]["scatter_mean"]
+                           for k in ("reference", "fast")}
+    scatter["launches"]["accuracy tool"] = accuracy["launches"][
+        "scatter_mean"]
+
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
     used_in = {"repulsion_loss": ("reference grid support",
@@ -4440,6 +4705,9 @@ def main() -> int:
     print("support layer (phase 17): " + json.dumps(support) + f" on {card}")
     print("sharded victim training (phase 18): " + json.dumps(sharded)
           + f" on {card}")
+    print("accuracy tool (phase 19): " + json.dumps(accuracy) + f" on {card}")
+    print("encoder scatter-mean kernel (csrc/scatter.cu, replaces no TPU "
+          "kernel; ms and launches): " + json.dumps(scatter) + f" on {card}")
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",

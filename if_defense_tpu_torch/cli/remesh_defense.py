@@ -16,10 +16,10 @@ cross to the
 host in the `--wire` format, and the native isosurface code marches and
 samples each cloud there, one cloud per worker thread. The CLI runs under
 deterministic algorithms (restored on return; on the card it sets
-`CUBLAS_WORKSPACE_CONFIG` where unset): the encoder's scatter-mean would
-otherwise sum with atomics, and a logit moved by its rounding can cross a
-quantum boundary of the int8 wire, so two runs, the int8 and sparse wires
-and any thread count give the same bits.
+`CUBLAS_WORKSPACE_CONFIG` where unset): a logit moved by the rounding of
+a sum taken in a free order can cross a quantum boundary of the int8 wire,
+so two runs, the int8 and sparse wires and any thread count give the same
+bits.
 
 Failed reconstructions fall back to a random resample (or zero padding) of
 the input cloud, like :159-170. The encoder subset is drawn from a

@@ -1,8 +1,8 @@
 """Point-cloud ops and the CUDA kernel wrappers.
 
 The kernel wrappers (`cuda_interp`, `cuda_repulsion`, `cuda_fps`,
-`cuda_ballquery`) are imported where they are used: their libraries build
-on first use, on a machine with `nvcc` and a card.
+`cuda_ballquery`, `cuda_scatter`) are imported where they are used: their
+libraries build on first use, on a machine with `nvcc` and a card.
 """
 
 from if_defense_tpu_torch.ops.distances import (

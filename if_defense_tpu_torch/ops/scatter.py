@@ -3,7 +3,10 @@
 
 The JAX package writes these scatter-free for the TPU (one-hot matmul,
 pairwise same-cell mask); on the GPU PyTorch's scatter ops are the direct
-form. Neither was a Pallas kernel.
+form. Neither was a Pallas kernel. The scatter-mean alone has a kernel of
+its own on the card (`ops/cuda_scatter.py`): `scatter_add_` sums there with
+atomics, in an order that changes from run to run, and the encoder's
+planes, hence a seeded defense, would not repeat.
 """
 
 from __future__ import annotations
@@ -11,22 +14,60 @@ from __future__ import annotations
 import torch
 
 
-def scatter_mean_2d(feat: torch.Tensor, index: torch.Tensor,
-                    num_cells: int) -> torch.Tensor:
-    """Per-batch mean-scatter of point features into grid cells.
-
-    Args:
-        feat: [B, N, C]; index: [B, N] int cell index in [0, num_cells).
-    Returns:
-        [B, num_cells, C]; empty cells are zero.
-    """
+def scatter_mean_2d_plain(feat: torch.Tensor, index: torch.Tensor,
+                          num_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of `scatter_mean_2d`, with `scatter_add_`: on the
+    CPU it adds each cell's points one after another in point order.
+    -> (means [B, num_cells, C], each cell's count [B, num_cells])."""
     B, N, C = feat.shape
     idx = index.long()
     sums = feat.new_zeros(B, num_cells, C).scatter_add_(
         1, idx[..., None].expand(-1, -1, C), feat)
     counts = feat.new_zeros(B, num_cells).scatter_add_(
         1, idx, feat.new_ones(B, N))
-    return sums / counts.clamp_min(1.0)[..., None]
+    return sums / counts.clamp_min(1.0)[..., None], counts
+
+
+class _ScatterMean(torch.autograd.Function):
+    """The scatter-mean with a gather for its backward,
+    `grad[b, n] = grad_out[b, idx[b, n]] / count`: no scatter, so no race.
+    Forward: the kernel for CUDA tensors, the plain version for CPU ones."""
+
+    @staticmethod
+    def forward(ctx, feat, index, num_cells):
+        if feat.is_cuda:
+            from if_defense_tpu_torch.ops.cuda_scatter import scatter_mean_cuda
+
+            out, counts = scatter_mean_cuda(feat, index, num_cells)
+        else:
+            out, cell_counts = scatter_mean_2d_plain(feat, index, num_cells)
+            counts = torch.gather(cell_counts, 1, index.long())
+        ctx.save_for_backward(index, counts)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        index, counts = ctx.saved_tensors
+        C = grad_out.shape[-1]
+        grad = torch.gather(grad_out, 1,
+                            index.long()[..., None].expand(-1, -1, C))
+        return grad / counts[..., None], None, None
+
+
+def scatter_mean_2d(feat: torch.Tensor, index: torch.Tensor,
+                    num_cells: int) -> torch.Tensor:
+    """Per-batch mean-scatter of point features into grid cells, each
+    cell's points added in point order (the same bits on the card and the
+    CPU, run after run).
+
+    Args:
+        feat: [B, N, C], float32 on a CUDA device (the kernel's only
+            dtype; TypeError otherwise), any floating dtype on the CPU;
+        index: [B, N] int cell index in [0, num_cells).
+    Returns:
+        [B, num_cells, C]; empty cells are zero.
+    """
+    return _ScatterMean.apply(feat, index, num_cells)
 
 
 def pooled_max_by_cell(feat: torch.Tensor, index: torch.Tensor,

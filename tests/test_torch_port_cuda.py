@@ -33,8 +33,14 @@ ball query on bf16 points bit-equal to the plain versions on their f32
 upcast; PointNet with a bf16 trunk within 2 % of its f32 logits. One
 PointNet++ train step on the card launches B5 and B6 and matches the CPU
 step: loss rtol 1e-4, gradients in direction (cosine >= 0.999 per tensor),
-batch statistics within 1e-4 of their scale.
+batch statistics within 1e-4 of their scale. The encoder's scatter-mean
+kernel (`csrc/scatter.cu`, no TPU kernel) bit-equal to its plain version on
+a CPU copy and from one launch to the next, at a 64x64 plane and 32^3
+cells with shared and empty cells, and its gather backward bit-equal to
+the CPU's.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -1018,6 +1024,75 @@ def test_cuda_grid_decode_matches_cpu(cuda):
     # its gradient on one device only: >= 99.9 % of the entries
     near = (gx - gx_c).abs() <= 1e-4 * float(gx_c.abs().max())
     assert float(near.float().mean()) >= 0.999, float(near.float().mean())
+
+
+@pytest.mark.parametrize("cells", [64 * 64, 32**3])
+def test_cuda_scatter_mean_matches_plain_cpu(cuda, cells):
+    from if_defense_tpu_torch.ops import cuda_scatter
+    from if_defense_tpu_torch.ops.scatter import (
+        scatter_mean_2d,
+        scatter_mean_2d_plain,
+    )
+
+    rng = np.random.default_rng(cells)
+    b, n, c = 4, 600, 32
+    feat = (rng.normal(size=(b, n, c))
+            * rng.uniform(0.01, 10.0, (b, n, 1))).astype(np.float32)
+    idx = rng.integers(0, cells, (b, n))
+    idx[:, : n // 2] = rng.integers(0, cells, 4)[rng.integers(0, 4, (b, n // 2))]
+    idx = torch.from_numpy(rng.permuted(idx, axis=1))
+    f = torch.from_numpy(feat)
+    want, counts = scatter_mean_2d_plain(f, idx, cells)
+    before = cuda_scatter.launches["scatter_mean"]
+    got = [cuda_scatter.scatter_mean_cuda(f.to(cuda), idx.to(cuda), cells)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert cuda_scatter.launches["scatter_mean"] == before + 2
+    for out, per_point in got:
+        assert torch.equal(out.cpu(), want)
+        assert torch.equal(per_point.cpu(),
+                           torch.gather(counts, 1, idx.long()))
+    g = torch.from_numpy(rng.normal(size=(b, cells, c)).astype(np.float32))
+    grads = []
+    for d in ("cpu", cuda):
+        x = f.detach().to(d).requires_grad_(True)
+        scatter_mean_2d(x, idx.to(d), cells).backward(g.to(d))
+        grads.append(x.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_cuda_scatter_mean_refuses(cuda):
+    from if_defense_tpu_torch.ops.cuda_scatter import scatter_mean_cuda
+
+    f = torch.zeros(1, 8, 4, device=cuda)
+    i = torch.zeros(1, 8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        scatter_mean_cuda(f.double(), i, 16)
+    with pytest.raises(ValueError, match="index must be"):
+        scatter_mean_cuda(f, i[:, :4], 16)
+
+
+@pytest.mark.parametrize("cell", [16, -1])
+def test_cuda_scatter_mean_traps_out_of_range(cuda, cell):
+    """A cell outside [0, 16) stops the kernel on the card (no host sync in
+    the wrapper), and the next sync raises, as `scatter_add_`'s device
+    assert does. In a process of its own: the error spoils its context."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from if_defense_tpu_torch.ops.cuda_scatter import "
+            "scatter_mean_cuda\n"
+            "f = torch.ones(1, 8, 4, device='cuda')\n"
+            "i = torch.zeros(1, 8, dtype=torch.int64, device='cuda')\n"
+            f"i[0, 5] = {cell}\n"
+            "scatter_mean_cuda(f, i, 16)\n"
+            "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0
+    assert "CUDA error" in out.stderr, out.stderr
 
 
 def test_cuda_kernels_launch_on_their_tensors_card(cuda):
