@@ -22,7 +22,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      32^3): bit-equal to its plain version on a CPU copy, two launches
      bit-equal, its gather backward bit-equal to the CPU's; timed at the
      xz plane and the grid beside the plain version (`scatter_add_`) and
-     one `scatter_reduce_` mean call;
+     one `scatter_reduce_` mean call; then the encoder's pooled-max kernels
+     (forward and backward, the same file, a row of the kernels' table
+     though they replace no TPU kernel) at the same shapes, features with
+     ties: forward and backward bit-equal to the plain version's autograd
+     on a CPU copy and launch to launch; timed at the xz plane and the grid
+     beside the plain version on the card (`scatter_reduce` amax and
+     `gather`, an atomic backward) and the same under deterministic
+     algorithms;
   3. checks the ConvONet-Opt path on a small input against the port's own
      CPU run (the plain versions) with the same draws, in both modes, at
      256 optimised points and at 6000;
@@ -33,7 +40,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      launch counter set to 0 just before each run and read just after (B1
      402 and B4 201 + 201 launches in the reference mode, B3 402 in the
      fast mode, B2 exactly 13: once per 16-step window; the scatter-mean
-     3 in each), then a second run of each mode, its output bit-equal to
+     3 and the pooled max 12 forward and no backward in each), then a second run of each mode, its output bit-equal to
      the first run's (same --seed and file; on a failure the first module
      input or output that differs between two hooked runs is named); then
      profiles a
@@ -79,11 +86,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      `if_defense_tpu_torch.cli.train_implicit` at full width for 100 steps
      at lr 1e-3, ConvONet at the CLI's defaults (batch 32, 600 input points,
      2048 queries, 64x64 planes, c_dim 32) and ONet at c_dim 512, hidden
-     512, decoder 256, each twice (first and warm run), with B4's launch
-     counters set to 0 just before the ConvONet runs and read just after
-     (one forward and one plane-gradient launch a step), and whether each
-     variant's two runs' weights are bit-equal (printed);
-     then profiles 10 ConvONet steps with torch.profiler;
+     512, decoder 256, each twice (first and warm run), with B4's and the
+     encoder's launch counters set to 0 just before the ConvONet runs and
+     read just after (a step: B4 one forward and one plane-gradient launch,
+     the scatter-mean 3, the pooled max 12 forward and 12 backward); each
+     variant's two runs' weights bit-equal (the CLI runs under
+     deterministic algorithms); then profiles 5 ConvONet steps with
+     torch.profiler in each of three settings: deterministic as
+     the CLI runs, the same without the NaN fill of new tensors, and
+     deterministic algorithms off (`profile_training`);
  11. checks a small ONet-Opt on the card against the port's CPU run, then
      runs `if_defense_tpu_torch.cli.opt_defense --variant onet` on phase 4's
      clouds (48 x 1024) with the ONet weights phase 10 trained, 201 steps in
@@ -196,11 +207,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      their entries): the grid ConvONet's encode, decode and gradient to p
      on 2 clouds, PointConvONet, the five registry decoders in eval and
      train mode (GRID_TRAIN_TOL), `LatentEncoder`, `VoxelDecoder`,
-     `FeatureDecoder` at c_dim 6 and 128, with z_dim > 0; (b) 100
-     training steps of the grid model at phase 10's batch (32 x 2048, 600
-     input points) on phase 10's occupancy npz, step 1 first on 2 shapes
-     on the card and the CPU (loss rtol 1e-5, the decoder's gradients to
-     phase 9's bounds, the encoder's at cosine >= ENCODER_COS); (c)
+     `FeatureDecoder` at c_dim 6 and 128, with z_dim > 0; (b) the grid
+     model's training under deterministic algorithms: step 1 on 2 shapes
+     on the CPU and twice on the card (loss rtol 1e-5, the decoder's
+     gradients to phase 9's bounds, the encoder's at cosine >=
+     ENCODER_COS; the card's two runs' gradients bit-equal), then 100
+     steps at phase 10's batch (32 x 2048, 600 input points) on phase 10's
+     occupancy npz twice from one seed, the final weights bit-equal, the
+     encoder's launch counters set to 0 just before and read just after (a
+     step: the pooled max 4 forward and 4 backward, the scatter-mean 1); (c)
      `convonet_opt_defense` with the trained weights on phase 4's 48 x
      1024 clouds, 201 steps, in the reference mode (B1 402 launches, B4
      none), with `interp_refresh=16` (the same bits) and in bf16; (d)
@@ -264,12 +279,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      10 defense iterations), every launch counter set to 0 just before and
      read just after: its results.json with every cell a share of the 32
      clouds, every leg on cuda:0 with TF32 off, and B1, B4, the
-     scatter-mean, B5 and B6 launched. The full protocol is a separate
+     scatter-mean, the pooled max, B5 and B6 launched. The full protocol is a separate
      run of the tool (RESULTS_DISCRIM_TORCH.md).
 The last lines are the rates, the defense step, victim batch, CW
 iteration, train step and remesh batch profiles, phase 16's rates, phase
 17's, 18's and 19's numbers, the scatter-mean kernel's line (its times and
-launches), the card's name and power limit, one JSON line of the kernels,
+launches), the pooled max's times at the grid, the card's name and power
+limit, one JSON line of the kernels,
 and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
@@ -307,13 +323,18 @@ once, dp written once, every cell of the three planes' gradients written
 once, and of the planes the distinct corner rows ([C] channels of a cell)
 that this run's queries touch, read once; FPS 10 per point
 and step (distance, min, compare); ball query 9 per (centre, point) pair
-scanned up to the centre's nsample-th hit and 5 per |v|^2.
+scanned up to the centre's nsample-th hit and 5 per |v|^2; the pooled
+max 4 per point and channel (the max's compare, the tie's, the
+gradient's add and its share), whose bytes are the features, the output's
+gradient and the int64 cells read once, the output and the gradient
+written once.
 
 f32 phases run with TF32 off for matmuls and cuDNN convolutions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -665,6 +686,14 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float,
     return worst
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (signed zeros and NaNs
+    told apart), wherever they lie."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.numpy().tobytes() == b.numpy().tobytes())
+
+
 def grad_atol(ref: torch.Tensor) -> float:
     """Absolute tolerance of a gradient: 1e-5 of its largest entry. The
     kernel and the plain version sum a point's pair terms in other orders,
@@ -891,6 +920,131 @@ def check_scatter(dev) -> dict:
     return out
 
 
+def check_pooled_max(dev) -> dict:
+    """Phase 2's pooled-max kernels (`csrc/scatter.cu`, forward and
+    backward; no TPU kernel) at the encoder's shapes: B=48 clouds of
+    SCATTER_N points normalised as the defense does, C=32 channels, each
+    point given its cell's max among the three 64x64 planes' cells and the
+    grid's 32^3. Every third point is a copy of the one before it, place
+    and features, so cells hold ties; most cells are empty. Forward and
+    backward bit-equal (every bit, signed zeros included) to the plain
+    version's autograd on a CPU copy, and from one launch to the next.
+    Timed at the xz plane and the grid, forward and backward fed the
+    gradient: the wrapper's device time (sort, kernels) by the profiler
+    over 20 calls, its whole call with a harness loss, the plain version
+    on the card (`scatter_reduce` amax and `gather`, whose backward adds
+    with atomics) and the same under deterministic algorithms (torch's
+    sort-based backward); the bound counts the features, indices and the
+    output's gradient read once and the output and the gradient written
+    once. -> the xz plane's row of the kernels' line, with the grid's
+    numbers and the deterministic path's beside it."""
+    from if_defense_tpu_torch.implicit.convonet import (
+        coordinate2index,
+        coordinate2index_3d,
+        normalize_3d_coordinate,
+    )
+    from if_defense_tpu_torch.ops import normalize_coordinate
+    from if_defense_tpu_torch.ops.normalize import normalize_unit_cube
+    from if_defense_tpu_torch.ops.scatter import (
+        pooled_max_by_cell,
+        pooled_max_by_cell_plain,
+    )
+    from if_defense_tpu_torch.utils.determinism import deterministic
+
+    gen = np.random.default_rng(21)
+    pc = ellipsoids(gen, B)[:, :SCATTER_N]
+    feat = gen.normal(size=(B, SCATTER_N, C)).astype(np.float32)
+    # every third point a copy of the point before it, place and features
+    # (a cloud sampled with replacement): maxima tie
+    third = SCATTER_N // 3
+    pc[:, 1::3] = pc[:, 0::3][:, :third]
+    feat[:, 1::3] = feat[:, 0::3][:, :third]
+    pc = normalize_unit_cube(torch.from_numpy(pc), 0.9)
+    feat = torch.from_numpy(feat)
+    g = torch.from_numpy(gen.normal(size=(B, SCATTER_N, C)).astype(np.float32))
+    cells = {pl: (coordinate2index(normalize_coordinate(pc, pl, 0.1), R),
+                  R * R) for pl in PLANE_NAMES}
+    cells["grid 32^3"] = (coordinate2index_3d(normalize_3d_coordinate(pc),
+                                              32), 32**3)
+    fd, gd = feat.to(dev), g.to(dev)
+
+    err, rows = 0.0, {}
+    for name, (idx, k) in cells.items():
+        x = feat.clone().requires_grad_(True)
+        want = pooled_max_by_cell_plain(x, idx, k)
+        want.backward(g)
+        want = want.detach()
+        ixp = idx.long()[..., None].expand(-1, -1, C)
+        ties = torch.zeros(B, k, C).scatter_add_(1, ixp, (feat == want)
+                                                 .float())
+        occupied = torch.zeros(B, k).scatter_add_(
+            1, idx.long(), torch.ones(B, SCATTER_N))
+        got = []
+        for _ in range(2):
+            xd = fd.clone().requires_grad_(True)
+            out = pooled_max_by_cell(xd, idx.to(dev), k)
+            out.backward(gd)
+            got.append((out.detach(), xd.grad))
+        torch.cuda.synchronize()
+        same = all(same_bits(o, want) and same_bits(gr, x.grad)
+                   for o, gr in got)
+        repeat = (same_bits(got[0][0], got[1][0])
+                  and same_bits(got[0][1], got[1][1]))
+        err = max(err, float((got[0][0].cpu() - want).abs().max()),
+                  float((got[0][1].cpu() - x.grad).abs().max()))
+        tied = int((ties > 1).sum())
+        print(f"  pooled max {name}: {k} cells, up to "
+              f"{int((occupied > 0).sum(1).max())} occupied a cloud, up to "
+              f"{int(occupied.max())} points a cell, {tied} (cell, channel) "
+              f"maxima tied; forward and backward bit-equal to the plain "
+              f"version on a CPU copy {same}, two launches {repeat}")
+        if not tied:
+            fail(f"the pooled max's inputs ({name}) hold no ties")
+        if not (same and repeat):
+            fail(f"the pooled-max kernels ({name}) are not bit-equal to "
+                 "their plain version on a CPU copy, or from launch to launch")
+        rows[name] = (idx.to(dev), k)
+
+    def harness(fn, idd, k):
+        def call():
+            x = fd.detach().requires_grad_(True)
+            return torch.autograd.grad((fn(x, idd, k) * gd).sum(), x)
+        return call
+
+    def deterministic_plain(idd, k):
+        call = harness(pooled_max_by_cell_plain, idd, k)
+
+        def run():
+            with deterministic():
+                return call()
+        return run
+
+    nbytes = 4 * 4 * B * SCATTER_N * C + 8 * B * SCATTER_N
+    bnd = bound(4 * B * SCATTER_N * C, nbytes)
+    out = {}
+    for name in ("xz", "grid 32^3"):
+        idd, k = rows[name]
+        print(f"  pooled max {name}, forward + backward:")
+        times = kernel_times(
+            harness(pooled_max_by_cell, idd, k),
+            harness(pooled_max_by_cell_plain, idd, k),
+            lambda: bare_grad(pooled_max_by_cell, fd, gd, idd, k), None)
+        times["deterministic_plain_ms"] = median_ms(deterministic_plain(idd, k))
+        print(f"  plain (atomic backward) {times['plain_ms']:.4f} ms, "
+              f"plain under deterministic algorithms "
+              f"{times['deterministic_plain_ms']:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+        out[name] = times
+    row = dict(name="pooled_max", id="scatter.cu",
+               source="if_defense_tpu_torch/csrc/scatter.cu",
+               replaces="none: if_defense_tpu/ops/scatter.py:41 "
+                        "pooled_max_by_cell is XLA, not a Pallas kernel",
+               max_abs_err=err, bound=bnd, **out["xz"],
+               grid={k: v for k, v in out["grid 32^3"].items()})
+    print_row(row)
+    return row
+
+
 def print_row(r: dict) -> None:
     lib = r.get("library_device_ms")
     print(f"  {r['id']} {r['name']}: device {r['device_ms']:.4f} ms "
@@ -981,17 +1135,21 @@ def check_opt_cli() -> tuple[dict, dict]:
         # B1 forward and backward a step, B4 once each way a step (three
         # planes a launch); the fast mode bypasses B4 (corner cache) and
         # builds B2's mask once per 16-step window (13 of 201 steps)
-        # the encoder's scatter-mean once a plane for the one batch of 48
+        # the encoder's scatter-mean once a plane for the one batch of 48,
+        # its pooled max once a plane in each of 4 blocks, forward only
         ref, fast = launches["reference"], launches["fast"]
         if (ref["repulsion_loss"] != 402 or ref["plane_features"] != 201
                 or ref["plane_features_dp"] != 201
                 or ref["plane_features_dplane"]
                 or fast["repulsion_loss_masked"] != 402
                 or fast["repulsion_mask"] != 13
-                or ref["scatter_mean"] != 3 or fast["scatter_mean"] != 3):
+                or ref["scatter_mean"] != 3 or fast["scatter_mean"] != 3
+                or any(m["pooled_max"] != 12 or m["pooled_max_backward"]
+                       for m in (ref, fast))):
             fail(f"launches {launches} in ConvONet-Opt: not B1 402, B4 "
                  "201 + 201 and the scatter-mean 3 in the reference mode, "
-                 "B3 402, B2 13 and the scatter-mean 3 in the fast mode")
+                 "B3 402, B2 13 and the scatter-mean 3 in the fast mode, "
+                 "and the pooled max 12 forward and no backward in each")
         # a second, warm run of each mode for the rate, which repeats the
         # first's output bit for bit: the same --seed and data
         for name, extra in modes.items():
@@ -1766,10 +1924,19 @@ def run_train_cli(tmp: str, occ_npz: str, variant: str, tag: str) -> dict:
     return dict(path=path, steps_per_sec=rate)
 
 
-def profile_training(dev, occ_npz: str) -> None:
-    """torch.profiler over 10 warm ConvONet training steps at the CLI's
-    defaults: wall time, device kernel time and busy share, B4's share, and
-    the kernels that take the most device time."""
+def profile_training(dev, occ_npz: str,
+                     plane_type=("xz", "xy", "yz")) -> dict:
+    """torch.profiler over 5 warm ConvONet training steps at the CLI's
+    defaults (`plane_type=("grid",)`: the grid ConvONet) in each of three
+    settings, one after another, 2 warm steps before each pass:
+    `deterministic` as the CLI runs (`utils.determinism.deterministic`),
+    `no fill` the same with `torch.utils.deterministic.
+    fill_uninitialized_memory` off (no NaN fill of each new tensor), and
+    `free` with deterministic algorithms off. Per setting and step: wall
+    ms (host clock around the synchronised pass), device ms, device
+    operations and the sorts among them; B4's share and the kernels that
+    take the most device time under `deterministic`. -> {setting: [those
+    figures of each pass]}."""
     from torch.profiler import ProfilerActivity, profile
 
     from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
@@ -1778,40 +1945,79 @@ def profile_training(dev, occ_npz: str) -> None:
         init_occupancy_model,
         make_occupancy_train_step,
     )
+    from if_defense_tpu_torch.utils.determinism import deterministic
+
+    @contextlib.contextmanager
+    def setting(name):
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        before = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.utils.deterministic.fill_uninitialized_memory = (
+            name != "no fill")
+        try:
+            if name == "free":
+                torch.use_deterministic_algorithms(False)
+                yield
+            else:
+                with deterministic():
+                    yield
+        finally:
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+            torch.use_deterministic_algorithms(before[0],
+                                               warn_only=before[1])
 
     with np.load(occ_npz) as z:
         sampler = OccupancyBatchSampler(z["pointcloud"], z["points"],
                                         z["points_occ"], pointcloud_n=600,
                                         points_subsample=TQ, seed=1)
-    model = ConvOccupancyNetwork()
+    model = ConvOccupancyNetwork(plane_type=plane_type)
     init_occupancy_model(model, 1)
     model.to(dev)
     _, step = make_occupancy_train_step(model, TRAIN_LR)
     batches = [[torch.from_numpy(a).to(dev) for a in sampler.sample(TB)]
-               for _ in range(13)]
-    for b in batches[:3]:
-        step(*b)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches[3:]:
-            step(*b)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    if not events:
-        print(f"  profile, 10 steps: wall {wall:.3f} ms; device time not "
-              "measured (the profiler saw no CUDA kernel)")
-        return
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    ours = sum(e.self_device_time_total for e in events
-               if "features_fwd" in e.key or "features_dplane" in e.key) / 1e3
-    print(f"  profile, 10 ConvONet steps (batch {TB}): wall {wall:.3f} ms, "
-          f"device kernels {busy:.3f} ms (busy share {busy / wall:.3f}), "
-          f"B4 fwd + plane grad {ours:.3f} ms ({ours / busy:.3f} of device "
-          "time)")
-    print_top(events, 10)
+               for _ in range(7)]
+    names = ("deterministic", "no fill", "free")
+    out = {name: [] for name in names}
+    top = None
+    for name in names:
+        with setting(name):
+            for b in batches[:2]:
+                step(*b)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b in batches[2:]:
+                    step(*b)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        n = len(batches) - 2
+        out[name].append(dict(
+            wall_ms=wall / n,
+            device_ms=sum(e.self_device_time_total for e in events) / 1e3 / n,
+            device_ops=sum(e.count for e in events) / n,
+            sort_ops=sum(e.count for e in events
+                         if "sort" in e.key.lower()) / n))
+        if name == "deterministic" and top is None:
+            top = events
+    tag = "grid" if plane_type == ("grid",) else "plane"
+    for name, got in out.items():
+        print(f"  profile, {tag} ConvONet step (batch {TB}), {name}: "
+              + "; ".join(f"wall {g['wall_ms']:.3f} ms, device "
+                          f"{g['device_ms']:.3f} ms, {g['device_ops']:g} "
+                          f"device operations ({g['sort_ops']:g} sorts)"
+                          for g in got))
+    if not top:
+        print("  device time not measured (the profiler saw no CUDA kernel)")
+        return out
+    busy = sum(e.self_device_time_total for e in top)
+    ours = sum(e.self_device_time_total for e in top
+               if "features_fwd" in e.key or "features_dplane" in e.key)
+    print(f"  deterministic: B4 fwd + plane grad {ours / busy:.3f} of device "
+          "time; the kernels that take the most, over 5 steps:")
+    print_top(top, 10)
+    return out
 
 
 def check_small_onet_opt(dev) -> None:
@@ -3429,41 +3635,45 @@ def grid_training(dev, occ_npz: str):
     """(b) the grid ConvONet at full width (c_dim 32, hidden 32, 32^3, 3D
     UNet depth 3) from `flax_init_params(0)`, `TRAIN_STEPS` steps of
     `make_occupancy_train_step` at lr `TRAIN_LR` on phase 10's batch (32
-    shapes x 2048 queries, 600 input points) of its occupancy npz,
-    deterministic algorithms off (max_pool3d's CUDA backward has no
-    deterministic form). Step 1 first on the CPU and twice on the card from
-    the same weights on 2 of the shapes: loss rtol 1e-5, the decoder's
-    gradients rtol 1e-4 and atol 1e-4 of each tensor's largest (phase 9's
-    bounds), the encoder's at cosine >= ENCODER_COS (the 3D UNet's
-    convolutions sum in cuDNN's order; the trilinear volume gradient adds
-    with atomics); the two card runs' gap is printed beside the gap to the
-    CPU, to tell the card's run-to-run order from its algorithms' order;
-    the weights perturbed for that step as phase 9's (flax's zero biases
-    put pre-activations at ReLU's kink).
-    -> (model on the card, rate)."""
+    shapes x 2048 queries, 600 input points) of its occupancy npz, under
+    deterministic algorithms as `cli/train_implicit.py` runs. Step 1 first
+    on the CPU and twice on the card from the same weights on 2 of the
+    shapes: loss rtol 1e-5, the decoder's gradients rtol 1e-4 and atol
+    1e-4 of each tensor's largest (phase 9's bounds), the encoder's at
+    cosine >= ENCODER_COS (the 3D UNet's convolutions sum in cuDNN's
+    order), and the card's two runs' gradients bit-equal; the weights
+    perturbed for that step as phase 9's (flax's zero biases put
+    pre-activations at ReLU's kink). Then the `TRAIN_STEPS` steps twice
+    from one seed, the final weights bit-equal, with the encoder's launch
+    counters set to 0 just before and read just after (a step: the
+    pooled max 4 forward and 4 backward, the scatter-mean 1).
+    -> (model on the card, steps/s of each run, encoder launches)."""
     from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
     from if_defense_tpu_torch.implicit.training import (
         OccupancyBatchSampler,
         init_occupancy_model,
         make_occupancy_train_step,
     )
+    from if_defense_tpu_torch.ops import cuda_scatter
+    from if_defense_tpu_torch.utils.determinism import deterministic
     from if_defense_tpu_torch.utils.params_io import params_from_jax
 
-    torch.use_deterministic_algorithms(False)
     with np.load(occ_npz) as z:
         arrays = (z["pointcloud"], z["points"], z["points_occ"])
     small = OccupancyBatchSampler(*arrays, pointcloud_n=600,
                                   points_subsample=TQ, seed=1).sample(2)
     runs = []
-    for d in ("cpu", dev, dev):
-        model = ConvOccupancyNetwork(plane_type=("grid",))
-        model.load_state_dict(params_from_jax(
-            perturbed(init_occupancy_model(model, 0), 1), model))
-        model.to(d)
-        _, step = make_occupancy_train_step(model, TRAIN_LR)
-        loss = float(step(*(torch.from_numpy(a).to(d) for a in small))["loss"])
-        runs.append((loss, {n: p.grad.detach().cpu()
-                            for n, p in model.named_parameters()}))
+    with deterministic():
+        for d in ("cpu", dev, dev):
+            model = ConvOccupancyNetwork(plane_type=("grid",))
+            model.load_state_dict(params_from_jax(
+                perturbed(init_occupancy_model(model, 0), 1), model))
+            model.to(d)
+            _, step = make_occupancy_train_step(model, TRAIN_LR)
+            loss = float(step(*(torch.from_numpy(a).to(d)
+                                for a in small))["loss"])
+            runs.append((loss, {n: p.grad.detach().cpu()
+                                for n, p in model.named_parameters()}))
 
     def gap(got: dict, ref: dict):
         """(the decoder's worst error / bound, the encoder's least cosine,
@@ -3497,42 +3707,59 @@ def grid_training(dev, occ_npz: str):
     print(f"  step 1 on 2 shapes: loss CPU {lc:.6f}, card {lg:.6f}; the "
           f"decoder's gradients worst error / bound {worst:.3f}, the "
           f"encoder's cosine >= {cos_min:.7f}")
-    worst2, cos_min2, table2 = gap(gg2, gg)
-    same = sum(torch.equal(gg2[n], gg[n]) for n in gg)
+    same = sum(same_bits(gg2[n], gg[n]) for n in gg)
     print(f"  the card's second step 1 against its first: loss {lg2:.6f}, "
-          f"{same} of {len(gg)} gradients bit-equal; the decoder's worst "
-          f"error / bound {worst2:.3f}, the encoder's cosine >= "
-          f"{cos_min2:.7f}; largest: " + ", ".join(
-              f"{n} {err:.3f}" for err, _, n, _, _ in
-              sorted(table2, reverse=True)[:3]))
+          f"{same} of {len(gg)} gradients bit-equal")
     if abs(lg - lc) > 1e-5 * abs(lc) or worst > 1 or cos_min < ENCODER_COS:
         fail("grid ConvONet step 1 on the card disagrees with the CPU")
+    if same != len(gg) or lg2 != lg:
+        fail(f"grid ConvONet step 1 twice on the card: {same} of {len(gg)} "
+             "gradients bit-equal")
 
-    model = ConvOccupancyNetwork(plane_type=("grid",))
-    init_occupancy_model(model, 0)
-    model.to(dev)
-    _, step = make_occupancy_train_step(model, TRAIN_LR)
     sampler = OccupancyBatchSampler(*arrays, pointcloud_n=600,
                                     points_subsample=TQ, seed=0)
     batches = [sampler.sample(TB) for _ in range(TRAIN_STEPS)]
-    torch.cuda.reset_peak_memory_stats()
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in batches:
-        losses.append(step(*(torch.from_numpy(a).to(dev, non_blocking=True)
-                             for a in b))["loss"])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    losses = [float(x) for x in losses]
-    if not all(np.isfinite(losses)):
-        fail(f"grid ConvONet training: non-finite losses {losses}")
-    rate = TRAIN_STEPS / seconds
-    print(f"  {TRAIN_STEPS} steps at batch {TB} x {TQ}: loss {losses[0]:.4f} "
-          f"-> {losses[-1]:.4f}, {rate:.3f} steps/s (host clock, data on the "
-          f"host included), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          " GiB")
-    return model.eval().requires_grad_(False), rate
+    for k in cuda_scatter.launches:
+        cuda_scatter.launches[k] = 0
+    rates, weights = [], []
+    with deterministic():
+        for run in ("first", "second"):
+            model = ConvOccupancyNetwork(plane_type=("grid",))
+            init_occupancy_model(model, 0)
+            model.to(dev)
+            _, step = make_occupancy_train_step(model, TRAIN_LR)
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches:
+                losses.append(step(*(torch.from_numpy(a).to(
+                    dev, non_blocking=True) for a in b))["loss"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            losses = [float(x) for x in losses]
+            if not all(np.isfinite(losses)):
+                fail(f"grid ConvONet training: non-finite losses {losses}")
+            rates.append(TRAIN_STEPS / seconds)
+            weights.append({n: p.detach().cpu()
+                            for n, p in model.state_dict().items()})
+            print(f"  {run} run, {TRAIN_STEPS} steps at batch {TB} x {TQ}: "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                  f"{rates[-1]:.3f} steps/s (host clock, data on the host "
+                  f"included), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = dict(cuda_scatter.launches)
+    same = all(same_bits(weights[0][n], weights[1][n]) for n in weights[0])
+    print(f"  the two runs' weights bit-equal {same}; encoder launches "
+          f"{launches}")
+    if not same:
+        fail("two seeded grid ConvONet training runs differ")
+    want = 2 * TRAIN_STEPS
+    if launches != {"scatter_mean": want, "pooled_max": 4 * want,
+                    "pooled_max_backward": 4 * want}:
+        fail(f"encoder launches {launches} in grid training, not {want} "
+             f"scatter-mean and {4 * want} pooled max each way")
+    return model.eval().requires_grad_(False), rates, launches
 
 
 def grid_defense(dev, model) -> tuple[dict, dict]:
@@ -3737,7 +3964,7 @@ def check_grid_path(dev, occ_npz: str) -> tuple[dict, dict, dict]:
     check_small_grid(dev)
     print(f"  (b) the grid ConvONet, {TRAIN_STEPS} training steps at full "
           "width")
-    model, train_rate = grid_training(dev, occ_npz)
+    model, train_rates, train_launches = grid_training(dev, occ_npz)
     print("  (c) grid ConvONet-Opt, 48 x 1024, 201 steps")
     defense_rates, defense_launches = grid_defense(dev, model)
     print(f"  (d) the grid mesh path, batch {MESH_B}, a 129^3 lattice")
@@ -3747,13 +3974,13 @@ def check_grid_path(dev, occ_npz: str) -> tuple[dict, dict, dict]:
     pconv_launches, pconv_rate = point_conv_onet_run(dev)
     print("  (f) B4's uv form in FeatureDecoder and decode with p_n")
     uv_launches = uv_form_run(dev)
-    rates = {"train steps/s": train_rate, "opt clouds/s": defense_rates,
+    rates = {"train steps/s": train_rates, "opt clouds/s": defense_rates,
              "mesh clouds/s": {k: mesh[k] for k in ("first", "warm")},
              "mesh batch device ms": mesh["device_ms"],
              "PointConvONet calls/s": pconv_rate}
     print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
-    return rates, {"grid": defense_launches, "pointconv": pconv_launches,
-                   "uv": uv_launches}, row
+    return rates, {"grid": defense_launches, "grid_train": train_launches,
+                   "pointconv": pconv_launches, "uv": uv_launches}, row
 
 
 SUPPORT_VICTIMS = ("pointnet", "dgcnn", "pointnet2", "pointconv")
@@ -4395,8 +4622,8 @@ def check_accuracy_tool(dev) -> dict:
     and read just after: results.json with the JAX tool's key tree, every
     accuracy a share of the 32 clouds, every leg on cuda:0 with TF32 off,
     and the kernels of the defenses launched (B1 and B4 in ConvONet-Opt's
-    reference mode, the scatter-mean in its encoder, B5 and B6 in
-    DUP-Net). -> (seconds, launches, the table's cells)."""
+    reference mode, the scatter-mean and pooled max in its encoder, B5 and
+    B6 in DUP-Net). -> (seconds, launches, the table's cells)."""
     acc = tool("accuracy_benchmark_torch")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4426,7 +4653,7 @@ def check_accuracy_tool(dev) -> dict:
         fail("an accuracy-tool leg ran off cuda:0 or with TF32 on")
     if not all(launches.get(k, 0) > 0 for k in (
             "repulsion_loss", "plane_features", "plane_features_dp",
-            "scatter_mean", "fps", "ballquery")):
+            "scatter_mean", "pooled_max", "fps", "ballquery")):
         fail(f"the accuracy tool's defenses did not launch every kernel of "
              f"their path: {launches}")
     return {"seconds": seconds, "launches": launches,
@@ -4450,7 +4677,12 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     from if_defense_tpu_torch.data import save_npz
-    from if_defense_tpu_torch.ops import _build, cuda_interp, cuda_repulsion
+    from if_defense_tpu_torch.ops import (
+        _build,
+        cuda_interp,
+        cuda_repulsion,
+        cuda_scatter,
+    )
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4482,6 +4714,9 @@ def main() -> int:
     print(f"the encoder's scatter-mean kernel (no TPU kernel) at B={B}, "
           f"{SCATTER_N} points, {C} channels:")
     scatter = check_scatter(dev)
+    print(f"the encoder's pooled-max kernels (no TPU kernel) at B={B}, "
+          f"{SCATTER_N} points, {C} channels:")
+    rows.append(check_pooled_max(dev))
 
     print("phase 3: small whole path, CUDA vs CPU, same draws")
     check_small_path(dev)
@@ -4520,16 +4755,27 @@ def main() -> int:
 
         print(f"phase 10: train_implicit, full width, {TRAIN_STEPS} steps "
               f"at lr {TRAIN_LR:g}")
-        for k in cuda_interp.launches:
-            cuda_interp.launches[k] = 0
+        for counter in (cuda_interp.launches, cuda_scatter.launches):
+            for k in counter:
+                counter[k] = 0
         runs = {}
         for variant in ("convonet", "onet"):
             for tag in ("first", "warm"):
                 runs[variant, tag] = run_train_cli(tmp, occ_npz, variant, tag)
             if variant == "convonet":
                 launches["train"] = dict(cuda_interp.launches)
-                print(f"  convonet, both runs: launches {launches['train']}")
+                launches["train_scatter"] = dict(cuda_scatter.launches)
+                print(f"  convonet, both runs: launches {launches['train']}, "
+                      f"{launches['train_scatter']}")
                 want = 2 * TRAIN_STEPS         # one each a step, 2 runs
+                # the encoder: the scatter-mean once a plane, the pooled
+                # max once a plane in each of 4 blocks, each way
+                if launches["train_scatter"] != {
+                        "scatter_mean": 3 * want, "pooled_max": 12 * want,
+                        "pooled_max_backward": 12 * want}:
+                    fail(f"encoder launches {launches['train_scatter']} in "
+                         f"ConvONet training, not {3 * want} scatter-mean "
+                         f"and {12 * want} pooled max each way")
                 if launches["train"] != {"plane_features": want,
                                          "plane_features_dp": 0,
                                          "plane_features_dplane": want,
@@ -4541,14 +4787,20 @@ def main() -> int:
                          "gradient (and no gradient to p)")
         train_rates = {f"{v} {t}": r["steps_per_sec"]
                        for (v, t), r in runs.items()}
-        # whether training repeats its bits from one seed (printed only:
-        # the gathers' and convolutions' backwards add in a free order)
+        # training repeats its bits from one seed: the CLI runs under
+        # deterministic algorithms, and the encoder's scatters are the
+        # port's fixed-order kernels
         for variant in ("convonet", "onet"):
             with np.load(runs[variant, "first"]["path"]) as a, np.load(
                     runs[variant, "warm"]["path"]) as b:
+                same = a.files == b.files and all(
+                    a[k].tobytes() == b[k].tobytes() for k in a.files)
                 gap = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
             print(f"  {variant}: the two runs' weights bit-equal "
-                  f"{gap == 0}, largest gap {gap:.3e}")
+                  f"{same}, largest gap {gap:.3e}")
+            if not same:
+                fail(f"two seeded train_implicit --variant {variant} runs "
+                     f"differ (largest gap {gap:.3e})")
         for variant in ("convonet", "onet"):
             shutil.copy(runs[variant, "warm"]["path"],
                         os.path.join(keep, f"{variant}.npz"))
@@ -4674,7 +4926,9 @@ def main() -> int:
                "plane_sample": ("uv", ("plane_sample", "plane_sample_duv",
                                        "plane_sample_dplane")),
                "plane_features_dplane": ("train", ("plane_features",
-                                                   "plane_features_dplane"))}
+                                                   "plane_features_dplane")),
+               "pooled_max": ("reference fast train_scatter grid_train",
+                              ("pooled_max", "pooled_max_backward"))}
     for row in rows:
         mode, names = used_in[row["name"]]
         row["launches"] = sum(launches[m][n] for m in mode.split()
@@ -4708,6 +4962,10 @@ def main() -> int:
     print("accuracy tool (phase 19): " + json.dumps(accuracy) + f" on {card}")
     print("encoder scatter-mean kernel (csrc/scatter.cu, replaces no TPU "
           "kernel; ms and launches): " + json.dumps(scatter) + f" on {card}")
+    pooled = next(r for r in rows if r["name"] == "pooled_max")
+    print("encoder pooled-max kernels (csrc/scatter.cu, replace no TPU "
+          "kernel; the grid's 32^3 cells, ms): " + json.dumps(pooled["grid"])
+          + f" on {card}")
     print(card)
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "source", "replaces", "launches",
@@ -4715,6 +4973,8 @@ def main() -> int:
                            "library_call_ms", "library_device_ms")}
         | ({"bound_whole_planes_ms": r["bound_whole_ms"]}
            if "bound_whole_ms" in r else {})
+        | ({"deterministic_plain_ms": r["deterministic_plain_ms"]}
+           if "deterministic_plain_ms" in r else {})
         | {"route": "cuda", "ms": r["device_ms"], "bound_ms": r["bound"][0],
            "bound_by": r["bound"][1],
            "bound_share": r["bound"][0] / r["device_ms"],

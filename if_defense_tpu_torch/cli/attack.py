@@ -3,12 +3,12 @@
 
 Writes one adversarial npz (`test_pc`, `test_label`, `target_label`) and a
 `.metrics.jsonl` beside it. The flags are the JAX CLI's, plus `--device`
-(default `cuda`; `cpu` only when asked). It runs eagerly,
-with TF32 off for matmuls and convolutions and under
-`torch.use_deterministic_algorithms(True)` (restored when `main` returns),
-so that a batch gives the same bits each time it is computed. Each batch
-draws from its own `torch.Generator`, seeded from (`--seed`, batch index),
-so a `--resume`d run replays the draws of the batches it computes. Resume
+(default `cuda`; `cpu` only when asked). It runs eagerly, with TF32 off
+for matmuls and convolutions and under deterministic algorithms
+(`utils.determinism`, restored when `main` returns), so that a batch
+gives the same bits each time it is computed. Each batch draws from its
+own `torch.Generator`, seeded from (`--seed`, batch index), so a
+`--resume`d run replays the draws of the batches it computes. Resume
 shards are fingerprinted by the results' arguments and the inputs'
 contents; a directory of other shards is refused.
 
@@ -81,12 +81,10 @@ from if_defense_tpu_torch.parallel import (
     shard_batch,
 )
 from if_defense_tpu_torch.utils import MetricsWriter
+from if_defense_tpu_torch.utils.determinism import deterministic
 
 ATTACKS = ["perturb", "add", "add_cluster", "add_object", "knn",
            "fgm", "ifgm", "mifgm", "pgd", "drop"]
-# cuBLAS's deterministic workspace, needed under deterministic algorithms;
-# it takes effect only where set before the process's first cuBLAS handle
-CUBLAS_WORKSPACE = ":4096:8"
 
 
 def parse_args(argv=None):
@@ -422,17 +420,11 @@ def main(argv=None, devices=None):
     """Run the attack; (output path or None, success rate). `devices` (for
     tests) replaces the devices `--device` names, repeats allowed."""
     args = parse_args(argv)
-    device = device_of(args.device)
-    if device.type == "cuda":
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    device_of(args.device)
     mesh = best_data_mesh(args.batch_size,
                           args.device if devices is None else devices)
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         return _attack(args, mesh)
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
 
 
 def _attack(args, mesh):

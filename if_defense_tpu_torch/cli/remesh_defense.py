@@ -15,11 +15,10 @@ card, then each card encodes and evaluates its share; the value grids
 cross to the
 host in the `--wire` format, and the native isosurface code marches and
 samples each cloud there, one cloud per worker thread. The CLI runs under
-deterministic algorithms (restored on return; on the card it sets
-`CUBLAS_WORKSPACE_CONFIG` where unset): a logit moved by the rounding of
-a sum taken in a free order can cross a quantum boundary of the int8 wire,
-so two runs, the int8 and sparse wires and any thread count give the same
-bits.
+deterministic algorithms (`utils.determinism`, restored on return): a
+logit moved by the rounding of a sum taken in a free order can cross a
+quantum boundary of the int8 wire, so two runs, the int8 and sparse wires
+and any thread count give the same bits.
 
 Failed reconstructions fall back to a random resample (or zero padding) of
 the input cloud, like :159-170. The encoder subset is drawn from a
@@ -69,6 +68,7 @@ from if_defense_tpu_torch.parallel import (
     shard_batch,
 )
 from if_defense_tpu_torch.utils import MetricsWriter
+from if_defense_tpu_torch.utils.determinism import deterministic
 from if_defense_tpu_torch.utils.meshio import export_mesh
 from if_defense_tpu_torch.utils.params_io import (
     load_params_npz,
@@ -433,26 +433,17 @@ def build_eval_fns(args, model):
     return dense_fn, sparse_fn, decode_fn, encode_fn
 
 
-CUBLAS_WORKSPACE = ":4096:8"     # cuBLAS's deterministic workspace
-
-
 def main(argv=None, draws=None, devices=None):
     """Defend every npz of `--data_root`; the saved paths. `draws` (for
     tests): an iterator of encoder subsets, one per batch in run order;
     `devices` (for tests) replaces the devices `--device` names, repeats
     allowed."""
     args = parse_args(argv)
-    device = device_of(args.device)
-    if device.type == "cuda":
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    device_of(args.device)
     mesh = best_data_mesh(args.batch_size,
                           args.device if devices is None else devices)
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         return _remesh(args, mesh, draws)
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
 
 
 def _remesh(args, mesh, draws) -> list:

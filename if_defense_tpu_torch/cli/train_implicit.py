@@ -6,7 +6,10 @@ Writes `<output>.npz` in the JAX package's flat format (`params`, and
 `<output>.metrics.jsonl` (step, loss, acc, steps_per_sec). Input: an
 occupancy npz built by `tools/build_occupancy_dataset.py` (or any npz with
 pointcloud / points / points_occ arrays). One device, eager (CUDA unless
-`--device cpu`), with TF32 off for matmuls and cuDNN convolutions.
+`--device cpu`), with TF32 off for matmuls and cuDNN convolutions, under
+deterministic algorithms (`utils.determinism`, restored on return): two
+runs from one `--seed` write the same bits, and an op on the path with no
+deterministic form raises instead of drifting.
 
 Usage:
     python -m if_defense_tpu_torch.cli.train_implicit --variant convonet \
@@ -29,6 +32,7 @@ from if_defense_tpu_torch.implicit.training import (
     init_occupancy_model,
     make_occupancy_train_step,
 )
+from if_defense_tpu_torch.utils.determinism import deterministic
 from if_defense_tpu_torch.utils.metrics import MetricsWriter
 from if_defense_tpu_torch.utils.params_io import params_to_jax, save_params_npz
 
@@ -58,6 +62,11 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = device_of(args.device)
+    with deterministic():
+        return _train(args, device)
+
+
+def _train(args, device) -> str:
     if device.type == "cuda":
         # f32 reference numerics: no TF32 in matmuls or cuDNN convolutions
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -12,9 +12,13 @@ arrays:
 The JAX package jits the step; the port runs it eagerly. For the plane
 ConvONet the three plane lookups of the decoder go through kernel B4 on a
 CUDA device, forward and plane gradient (the queries are data, so no uv
-gradient); the grid ConvONet's volume is sampled by
-`trilinear_grid_sample`, and its 3D UNet's max-pool has no deterministic
-CUDA backward, so grid training runs with deterministic algorithms off.
+gradient); the encoder's pooled max and scatter-mean through the port's
+fixed-order kernels (`ops/cuda_scatter.py`) both ways; the grid ConvONet's
+volume is sampled by `trilinear_grid_sample`. Under deterministic
+algorithms (`utils.determinism`, as `cli/train_implicit.py` runs) a step
+of either variant repeats its bits on the card: cuDNN's convolutions and
+the trilinear gathers' backward take torch's deterministic forms, and the
+3D UNet's max-pool has a backward of its own (`unet3d.max_pool3d_2x`).
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""Wrapper of the CUDA scatter-mean kernel (`csrc/scatter.cu`).
+"""Wrappers of the CUDA kernels of the encoder's per-cell reductions
+(`csrc/scatter.cu`): the scatter-mean and the pooled max with its backward.
 
-Replaces no TPU kernel: the JAX package's `ops/scatter.py:20-38` writes the
-encoder's scatter-mean as a one-hot matmul, and the port's plain version,
-`ops.scatter.scatter_mean_2d_plain`, sums with `scatter_add_`, whose
-atomics on the card add in an order that changes from run to run. The
-kernel adds each cell's points in point order, the order the plain version
-adds them in on the CPU, so it gives that version's bits on a CPU copy and
-the same bits launch after launch. Takes f32 tensors on a CUDA device
-only; `ops.scatter.scatter_mean_2d` chooses between kernel and plain
-version by the tensor's device.
+Replace no TPU kernel: the JAX package's `ops/scatter.py:20-56` writes the
+scatter-mean as a one-hot matmul and the pooled max as a masked max over a
+pairwise same-cell mask. The port's plain versions,
+`ops.scatter.scatter_mean_2d_plain` and `pooled_max_by_cell_plain`, take
+torch's scatters, whose atomics on the card add in an order that changes
+from run to run (the pooled max's in `gather`'s backward). The kernels take
+each cell's points in point order, the order the plain versions take them
+in on the CPU, so they give those versions' bits on a CPU copy and the same
+bits launch after launch. They take f32 tensors on a CUDA device only;
+`ops.scatter` chooses between kernel and plain version by the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -20,9 +23,37 @@ import torch
 from if_defense_tpu_torch.ops import _build
 
 # kernel launches, counted where they happen
-launches = {"scatter_mean": 0}
+launches = {"scatter_mean": 0, "pooled_max": 0, "pooled_max_backward": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _check(what: str, feat: torch.Tensor, index: torch.Tensor,
+           num_cells: int) -> None:
+    """Raise unless `feat` is [B, N, C] f32 on a CUDA device and `index` an
+    integer [B, N] beside it (its range is checked by the kernels)."""
+    if feat.dtype != torch.float32:
+        raise TypeError(f"features must be float32, not {feat.dtype}")
+    if feat.dim() != 3:
+        raise ValueError(f"features must be [B, N, C], not "
+                         f"{tuple(feat.shape)}")
+    B, N, _ = feat.shape
+    if tuple(index.shape) != (B, N) or index.device != feat.device:
+        raise ValueError(f"index must be [{B}, {N}] on the features' device")
+    if index.dtype.is_floating_point or index.dtype == torch.bool:
+        raise TypeError(f"index must be integer, not {index.dtype}")
+    if num_cells < 1 or num_cells > 2**31 - 1:
+        raise ValueError(f"num_cells={num_cells} out of range")
+    if not feat.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors")
+
+
+def _sorted(index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each cloud's cells in ascending order and the points' positions in
+    that order, int32: a stable sort keeps each cell's points in point
+    order."""
+    sorted_idx, perm = torch.sort(index.to(torch.int32), dim=1, stable=True)
+    return sorted_idx.contiguous(), perm.to(torch.int32).contiguous()
 
 
 def scatter_mean_cuda(feat: torch.Tensor, index: torch.Tensor,
@@ -33,28 +64,13 @@ def scatter_mean_cuda(feat: torch.Tensor, index: torch.Tensor,
     f32). The range of `index` is checked on the card, with no host sync:
     an index outside it stops the kernel, and the CUDA error it leaves
     (as `scatter_add_`'s device assert does) raises at the next sync."""
-    if not feat.is_cuda:
-        raise ValueError("scatter_mean_cuda takes CUDA tensors")
-    if feat.dtype != torch.float32:
-        raise TypeError(f"features must be float32, not {feat.dtype}")
-    if feat.dim() != 3:
-        raise ValueError(f"features must be [B, N, C], not "
-                         f"{tuple(feat.shape)}")
+    _check("scatter_mean_cuda", feat, index, num_cells)
     B, N, C = feat.shape
-    if tuple(index.shape) != (B, N) or index.device != feat.device:
-        raise ValueError(f"index must be [{B}, {N}] on the features' device")
-    if index.dtype.is_floating_point or index.dtype == torch.bool:
-        raise TypeError(f"index must be integer, not {index.dtype}")
-    if num_cells < 1 or num_cells > 2**31 - 1:
-        raise ValueError(f"num_cells={num_cells} out of range")
     out = torch.zeros((B, num_cells, C), dtype=feat.dtype, device=feat.device)
     counts = torch.empty((B, N), dtype=feat.dtype, device=feat.device)
     if out.numel() == 0 or N == 0:
         return out, counts
-    # a stable sort keeps each cell's points in point order
-    sorted_idx, perm = torch.sort(index.to(torch.int32), dim=1, stable=True)
-    sorted_idx = sorted_idx.contiguous()
-    perm = perm.to(torch.int32).contiguous()
+    sorted_idx, perm = _sorted(index)
     feat = feat.contiguous()
     fn = _build.bind("scatter", "ifdef_scatter_mean",
                      [_P, _P, _P, _I, _I, _I, _I, _P, _P])
@@ -63,3 +79,51 @@ def scatter_mean_cuda(feat: torch.Tensor, index: torch.Tensor,
         num_cells, out.data_ptr(), counts.data_ptr()),
         feat, launches, "scatter_mean")
     return out, counts
+
+
+def pooled_max_cuda(feat: torch.Tensor, index: torch.Tensor,
+                    num_cells: int) -> tuple[torch.Tensor, tuple]:
+    """Each point of `feat` [B, N, C] f32 given the max, channel by
+    channel, over the points of its cell of `index` [B, N] (integers in
+    [0, num_cells), checked on the card as in `scatter_mean_cuda`). ->
+    (out [B, N, C], the state `pooled_max_backward_cuda` takes: the sort
+    and each cell's tie count)."""
+    _check("pooled_max_cuda", feat, index, num_cells)
+    B, N, C = feat.shape
+    out = torch.empty_like(feat, memory_format=torch.contiguous_format)
+    ties = torch.empty_like(out)
+    sorted_idx, perm = _sorted(index)
+    if out.numel():
+        feat = feat.contiguous()
+        fn = _build.bind("scatter", "ifdef_pooled_max",
+                         [_P, _P, _P, _I, _I, _I, _I, _P, _P])
+        _build.launch("scatter", "pooled_max", fn, (
+            feat.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
+            num_cells, out.data_ptr(), ties.data_ptr()),
+            feat, launches, "pooled_max")
+    return out, (num_cells, ties, sorted_idx, perm)
+
+
+def pooled_max_backward_cuda(grad_out: torch.Tensor, feat: torch.Tensor,
+                             out: torch.Tensor, state: tuple) -> torch.Tensor:
+    """The gradient to `feat` of `pooled_max_cuda(feat, ...)` = `out`, fed
+    `grad_out` [B, N, C]: each cell's output gradients added in point order
+    and shared evenly among the points equal to its max. `state` is what
+    the forward returned beside `out`."""
+    num_cells, ties, sorted_idx, perm = state
+    _check("pooled_max_backward_cuda", grad_out, sorted_idx, num_cells)
+    if grad_out.shape != feat.shape:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} is not the "
+                         f"features' {tuple(feat.shape)}")
+    B, N, C = feat.shape
+    grad = torch.empty_like(out)
+    if grad.numel():
+        grad_out, feat = grad_out.contiguous(), feat.contiguous()
+        fn = _build.bind("scatter", "ifdef_pooled_max_backward",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+        _build.launch("scatter", "pooled_max_backward", fn, (
+            grad_out.data_ptr(), feat.data_ptr(), out.data_ptr(),
+            ties.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
+            num_cells, grad.data_ptr()),
+            grad_out, launches, "pooled_max_backward")
+    return grad

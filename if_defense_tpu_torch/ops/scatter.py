@@ -3,10 +3,11 @@
 
 The JAX package writes these scatter-free for the TPU (one-hot matmul,
 pairwise same-cell mask); on the GPU PyTorch's scatter ops are the direct
-form. Neither was a Pallas kernel. The scatter-mean alone has a kernel of
-its own on the card (`ops/cuda_scatter.py`): `scatter_add_` sums there with
-atomics, in an order that changes from run to run, and the encoder's
-planes, hence a seeded defense, would not repeat.
+form. Neither was a Pallas kernel. The encoder's scatter-mean and pooled
+max have kernels of their own on the card (`ops/cuda_scatter.py`):
+`scatter_add_` sums there with atomics (the pooled max's in `gather`'s
+backward), in an order that changes from run to run, and the encoder's
+planes, hence a seeded defense or training run, would not repeat.
 """
 
 from __future__ import annotations
@@ -70,21 +71,61 @@ def scatter_mean_2d(feat: torch.Tensor, index: torch.Tensor,
     return _ScatterMean.apply(feat, index, num_cells)
 
 
-def pooled_max_by_cell(feat: torch.Tensor, index: torch.Tensor,
-                       num_cells: int) -> torch.Tensor:
-    """Per-POINT max over all points sharing the same cell (scatter_max and
-    gather back, the ConvONet encoder's pool_local).
-
-    Args:
-        feat: [B, N, C]; index: [B, N] in [0, num_cells).
-    Returns:
-        [B, N, C]
-    """
+def pooled_max_by_cell_plain(feat: torch.Tensor, index: torch.Tensor,
+                             num_cells: int) -> torch.Tensor:
+    """The plain version of `pooled_max_by_cell`: `scatter_reduce` amax
+    into a -inf fill, then `gather` back. Under autograd on the CPU its
+    backward adds each cell's output gradients in point order
+    (`gather`'s backward, a `scatter_add_`) and shares them evenly among
+    the points equal to the max (`scatter_reduce`'s amax formula)."""
     B, N, C = feat.shape
     idx = index.long()[..., None].expand(-1, -1, C)
     cell_max = feat.new_full((B, num_cells, C), -torch.inf).scatter_reduce(
         1, idx, feat, reduce="amax", include_self=True)
     return torch.gather(cell_max, 1, idx)
+
+
+class _PooledMax(torch.autograd.Function):
+    """The pooled max on the card, both ways by the kernels."""
+
+    @staticmethod
+    def forward(ctx, feat, index, num_cells):
+        from if_defense_tpu_torch.ops.cuda_scatter import pooled_max_cuda
+
+        out, state = pooled_max_cuda(feat, index, num_cells)
+        ctx.state = state
+        ctx.save_for_backward(feat, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from if_defense_tpu_torch.ops.cuda_scatter import (
+            pooled_max_backward_cuda,
+        )
+
+        feat, out = ctx.saved_tensors
+        return (pooled_max_backward_cuda(grad_out, feat, out, ctx.state),
+                None, None)
+
+
+def pooled_max_by_cell(feat: torch.Tensor, index: torch.Tensor,
+                       num_cells: int) -> torch.Tensor:
+    """Per-POINT max over all points sharing the same cell (scatter_max and
+    gather back, the ConvONet encoder's pool_local), each cell's points
+    taken in point order both ways (the same bits on the card and the CPU,
+    run after run); the gradient of a cell is shared evenly among the
+    points equal to its max.
+
+    Args:
+        feat: [B, N, C], float32 on a CUDA device (the kernels' only
+            dtype; TypeError otherwise), any floating dtype on the CPU;
+        index: [B, N] int cell index in [0, num_cells).
+    Returns:
+        [B, N, C]
+    """
+    if feat.is_cuda:
+        return _PooledMax.apply(feat, index, num_cells)
+    return pooled_max_by_cell_plain(feat, index, num_cells)
 
 
 def pooled_mean_by_cell(feat: torch.Tensor, index: torch.Tensor,

@@ -37,7 +37,11 @@ batch statistics within 1e-4 of their scale. The encoder's scatter-mean
 kernel (`csrc/scatter.cu`, no TPU kernel) bit-equal to its plain version on
 a CPU copy and from one launch to the next, at a 64x64 plane and 32^3
 cells with shared and empty cells, and its gather backward bit-equal to
-the CPU's.
+the CPU's; the pooled-max kernels (the same file), forward and backward,
+bit-equal to the plain version's autograd on a CPU copy, with tied maxima,
+and launch to launch; both trap on a cell out of range. Two seeded
+`train_implicit --variant convonet` runs on the card, and two grid
+ConvONet training runs under deterministic algorithms, bit-equal.
 """
 
 import os
@@ -1093,6 +1097,157 @@ def test_cuda_scatter_mean_traps_out_of_range(cuda, cell):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode != 0
     assert "CUDA error" in out.stderr, out.stderr
+
+
+def _tied_cells(cells, seed, b=4, n=600, c=32):
+    """Features and cells of b clouds of n points, half the points in 4
+    shared cells and every third point a copy of the point before it
+    (features and cell), so maxima tie; most cells empty."""
+    rng = np.random.default_rng(seed)
+    feat = (rng.normal(size=(b, n, c))
+            * rng.uniform(0.01, 10.0, (b, n, 1))).astype(np.float32)
+    idx = rng.integers(0, cells, (b, n))
+    idx[:, : n // 2] = rng.integers(0, cells, 4)[rng.integers(0, 4, (b, n // 2))]
+    idx = rng.permuted(idx, axis=1)
+    feat[:, 1::3] = feat[:, 0::3][:, :n // 3]
+    idx[:, 1::3] = idx[:, 0::3][:, :n // 3]
+    return torch.from_numpy(feat), torch.from_numpy(idx)
+
+
+def _bits(t):
+    return t.detach().cpu().contiguous().numpy().tobytes()
+
+
+@pytest.mark.parametrize("cells", [64 * 64, 32**3])
+def test_cuda_pooled_max_matches_plain_cpu(cuda, cells):
+    """The pooled-max kernels, forward and backward, give every bit of the
+    plain version's autograd on a CPU copy, launch after launch."""
+    from if_defense_tpu_torch.ops import cuda_scatter
+    from if_defense_tpu_torch.ops.scatter import (
+        pooled_max_by_cell,
+        pooled_max_by_cell_plain,
+    )
+
+    f, idx = _tied_cells(cells, cells + 1)
+    g = torch.from_numpy(np.random.default_rng(cells).normal(
+        size=f.shape).astype(np.float32))
+    x = f.clone().requires_grad_(True)
+    want = pooled_max_by_cell_plain(x, idx, cells)
+    want.backward(g)
+    ties = torch.zeros(f.shape[0], cells, f.shape[2]).scatter_add_(
+        1, idx[..., None].expand(-1, -1, f.shape[2]), (f == want).float())
+    assert int(ties.max()) >= 2
+    before = dict(cuda_scatter.launches)
+    got = []
+    for _ in range(2):
+        xd = f.to(cuda).requires_grad_(True)
+        out = pooled_max_by_cell(xd, idx.to(cuda), cells)
+        out.backward(g.to(cuda))
+        got.append((_bits(out), _bits(xd.grad)))
+    torch.cuda.synchronize()
+    assert cuda_scatter.launches["pooled_max"] == before["pooled_max"] + 2
+    assert (cuda_scatter.launches["pooled_max_backward"]
+            == before["pooled_max_backward"] + 2)
+    assert got[0] == got[1] == (_bits(want), _bits(x.grad))
+
+
+def test_cuda_pooled_max_refuses(cuda):
+    from if_defense_tpu_torch.ops.cuda_scatter import pooled_max_cuda
+
+    f = torch.zeros(1, 8, 4, device=cuda)
+    i = torch.zeros(1, 8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        pooled_max_cuda(f.double(), i, 16)
+    with pytest.raises(ValueError, match="index must be"):
+        pooled_max_cuda(f, i[:, :4], 16)
+    with pytest.raises(ValueError, match="index must be"):
+        pooled_max_cuda(f, i.cpu(), 16)
+
+
+@pytest.mark.parametrize("cell", [16, -1])
+def test_cuda_pooled_max_traps_out_of_range(cuda, cell):
+    """As the scatter-mean: a cell outside [0, 16) stops the kernel and
+    the next sync raises; in a process of its own."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from if_defense_tpu_torch.ops.cuda_scatter import "
+            "pooled_max_cuda\n"
+            "f = torch.ones(1, 8, 4, device='cuda')\n"
+            "i = torch.zeros(1, 8, dtype=torch.int64, device='cuda')\n"
+            f"i[0, 5] = {cell}\n"
+            "pooled_max_cuda(f, i, 16)\n"
+            "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0
+    assert "CUDA error" in out.stderr, out.stderr
+
+
+def _occupancy_npz(path, seed=0, shapes=4):
+    rng = np.random.default_rng(seed)
+    np.savez(path,
+             pointcloud=rng.uniform(-0.4, 0.4, (shapes, 1000, 3)).astype(
+                 np.float32),
+             points=rng.uniform(-0.55, 0.55, (shapes, 2048, 3)).astype(
+                 np.float32),
+             points_occ=(rng.uniform(size=(shapes, 2048)) < 0.3).astype(
+                 np.float32))
+    return str(path)
+
+
+def test_cuda_train_implicit_convonet_repeats(cuda, tmp_path):
+    """Two `train_implicit --variant convonet` runs on the card from one
+    seed (full width, 5 steps at batch 8) write the same bits: the CLI runs
+    under deterministic algorithms and the encoder's scatters are the
+    port's fixed-order kernels."""
+    from if_defense_tpu_torch.cli import train_implicit
+
+    data = _occupancy_npz(tmp_path / "occ.npz")
+    weights = []
+    for run in ("a", "b"):
+        out = train_implicit.main([
+            "--variant", "convonet", "--data", data, "--device", "cuda",
+            "--batch_size", "8", "--steps", "5", "--lr", "1e-3",
+            "--output", str(tmp_path / run)])
+        with np.load(out) as z:
+            weights.append({k: z[k].tobytes() for k in z.files})
+    assert weights[0] == weights[1]
+
+
+def test_cuda_grid_train_steps_repeat(cuda):
+    """Two 3-step runs of the grid ConvONet's train step (c_dim 8, hidden
+    8, 16^3, 3D UNet depth 3) on the card from one seed under
+    `utils.determinism.deterministic`: every weight bit-equal (cuDNN's 3-D
+    convolutions, max-pool and the trilinear gathers' backwards in torch's
+    deterministic forms, the encoder's in the port's kernels)."""
+    from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
+    from if_defense_tpu_torch.implicit.training import (
+        init_occupancy_model,
+        make_occupancy_train_step,
+    )
+    from if_defense_tpu_torch.utils.determinism import deterministic
+
+    rng = np.random.default_rng(3)
+    batches = [(rng.uniform(-0.4, 0.4, (4, 300, 3)),
+                rng.uniform(-0.55, 0.55, (4, 512, 3)),
+                (rng.uniform(size=(4, 512)) < 0.3))
+               for _ in range(3)]
+    states = []
+    with deterministic():
+        for _ in range(2):
+            model = ConvOccupancyNetwork(8, 8, 16, plane_type=("grid",),
+                                         grid_resolution=16)
+            init_occupancy_model(model, 0)
+            model.to(cuda)
+            _, step = make_occupancy_train_step(model, 1e-3)
+            for b in batches:
+                step(*(torch.from_numpy(a.astype(np.float32)).to(cuda)
+                       for a in b))
+            states.append({k: _bits(v) for k, v in model.state_dict().items()})
+    assert states[0] == states[1]
 
 
 def test_cuda_kernels_launch_on_their_tensors_card(cuda):

@@ -14,7 +14,8 @@ and gradients of order 1 (f32, an explicit 8-corner lerp against JAX's
 three contractions: sums of a few terms in other orders); the cell maps
 exact;
 networks rtol 1e-5 with atol 1e-5 of the largest magnitude, 1e-4 where a
-3D UNet is in the way (27-tap convolutions summed in other orders); the
+3D UNet is in the way (27-tap convolutions summed in other orders), the
+UNet's max-pool bit-equal to `F.max_pool3d`'s autograd; the
 slice as a whole as in `test_torch_port_defense.py` and
 `test_torch_port_generation.py`.
 """
@@ -44,6 +45,7 @@ from if_defense_tpu_torch.implicit import (
 from if_defense_tpu_torch.implicit import convonet as tcv
 from if_defense_tpu_torch.implicit import generation as tg
 from if_defense_tpu_torch.implicit.training import init_occupancy_model
+from if_defense_tpu_torch.implicit.unet3d import max_pool3d_2x
 from if_defense_tpu_torch.ops import interp as tinterp
 from if_defense_tpu_torch.ops import scatter as tscatter
 from if_defense_tpu_torch.utils.params_io import (
@@ -204,6 +206,34 @@ def test_unet3d():
     v = _load_perturbed(tm)
     with torch.no_grad():
         _close(tm(torch.from_numpy(x)), jm.apply(v, jnp.asarray(x)), 1e-4, 1e-4)
+
+
+
+def test_unet3d_max_pool_backward():
+    """The 3D UNet's max-pool (`max_pool3d_2x`, a backward of elementwise
+    ops): forward and gradient equal to `F.max_pool3d`'s autograd, tied
+    windows included; the UNet's gradient to its input held to JAX's."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(B, C, RG, RG, RG)).astype(np.float32)
+    x[:, :, :2, :2, :2] = 1.0                 # a window whose entries tie
+    g = torch.from_numpy(rng.normal(size=(B, C, RG // 2, RG // 2, RG // 2))
+                         .astype(np.float32))
+    ours, theirs = (torch.from_numpy(x).requires_grad_(True) for _ in "ab")
+    out = max_pool3d_2x(ours)
+    out.backward(g)
+    ref = torch.nn.functional.max_pool3d(theirs, 2, 2)
+    ref.backward(g)
+    assert torch.equal(out, ref) and torch.equal(ours.grad, theirs.grad)
+
+    jm = JaxUNet3D(C, depth=2, start_filts=C)
+    vol = rng.normal(size=(B, RG, RG, RG, C)).astype(np.float32)
+    w = rng.normal(size=vol.shape).astype(np.float32)
+    tm = UNet3D(C, depth=2, start_filts=C)
+    v = _load_perturbed(tm)
+    t = torch.from_numpy(vol).requires_grad_(True)
+    (tm(t) * torch.from_numpy(w)).sum().backward()
+    want = jax.grad(lambda a: jnp.sum(jm.apply(v, a) * w))(jnp.asarray(vol))
+    _close(t.grad, want, 1e-4, 1e-4)
 
 
 @pytest.mark.parametrize("plane_type", [GRID, MIXED])

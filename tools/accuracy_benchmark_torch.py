@@ -534,7 +534,7 @@ def write_report(summary: dict, args, path: str):
 def main(argv=None):
     args = parse_args(argv)
     from if_defense_tpu_torch.cli import device_of
-    from if_defense_tpu_torch.cli.attack import CUBLAS_WORKSPACE
+    from if_defense_tpu_torch.utils.determinism import CUBLAS_WORKSPACE
 
     # before any CUDA work: cuBLAS reads it when the process's first handle
     # is made (the victim's training makes it, long before the attacks)

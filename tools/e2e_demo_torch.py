@@ -56,7 +56,7 @@ def main(argv=None, sizes: dict | None = None):
                         "cuda:0; cpu only when asked)")
     args = p.parse_args(argv)
     from if_defense_tpu_torch.cli import device_of
-    from if_defense_tpu_torch.cli.attack import CUBLAS_WORKSPACE
+    from if_defense_tpu_torch.utils.determinism import CUBLAS_WORKSPACE
 
     # before any CUDA work: the attack CLI's deterministic algorithms need
     # cuBLAS's workspace, read when the first handle is made (in training)
