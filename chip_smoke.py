@@ -29,7 +29,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      on a CPU copy and launch to launch; timed at the xz plane and the grid
      beside the plain version on the card (`scatter_reduce` amax and
      `gather`, an atomic backward) and the same under deterministic
-     algorithms;
+     algorithms; then the gathers' backward kernel (`csrc/gather.cu`, a
+     row of the kernels' table though it replaces no TPU kernel) at the
+     victims' training shapes (B=32: DGCNN's four EdgeConv blocks at its
+     [32, 1024, 20] kNN indices, C = 3, 64, 64, 128; PointNet++'s level-1
+     features [32, 512, 128] at [32, 128, 64] and its xyz at [32, 512,
+     32]; a set whose indices fall in 8 points a cloud), int64 and int32
+     indices: `index_points`' gradient bit-equal to the plain version's
+     autograd on a CPU copy, two launches each; timed at DGCNN's second
+     and fourth blocks and PointNet++'s features beside the plain version
+     (atomic) and the same under deterministic algorithms, and the two
+     yardsticks alone (`scatter_add_`, atomic and deterministic);
   3. checks the ConvONet-Opt path on a small input against the port's own
      CPU run (the plain versions) with the same draws, in both modes, at
      256 optimised points and at 6000;
@@ -131,11 +141,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      families but the two that start at clean points, Drop's mask) >= 99.9
      % of coordinates within 1e-4 and success masks equal but at near ties;
      (b) `cli/attack.py` at batch 32 and 1024 points on seeded PointNet++
-     and DGCNN: perturb at its defaults (10 x 500; B5/B6 launch counters
-     set to 0 just before and read just after, 10,000 each), then add,
+     and DGCNN: perturb at its defaults (10 x 500; B5/B6 and
+     gather-backward launch counters set to 0 just before and read just
+     after, 10,000 each and 25,000: five gathers a backward), then add,
      add_cluster, add_object (1 x 50), kNN on DGCNN with the ellipsoids'
      normals (50), FGM, I-FGM, MI-FGM, PGD (50), Drop (200 points) and a
-     mixed perturb (1 x 50), each checked for its shape and budget; a
+     mixed perturb (1 x 50), each checked for its shape and budget and
+     for gather-backward launches; a
      --resume run stopped after one of two batches and completed,
      bit-identical to an uninterrupted one; `cli/inference.py` rescoring the
      perturb output (its targeted count equal to the attack's but for near
@@ -144,7 +156,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      (`tools/profile_cw_iteration.py`), with and without deterministic
      algorithms in turns;
  14. victim training (`training.py`, `cli/train.py`, `cli/hybrid_train.py`;
-     TF32 off, deterministic algorithms off as the train CLI runs): (a)
+     TF32 off; the CLIs under deterministic algorithms, as they run): (a)
      each victim, and PointNet with the feature transform, 3 train steps
      at B=4, N=1024 on the card and on the port's CPU path from the same
      `flax_init_params(0)` values, batches and dropout masks (drawn on the
@@ -157,21 +169,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      `cli/train.py` at its defaults (batch 32, 1024 points, lr 1e-3, wd
      1e-4) for 2 epochs with `--eval_every 1` on `tools/synthetic_dataset.py`'s
      hard family (8 classes, 320 train and 80 test clouds) for each
-     victim, then PointNet with `--feature_transform`, B5/B6 launch
-     counters set to 0 just before each run and read just after: 20 train
-     steps and 2 x 3 padded eval batches are 26 forwards, so PointNet++
-     and RS-CNN 52 and 52, PointConv 52 and 0, PointNet and DGCNN none;
+     victim, then PointNet with `--feature_transform`, each twice from one
+     seed, `final.npz` and its optimiser sidecar bit-equal, B5/B6 and
+     gather-backward launch counters set to 0 just before each run and
+     read just after: 20 train steps and 2 x 3 padded eval batches are 26
+     forwards, so PointNet++ and RS-CNN 52 and 52, PointConv 52 and 0,
+     PointNet and DGCNN none; the gather backward
+     TRAIN_BACKWARD_LAUNCHES a train step (20, 60, 60, 20, 0);
      `cli/inference.py` scoring each victim's best checkpoint through
      `registry:synth` at the accuracy the run recorded for it, but for
      near ties (printed); `cli/hybrid_train.py` on PointNet++ with a
      jittered copy as `--def_data` (40 steps and 2 x 6 eval batches: 104
-     and 104), its best.npz the epoch of the highest def_test_acc; a
+     and 104, gather backward 40), twice from one seed and bit-equal, its
+     best.npz the epoch of the highest def_test_acc; a
      PointNet++ run of 1 epoch then `--resume` to epoch 2 (26 and 26 each),
      resumed at step 10 with Adam's moments as saved; steps/s by epoch
      from metrics.jsonl's epoch_time (an epoch's steps and its test pass);
      (c) a profile of one warm PointNet++ and one warm DGCNN train step at
      batch 32 (`tools/profile_train_step.py`, also alone on the card).
-     B5 over (b): 312 launches, B6: 260;
+     B5 over (b): 572 launches, B6: 468, the gather backward 420;
  15. the mesh restoration (`implicit/generation.py`,
      `cli/remesh_defense.py`, the native isosurface library built with
      g++) with phase 10's trained ConvONet and ONet: (a) B=2 clouds at the
@@ -215,7 +231,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      steps at phase 10's batch (32 x 2048, 600 input points) on phase 10's
      occupancy npz twice from one seed, the final weights bit-equal, the
      encoder's launch counters set to 0 just before and read just after (a
-     step: the pooled max 4 forward and 4 backward, the scatter-mean 1); (c)
+     step: the pooled max 4 forward and 4 backward, the scatter-mean 1,
+     the gather backward 8: the volume's corners in the decoder); (c)
      `convonet_opt_defense` with the trained weights on phase 4's 48 x
      1024 clouds, 201 steps, in the reference mode (B1 402 launches, B4
      none), with `interp_refresh=16` (the same bits) and in bf16; (d)
@@ -271,7 +288,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      the epoch's train loss within TRAIN_CLI_RTOL (float32 trajectories
      part; see the constant), each run's best checkpoint scored by
      `cli/inference.py` at the accuracy the run recorded but for near
-     ties;
+     ties; then the split run again from one seed, its `final.npz` and
+     optimiser sidecar bit-equal to the first's; the gather backward
+     launched in the phase;
  19. the accuracy protocol's tool, `tools/accuracy_benchmark_torch.py`,
      end to end on cuda:0 at tiny sizes (8 classes x 8 train and 4 test
      clouds of 1024 points, 2 epochs, 20 ConvONet steps; clean, kNN and
@@ -306,7 +325,12 @@ B4's rows add `library_device_ms` (also `library_ms`: every kernel of the
 three `F.grid_sample` calls' forward and backward and of their sum, the
 gradients' fills included), `library_call_ms` and `bound_whole_planes_ms`
 (the bound with every plane byte read, as the one-plane design's rows
-counted it).
+counted it). The gather backward's row (DGCNN's second block) times the
+wrapper alone, fed the output's gradient (`device_ms`: its sort, casts,
+fill and kernels), the forward and backward with the harness loss
+(`call_ms`, `plain_ms`), and one `scatter_add_` into zeros (`library_ms`,
+torch's atomic backward), and adds `deterministic_plain_ms` (the plain
+version under deterministic algorithms).
 `bound_share` is `bound_ms / device_ms`.
 
 Each kernel's `bound_ms` is the least time the card could take for its
@@ -327,6 +351,8 @@ scanned up to the centre's nsample-th hit and 5 per |v|^2; the pooled
 max 4 per point and channel (the max's compare, the tie's, the
 gradient's add and its share), whose bytes are the features, the output's
 gradient and the int64 cells read once, the output and the gradient
+written once; the gather backward 1 add per row and channel, whose bytes
+are the output's gradient and the indices read once and the gradient
 written once.
 
 f32 phases run with TF32 off for matmuls and cuDNN convolutions.
@@ -334,7 +360,6 @@ f32 phases run with TF32 off for matmuls and cuDNN convolutions.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import re
@@ -422,6 +447,12 @@ TRAIN_B, TRAIN_EPOCHS, TRAIN_PER_CLASS = 32, 2, (40, 10)
 TRAIN_FORWARD_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (2, 2),
                           "dgcnn": (0, 0), "pointconv": (2, 0),
                           "rscnn": (2, 2)}
+# gather-backward launches of one train step: the gathers whose points
+# need a gradient (the input cloud does not): PointNet++'s and RS-CNN's
+# level-2 features, DGCNN's blocks 2-4, PointConv's level-1 density
+# scales and level-2 features and density scales
+TRAIN_BACKWARD_LAUNCHES = {"pointnet": 0, "pointnet2": 1, "dgcnn": 3,
+                           "pointconv": 3, "rscnn": 1}
 # phase 18: sharded victim training, each batch split over [cuda:0,
 # cuda:0]; (b) PointNet++ at TRAIN_B for SPLIT_FULL_STEPS steps; (c) the
 # train CLI's epoch loss, split against one shard: their trajectories part
@@ -1041,6 +1072,166 @@ def check_pooled_max(dev) -> dict:
                         "pooled_max_by_cell is XLA, not a Pallas kernel",
                max_abs_err=err, bound=bnd, **out["xz"],
                grid={k: v for k, v in out["grid 32^3"].items()})
+    print_row(row)
+    return row
+
+
+def gather_sets(dev) -> dict:
+    """Phase 2's gather-backward inputs at the train CLI's batch (B =
+    TRAIN_B clouds of 1024 points, phase 7's ellipsoids in the unit
+    sphere): {name: (points [B, N, C] f32 on the card, idx [B, ...] on the
+    card)}. DGCNN's four EdgeConv blocks gather [B, 1024, C] at its [B,
+    1024, 20] kNN indices (int64; C = 3, 64, 64, 128); PointNet++ gathers
+    its level-1 features [B, 512, 128] at level 2's [B, 128, 64] ball-query
+    indices and the input xyz at level 1's [B, 512, 32] (int32); the tie
+    set reads, in each cloud, only 8 of 1024 points at DGCNN's shape."""
+    from if_defense_tpu_torch.ops import (
+        farthest_point_sample,
+        index_points,
+        knn_points,
+        query_ball_point,
+    )
+
+    pc = victim_clouds(np.random.default_rng(23), TRAIN_B).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def feats(n: int, c: int) -> torch.Tensor:
+        return torch.randn((TRAIN_B, n, c), generator=gen, device=dev)
+
+    knn = knn_points(20, pc)
+    l1 = index_points(pc, farthest_point_sample(pc, 512))
+    xyz_idx = query_ball_point(0.2, 32, pc, l1)
+    l2 = index_points(l1, farthest_point_sample(l1, 128))
+    feat_idx = query_ball_point(0.4, 64, l1, l2)
+    eight = torch.stack([torch.randperm(1024, generator=gen, device=dev)[:8]
+                         for _ in range(TRAIN_B)])
+    ties = torch.gather(eight, 1, torch.randint(
+        0, 8, (TRAIN_B, 1024 * 20), generator=gen, device=dev)).reshape(
+        TRAIN_B, 1024, 20)
+    return {"dgcnn block 1 (C 3)": (pc, knn),
+            "dgcnn block 2 (C 64)": (feats(1024, 64), knn),
+            "dgcnn block 3 (C 64)": (feats(1024, 64), knn),
+            "dgcnn block 4 (C 128)": (feats(1024, 128), knn),
+            "pointnet2 level-1 features (C 128)": (feats(512, 128), feat_idx),
+            "pointnet2 xyz (C 3)": (pc, xyz_idx),
+            "ties, 8 points a cloud (C 64)": (feats(1024, 64), ties)}
+
+
+def check_gather_backward(dev) -> dict:
+    """Phase 2's gather-backward kernel (`csrc/gather.cu`; no TPU kernel)
+    at the victims' training shapes (`gather_sets`), each with int64 and
+    int32 indices: `index_points`' gradient on the card, twice, bit-equal
+    (every bit) to the plain version's autograd on a CPU copy, each
+    backward one launch. Timed at DGCNN's second block (the row of the
+    kernels' line), PointNet++'s level-1 features and DGCNN's fourth
+    block: the wrapper's device time (sort, casts, fill, kernels) over 20
+    calls by the profiler, fed the gradient; its whole call with a harness
+    loss, forward and backward; the plain version's (`torch.gather`, an
+    atomic `scatter_add_` backward) and the same under deterministic
+    algorithms (torch's sort-based index backward); and the device time of
+    the two yardsticks alone: `scatter_add_` into zeros, atomic and under
+    deterministic algorithms. The bound counts the output's gradient and
+    the indices read once and the gradient written once. -> the row."""
+    from if_defense_tpu_torch.ops import cuda_gather
+    from if_defense_tpu_torch.ops.pointops import (
+        index_points,
+        index_points_plain,
+    )
+    from if_defense_tpu_torch.utils.determinism import deterministic
+
+    sets = gather_sets(dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    err, grads, timed = 0.0, {}, {}
+    for name, (pts, idx) in sets.items():
+        n, c = pts.shape[1:]
+        g = torch.randn((*idx.shape, c), generator=gen, device=dev)
+        x = pts.detach().cpu().clone().requires_grad_(True)
+        index_points_plain(x, idx.cpu()).backward(g.cpu())
+        reads = torch.zeros(TRAIN_B, n, dtype=torch.int64).scatter_add_(
+            1, idx.reshape(TRAIN_B, -1).long().cpu(),
+            torch.ones(idx.reshape(TRAIN_B, -1).shape, dtype=torch.int64))
+        same = True
+        for dtype in (torch.int64, torch.int32):
+            before = cuda_gather.launches["gather_backward"]
+            got = []
+            for _ in range(2):
+                xd = pts.detach().clone().requires_grad_(True)
+                index_points(xd, idx.to(dtype)).backward(g)
+                got.append(xd.grad)
+            torch.cuda.synchronize()
+            launched = cuda_gather.launches["gather_backward"] - before
+            same &= launched == 2 and all(same_bits(gr, x.grad) for gr in got)
+            err = max(err, float((got[0].cpu() - x.grad).abs().max()))
+        print(f"  gather backward, {name}: [{TRAIN_B}, {n}, {c}] at "
+              f"{tuple(idx.shape)}, up to {int(reads.max())} rows a point, "
+              f"{int((reads == 0).sum())} points read by none; int64 and "
+              f"int32 indices, two launches each: bit-equal to the plain "
+              f"version's autograd on a CPU copy {same}")
+        if not same:
+            fail(f"the gather-backward kernel ({name}) is not bit-equal to "
+                 "the plain version's autograd on a CPU copy, or from launch "
+                 "to launch, or did not launch once a backward")
+        grads[name] = g
+
+    def harness(fn, pts, idx, g):
+        def call():
+            x = pts.detach().requires_grad_(True)
+            return torch.autograd.grad((fn(x, idx) * g).sum(), x)
+        return call
+
+    def determined(fn):
+        def run():
+            with deterministic():
+                return fn()
+        return run
+
+    for name in ("dgcnn block 2 (C 64)", "pointnet2 level-1 features (C 128)",
+                 "dgcnn block 4 (C 128)"):
+        pts, idx = sets[name]
+        g = grads[name]
+        n, c = pts.shape[1:]
+        flat = idx.reshape(TRAIN_B, -1)
+        m = flat.shape[1]
+        g3 = g.reshape(TRAIN_B, m, c)
+        ixp = flat.long()[..., None].expand(-1, -1, c)
+
+        def scatter(g3=g3, ixp=ixp, n=n, c=c):
+            return torch.zeros((TRAIN_B, n, c), device=dev).scatter_add_(
+                1, ixp, g3)
+
+        print(f"  gather backward, {name}, {tuple(flat.shape)} "
+              f"{str(idx.dtype).split('.')[-1]} indices:")
+        times = kernel_times(
+            harness(index_points, pts, idx, g),
+            harness(index_points_plain, pts, idx, g),
+            lambda: cuda_gather.gather_backward_cuda(g3, flat, n), None,
+            (scatter, scatter))
+        times["deterministic_plain_ms"] = median_ms(determined(
+            harness(index_points_plain, pts, idx, g)))
+        det = device_ms(determined(scatter))
+        times["deterministic_device_ms"] = det[0] if det else graph_ms(
+            determined(scatter))
+        times["bound"] = bound(TRAIN_B * m * c, 4 * TRAIN_B * m * c
+                               + idx.element_size() * TRAIN_B * m
+                               + 4 * TRAIN_B * n * c)
+        print(f"  plain (atomic backward) whole call {times['plain_ms']:.4f}"
+              f" ms, under deterministic algorithms "
+              f"{times['deterministic_plain_ms']:.4f} ms; scatter_add_ "
+              f"device: atomic {times['library_device_ms']:.4f} ms, "
+              f"deterministic {times['deterministic_device_ms']:.4f} ms "
+              f"({', '.join(f'{k} {v:.4f}' for k, v in det[1].items()) if det else 'graph replay'}); "
+              f"bound {times['bound'][0]:.4f} ms ({times['bound'][1]})")
+        timed[name] = times
+    row = dict(name="gather_backward", id="gather.cu",
+               source="if_defense_tpu_torch/csrc/gather.cu",
+               replaces="none: if_defense_tpu/ops/pointops.py:49 "
+                        "index_points is XLA (p[i]), not a Pallas kernel",
+               max_abs_err=err, **timed["dgcnn block 2 (C 64)"],
+               shapes={k: {f: v[f] for f in (
+                   "device_ms", "call_ms", "plain_ms",
+                   "deterministic_plain_ms", "library_device_ms",
+                   "deterministic_device_ms")} | {"bound_ms": v["bound"][0]}
+                   for k, v in timed.items()})
     print_row(row)
     return row
 
@@ -1927,12 +2118,11 @@ def run_train_cli(tmp: str, occ_npz: str, variant: str, tag: str) -> dict:
 def profile_training(dev, occ_npz: str,
                      plane_type=("xz", "xy", "yz")) -> dict:
     """torch.profiler over 5 warm ConvONet training steps at the CLI's
-    defaults (`plane_type=("grid",)`: the grid ConvONet) in each of three
-    settings, one after another, 2 warm steps before each pass:
-    `deterministic` as the CLI runs (`utils.determinism.deterministic`),
-    `no fill` the same with `torch.utils.deterministic.
-    fill_uninitialized_memory` off (no NaN fill of each new tensor), and
-    `free` with deterministic algorithms off. Per setting and step: wall
+    defaults (`plane_type=("grid",)`: the grid ConvONet) in each of the
+    three settings of `utils.determinism.setting`, one after another, 2
+    warm steps before each pass: `deterministic` as the CLI runs, `no
+    fill` the same without the NaN fill of each new tensor, and `free`
+    with deterministic algorithms off. Per setting and step: wall
     ms (host clock around the synchronised pass), device ms, device
     operations and the sorts among them; B4's share and the kernels that
     take the most device time under `deterministic`. -> {setting: [those
@@ -1945,26 +2135,7 @@ def profile_training(dev, occ_npz: str,
         init_occupancy_model,
         make_occupancy_train_step,
     )
-    from if_defense_tpu_torch.utils.determinism import deterministic
-
-    @contextlib.contextmanager
-    def setting(name):
-        fill = torch.utils.deterministic.fill_uninitialized_memory
-        before = (torch.are_deterministic_algorithms_enabled(),
-                  torch.is_deterministic_algorithms_warn_only_enabled())
-        torch.utils.deterministic.fill_uninitialized_memory = (
-            name != "no fill")
-        try:
-            if name == "free":
-                torch.use_deterministic_algorithms(False)
-                yield
-            else:
-                with deterministic():
-                    yield
-        finally:
-            torch.utils.deterministic.fill_uninitialized_memory = fill
-            torch.use_deterministic_algorithms(before[0],
-                                               warn_only=before[1])
+    from if_defense_tpu_torch.utils.determinism import SETTINGS, setting
 
     with np.load(occ_npz) as z:
         sampler = OccupancyBatchSampler(z["pointcloud"], z["points"],
@@ -1976,10 +2147,9 @@ def profile_training(dev, occ_npz: str,
     _, step = make_occupancy_train_step(model, TRAIN_LR)
     batches = [[torch.from_numpy(a).to(dev) for a in sampler.sample(TB)]
                for _ in range(7)]
-    names = ("deterministic", "no fill", "free")
-    out = {name: [] for name in names}
+    out = {name: [] for name in SETTINGS}
     top = None
-    for name in names:
+    for name in SETTINGS:
         with setting(name):
             for b in batches[:2]:
                 step(*b)
@@ -2563,13 +2733,14 @@ def check_small_attacks(dev) -> None:
 
 
 def attack_cli(argv: list[str]) -> dict:
-    """One `cli/attack.py` run on the card, the B5/B6 launch counters set
-    to 0 just before and read just after. -> {out, rate, seconds,
-    launches}."""
+    """One `cli/attack.py` run on the card, the B5/B6 and gather-backward
+    launch counters set to 0 just before and read just after. -> {out,
+    rate, seconds, launches}."""
     from if_defense_tpu_torch.cli import attack
-    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather
 
-    counters = (cuda_fps.launches, cuda_ballquery.launches)
+    counters = (cuda_fps.launches, cuda_ballquery.launches,
+                cuda_gather.launches)
     for counter in counters:
         for k in counter:
             counter[k] = 0
@@ -2631,7 +2802,10 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
     (b)): perturb at its defaults (10 x 500) on PointNet++, then each other
     family at reduced iterations (ATTACK_RUNS; kNN on DGCNN, with normals),
     each checked by `check_attack_output`; B5 and B6 exactly 2 x 10 x 500
-    launches each in the perturb run. A --resume run stopped after one of
+    launches each in the perturb run, and the gather-backward kernel 5 x
+    10 x 500 (a backward of PointNet++ to its input: level 1's centre and
+    group gathers of the input, level 2's of the level-1 centres and
+    features); every other run launches it too. A --resume run stopped after one of
     two batches and completed, bit-identical to an uninterrupted one.
     `cli/inference.py` rescores the perturb output in target mode: its
     count of targeted clouds may differ from the attack's only by the
@@ -2672,15 +2846,17 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
         return ["--attack", attack, "--data", src, "--checkpoint",
                 ckpt[victim], "--output", os.path.join(tmp, out), *extra]
 
-    rates, total = {}, {"fps": 0, "ballquery": 0}
+    rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0}
     perturb = attack_cli(argv("perturb", "pointnet2", data, "perturb.npz",
                               []))
     check_attack_output("perturb 10 x 500, PointNet++", perturb, "perturb",
                         data, ATTACK_B)
     want = 2 * 10 * 500
-    if perturb["launches"] != {"fps": want, "ballquery": want}:
-        fail(f"B5/B6 launches {perturb['launches']} in perturb 10 x 500 on "
-             f"PointNet++, not {want} each")
+    if perturb["launches"] != {"fps": want, "ballquery": want,
+                               "gather_backward": 5 * want // 2}:
+        fail(f"launches {perturb['launches']} in perturb 10 x 500 on "
+             f"PointNet++, not {want} B5/B6 each and {5 * want // 2} "
+             "gather backward")
     runs = {"perturb": perturb}
     for attack, victim, extra in ATTACK_RUNS:
         tag = f"{attack} {' '.join(extra)} {victim}".replace("  ", " ")
@@ -2688,6 +2864,8 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
         runs[tag] = attack_cli(argv(attack, victim, src,
                                     f"{attack}-{len(runs)}.npz", extra))
         check_attack_output(tag, runs[tag], attack, src, ATTACK_B)
+        if runs[tag]["launches"]["gather_backward"] <= 0:
+            fail(f"{tag}: the gather-backward kernel was not launched")
     for tag, run in runs.items():
         rates[tag] = ATTACK_B / run["seconds"]
         for k in total:
@@ -2894,12 +3072,14 @@ def check_small_victim_training(dev) -> None:
 
 def train_cli(argv: list[str], hybrid: bool = False) -> dict:
     """One `cli/train.py` (or `cli/hybrid_train.py`) run on the card with
-    the B5/B6 launch counters set to 0 just before and read just after. ->
-    {seconds (host clock around main()), launches, records}."""
+    the B5/B6 and gather-backward launch counters set to 0 just before and
+    read just after. -> {seconds (host clock around main()), launches,
+    records}."""
     from if_defense_tpu_torch.cli import hybrid_train, train
-    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps
+    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather
 
-    counters = (cuda_fps.launches, cuda_ballquery.launches)
+    counters = (cuda_fps.launches, cuda_ballquery.launches,
+                cuda_gather.launches)
     for counter in counters:
         for k in counter:
             counter[k] = 0
@@ -2955,9 +3135,28 @@ def near_ties(dev, model, data: str) -> int:
     return near
 
 
+def same_final(what: str, first: str, second: str) -> None:
+    """Fail unless two train CLI runs' `final.npz` and its optimiser
+    sidecar hold the same arrays, bit for bit."""
+    gap, same = 0.0, True
+    for name in ("final.npz", "final.npz.opt.npz"):
+        with np.load(os.path.join(first, name)) as a, np.load(
+                os.path.join(second, name)) as b:
+            same &= a.files == b.files and all(
+                a[k].tobytes() == b[k].tobytes() for k in a.files)
+            gap = max([gap] + [float(np.abs(a[k].astype(np.float64)
+                                            - b[k]).max())
+                               for k in a.files if a[k].size
+                               and a[k].shape == b[k].shape])
+    print(f"    two seeded runs of {what}: final.npz and its optimiser "
+          f"sidecar bit-equal {same}, largest gap {gap:.3e}")
+    if not same:
+        fail(f"two seeded runs of {what} differ (largest gap {gap:.3e})")
+
+
 def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
     """Phase 14 (b); see the module docstring. -> (steps/s per run and
-    epoch, B5/B6 launches summed over the runs)."""
+    epoch, B5/B6 and gather-backward launches summed over the runs)."""
     from if_defense_tpu_torch.cli import inference, train
     from if_defense_tpu_torch.cli.inference import load_eval_model
     from if_defense_tpu_torch.utils.checkpoint import load_metadata
@@ -2972,17 +3171,19 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
         n_train, n_test = len(d["train_label"]), len(d["test_label"])
     steps = n_train // TRAIN_B                     # drop_last
     evals = -(-n_test // TRAIN_B)                  # the last padded
-    rates, total = {}, {"fps": 0, "ballquery": 0}
+    rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0}
 
-    def forwards_want(name: str, forwards: int) -> dict:
+    def forwards_want(name: str, forwards: int, train_steps: int) -> dict:
         per = TRAIN_FORWARD_LAUNCHES[name]
-        return {"fps": forwards * per[0], "ballquery": forwards * per[1]}
+        return {"fps": forwards * per[0], "ballquery": forwards * per[1],
+                "gather_backward": train_steps * TRAIN_BACKWARD_LAUNCHES[name]}
 
     def check_run(tag: str, run: dict, want: dict) -> None:
         print(f"  {tag}: {run['seconds']:.1f} s, launches "
               f"{run['launches']} (want {want})")
         if run["launches"] != want:
-            fail(f"B5/B6 launches {run['launches']} in {tag}, not {want}")
+            fail(f"B5/B6 and gather-backward launches {run['launches']} "
+                 f"in {tag}, not {want}")
         for k in total:
             total[k] += run["launches"][k]
         for r in run["records"]:
@@ -2998,9 +3199,17 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
                 str(TRAIN_B), "--epochs", str(TRAIN_EPOCHS),
                 "--eval_every", "1", "--output", out,
                 "--registry", registry if not kw else registry + ".ft"]
-        run = train_cli(argv + (["--feature_transform"] if kw else []))
-        check_run(f"cli/train.py {tag}", run, forwards_want(
-            name, TRAIN_EPOCHS * (steps + evals)))
+        extra = ["--feature_transform"] if kw else []
+        run = train_cli(argv + extra)
+        want = forwards_want(name, TRAIN_EPOCHS * (steps + evals),
+                             TRAIN_EPOCHS * steps)
+        check_run(f"cli/train.py {tag}", run, want)
+        again = os.path.join(tmp, tag + "-again")
+        argv[argv.index(out)] = again
+        argv[argv.index("--registry") + 1] = os.path.join(tmp, "again.json")
+        check_run(f"cli/train.py {tag}, again", train_cli(argv + extra),
+                  want)
+        same_final(f"cli/train.py {tag}", out, again)
         epochs = [r for r in run["records"] if "epoch" in r]
         if [r["epoch"] for r in epochs] != list(range(1, TRAIN_EPOCHS + 1)):
             fail(f"{tag}: epochs {[r['epoch'] for r in epochs]}")
@@ -3029,15 +3238,20 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
             fail(f"scoring {name}'s best checkpoint: {out}, the run recorded "
                  f"{best[name]}")
 
-    # hybrid training: best by defended accuracy
-    out = os.path.join(tmp, "hybrid")
-    run = train_cli(["--data", data, "--def_data", defended, "--model",
-                     "pointnet2", "--batch_size", str(TRAIN_B),
-                     "--epochs", str(TRAIN_EPOCHS),
-                     "--eval_every", "1", "--output", out, "--registry",
-                     registry + ".hybrid"], hybrid=True)
-    check_run("cli/hybrid_train.py pointnet2", run, forwards_want(
-        "pointnet2", TRAIN_EPOCHS * (2 * steps + 2 * evals)))
+    # hybrid training: best by defended accuracy; twice from one seed
+    hybrid_want = forwards_want("pointnet2",
+                                TRAIN_EPOCHS * (2 * steps + 2 * evals),
+                                TRAIN_EPOCHS * 2 * steps)
+    for tag in ("hybrid-again", "hybrid"):
+        out = os.path.join(tmp, tag)
+        run = train_cli(["--data", data, "--def_data", defended, "--model",
+                         "pointnet2", "--batch_size", str(TRAIN_B),
+                         "--epochs", str(TRAIN_EPOCHS),
+                         "--eval_every", "1", "--output", out, "--registry",
+                         registry + "." + tag], hybrid=True)
+        check_run(f"cli/hybrid_train.py pointnet2 ({tag})", run, hybrid_want)
+    same_final("cli/hybrid_train.py pointnet2", out,
+               os.path.join(tmp, "hybrid-again"))
     def_accs = [r["def_test_acc"] for r in run["records"] if "epoch" in r]
     meta = load_metadata(os.path.join(out, "best.npz"))
     print(f"    def_test_acc {def_accs}, best.npz at epoch {meta['epoch']}")
@@ -3052,7 +3266,7 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
             registry + ".resume"]
     run = train_cli(argv + ["--epochs", "1", "--output", first])
     check_run("cli/train.py pointnet2, epoch 1", run,
-              forwards_want("pointnet2", steps + evals))
+              forwards_want("pointnet2", steps + evals, steps))
     saved = load_params_npz(os.path.join(first, "final.npz.opt.npz"))
     seen = {}
     restore = train.restore_checkpoint
@@ -3072,7 +3286,7 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
     finally:
         train.restore_checkpoint = restore
     check_run("cli/train.py pointnet2, --resume to epoch 2", run,
-              forwards_want("pointnet2", steps + evals))
+              forwards_want("pointnet2", steps + evals, steps))
     epochs = [r["epoch"] for r in run["records"] if "epoch" in r]
     moments_equal = all(
         np.array_equal(flatten_params(seen["adam"][k])[p],
@@ -3646,7 +3860,8 @@ def grid_training(dev, occ_npz: str):
     pre-activations at ReLU's kink). Then the `TRAIN_STEPS` steps twice
     from one seed, the final weights bit-equal, with the encoder's launch
     counters set to 0 just before and read just after (a step: the
-    pooled max 4 forward and 4 backward, the scatter-mean 1).
+    pooled max 4 forward and 4 backward, the scatter-mean 1, and the
+    gather backward 8, the volume's eight corner gathers in the decoder).
     -> (model on the card, steps/s of each run, encoder launches)."""
     from if_defense_tpu_torch.implicit import ConvOccupancyNetwork
     from if_defense_tpu_torch.implicit.training import (
@@ -3654,7 +3869,7 @@ def grid_training(dev, occ_npz: str):
         init_occupancy_model,
         make_occupancy_train_step,
     )
-    from if_defense_tpu_torch.ops import cuda_scatter
+    from if_defense_tpu_torch.ops import cuda_gather, cuda_scatter
     from if_defense_tpu_torch.utils.determinism import deterministic
     from if_defense_tpu_torch.utils.params_io import params_from_jax
 
@@ -3719,8 +3934,9 @@ def grid_training(dev, occ_npz: str):
     sampler = OccupancyBatchSampler(*arrays, pointcloud_n=600,
                                     points_subsample=TQ, seed=0)
     batches = [sampler.sample(TB) for _ in range(TRAIN_STEPS)]
-    for k in cuda_scatter.launches:
-        cuda_scatter.launches[k] = 0
+    for counter in (cuda_scatter.launches, cuda_gather.launches):
+        for k in counter:
+            counter[k] = 0
     rates, weights = [], []
     with deterministic():
         for run in ("first", "second"):
@@ -3749,9 +3965,10 @@ def grid_training(dev, occ_npz: str):
                   f"included), peak "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = dict(cuda_scatter.launches)
+    gathers = cuda_gather.launches["gather_backward"]
     same = all(same_bits(weights[0][n], weights[1][n]) for n in weights[0])
     print(f"  the two runs' weights bit-equal {same}; encoder launches "
-          f"{launches}")
+          f"{launches}, gather backward {gathers}")
     if not same:
         fail("two seeded grid ConvONet training runs differ")
     want = 2 * TRAIN_STEPS
@@ -3759,7 +3976,11 @@ def grid_training(dev, occ_npz: str):
                     "pooled_max_backward": 4 * want}:
         fail(f"encoder launches {launches} in grid training, not {want} "
              f"scatter-mean and {4 * want} pooled max each way")
-    return model.eval().requires_grad_(False), rates, launches
+    if gathers != 8 * want:
+        fail(f"gather-backward launches {gathers} in grid training, not "
+             f"{8 * want} (the volume's eight corners a step)")
+    return (model.eval().requires_grad_(False), rates,
+            launches | {"gather_backward": gathers})
 
 
 def grid_defense(dev, model) -> tuple[dict, dict]:
@@ -4002,13 +4223,15 @@ def counters() -> tuple:
     from if_defense_tpu_torch.ops import (
         cuda_ballquery,
         cuda_fps,
+        cuda_gather,
         cuda_interp,
         cuda_repulsion,
         cuda_scatter,
     )
 
     return (cuda_repulsion.launches, cuda_interp.launches, cuda_fps.launches,
-            cuda_ballquery.launches, cuda_scatter.launches)
+            cuda_ballquery.launches, cuda_scatter.launches,
+            cuda_gather.launches)
 
 
 def all_launches() -> dict:
@@ -4531,7 +4754,9 @@ def check_split_cli(dev, tmp: str, split: list) -> dict:
     TRAIN_B on phase 14's data) through the `devices=` seam, one shard and
     split: the same record fields, train loss within TRAIN_CLI_RTOL
     (accuracies printed); each best checkpoint scored by `cli/inference.py`
-    at the accuracy its run recorded, but for near ties."""
+    at the accuracy its run recorded, but for near ties. Then the split run
+    again from the same seed: its `final.npz` and optimiser sidecar
+    bit-equal to the first split run's."""
     from if_defense_tpu_torch.cli import inference, train
     from if_defense_tpu_torch.cli.inference import load_eval_model
 
@@ -4580,7 +4805,18 @@ def check_split_cli(dev, tmp: str, split: list) -> dict:
     if loss > TRAIN_CLI_RTOL:
         fail(f"the split cli/train.py run's train loss {two['train_loss']}"
              f" is {loss:.2e} off the unsplit one's {one['train_loss']}")
-    return {"seconds": seconds, "train_loss_rel": loss}
+    again = os.path.join(tmp, "split-cli-again")
+    t0 = time.perf_counter()
+    train.main(["--data", data, "--model", "pointnet2", "--batch_size",
+                str(TRAIN_B), "--epochs", "1", "--output", again,
+                "--registry", os.path.join(again, "registry.json"),
+                "--device", "cuda"], devices=split)
+    torch.cuda.synchronize()
+    seconds["split again"] = time.perf_counter() - t0
+    same_final("cli/train.py pointnet2 split over two shards",
+               os.path.join(tmp, "split-cli-split"), again)
+    return {"seconds": seconds, "train_loss_rel": loss,
+            "split_runs_bit_equal": True}
 
 
 def check_split_training(dev) -> tuple[dict, dict]:
@@ -4594,9 +4830,13 @@ def check_split_training(dev) -> tuple[dict, dict]:
     full = check_split_full(dev, split)
     with tempfile.TemporaryDirectory() as tmp:
         cli = check_split_cli(dev, tmp, split)
-    launches = train_counts()
-    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s; B5/B6 "
-          f"launches {launches}")
+    from if_defense_tpu_torch.ops import cuda_gather
+
+    launches = train_counts() | dict(cuda_gather.launches)
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s; B5/B6 and "
+          f"gather-backward launches {launches}")
+    if launches["gather_backward"] <= 0:
+        fail("the gather-backward kernel was not launched in split training")
     return {"small": {k: {f: v[f] for f in ("loss", "cos", "stats")}
                       for k, v in small.items()},
             "full": full, "cli": cli}, launches
@@ -4717,6 +4957,9 @@ def main() -> int:
     print(f"the encoder's pooled-max kernels (no TPU kernel) at B={B}, "
           f"{SCATTER_N} points, {C} channels:")
     rows.append(check_pooled_max(dev))
+    print(f"the gathers' fixed-order backward kernel (no TPU kernel) at the "
+          f"victims' training shapes, B={TRAIN_B}:")
+    rows.append(check_gather_backward(dev))
 
     print("phase 3: small whole path, CUDA vs CPU, same draws")
     check_small_path(dev)
@@ -4848,7 +5091,8 @@ def main() -> int:
           "CW iteration's profile")
     t13 = time.perf_counter()
     attack_rates, launches["attack"], cw_profile = check_attacks(dev, keep)
-    print(f"  B5/B6 launches on the attack path: {launches['attack']}")
+    print(f"  B5/B6 and gather-backward launches on the attack path: "
+          f"{launches['attack']}")
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
@@ -4859,7 +5103,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t14 = time.perf_counter()
     fit_rates, launches["fit"], fit_profiles = check_victim_training(dev)
-    print(f"  B5/B6 launches on the training path: {launches['fit']}")
+    print(f"  B5/B6 and gather-backward launches on the training path: "
+          f"{launches['fit']}")
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
@@ -4928,7 +5173,9 @@ def main() -> int:
                "plane_features_dplane": ("train", ("plane_features",
                                                    "plane_features_dplane")),
                "pooled_max": ("reference fast train_scatter grid_train",
-                              ("pooled_max", "pooled_max_backward"))}
+                              ("pooled_max", "pooled_max_backward")),
+               "gather_backward": ("attack fit grid_train sharded",
+                                   ("gather_backward",))}
     for row in rows:
         mode, names = used_in[row["name"]]
         row["launches"] = sum(launches[m][n] for m in mode.split()
@@ -4965,6 +5212,10 @@ def main() -> int:
     pooled = next(r for r in rows if r["name"] == "pooled_max")
     print("encoder pooled-max kernels (csrc/scatter.cu, replace no TPU "
           "kernel; the grid's 32^3 cells, ms): " + json.dumps(pooled["grid"])
+          + f" on {card}")
+    gather = next(r for r in rows if r["name"] == "gather_backward")
+    print("the gathers' backward kernel (csrc/gather.cu, replaces no TPU "
+          "kernel; ms at each timed shape): " + json.dumps(gather["shapes"])
           + f" on {card}")
     print(card)
     print(json.dumps({"kernels": [

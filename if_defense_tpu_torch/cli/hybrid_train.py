@@ -4,7 +4,8 @@
 Thin entry point over `cli.train`: hybrid training is the same loop with
 the concatenated ModelNet40Hybrid dataset and a second (defended-subset)
 eval, the best checkpoint picked by defended accuracy — `--def_data` is
-simply mandatory here.
+simply mandatory here. It runs under `cli.train`'s deterministic
+algorithms, so two runs from one `--seed` write the same bytes.
 
 Usage:
     python -m if_defense_tpu_torch.cli.hybrid_train --data mn40.npz \\

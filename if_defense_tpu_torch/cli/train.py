@@ -7,6 +7,14 @@ defended accuracy with --def_data), `--resume`. The flags and the
 `metrics.jsonl` records are the JAX CLI's, plus `--device` (default `cuda`;
 `cpu` only when asked). Eager; TF32 off.
 
+The whole run is under deterministic algorithms
+(`utils.determinism.deterministic`, entered before any CUDA work, since
+cuBLAS reads its workspace setting when the process makes its first
+handle; the caller's flags and `CUBLAS_WORKSPACE_CONFIG` are restored on
+return), and the gathers' backward on the card is the port's fixed-order
+kernel (`ops.pointops.index_points`), so two runs from one `--seed` write
+the same bytes, on the CPU and on the card, on one card or split.
+
 Each train and eval batch is split over `parallel.best_data_mesh(
 --batch_size, --device)`, the most devices that divide the batch, as the
 JAX CLI shards it: `--device cuda` is every visible card, `cuda:i` that
@@ -61,6 +69,7 @@ from if_defense_tpu_torch.utils import (
     restore_checkpoint,
     save_checkpoint,
 )
+from if_defense_tpu_torch.utils.determinism import deterministic
 
 
 def parse_args(argv=None):
@@ -123,6 +132,11 @@ def main(argv=None, devices=None):
     """Train; the best test accuracy. `devices` (for tests) replaces the
     devices `--device` names, repeats allowed."""
     args = parse_args(argv)
+    with deterministic():
+        return _train(args, devices)
+
+
+def _train(args, devices) -> float:
     device_of(args.device)
     mesh = best_data_mesh(args.batch_size,
                           args.device if devices is None else devices)

@@ -73,7 +73,7 @@ def scatter_mean_cuda(feat: torch.Tensor, index: torch.Tensor,
     sorted_idx, perm = _sorted(index)
     feat = feat.contiguous()
     fn = _build.bind("scatter", "ifdef_scatter_mean",
-                     [_P, _P, _P, _I, _I, _I, _I, _P, _P])
+                     [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
     _build.launch("scatter", "scatter_mean", fn, (
         feat.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
         num_cells, out.data_ptr(), counts.data_ptr()),
@@ -96,7 +96,7 @@ def pooled_max_cuda(feat: torch.Tensor, index: torch.Tensor,
     if out.numel():
         feat = feat.contiguous()
         fn = _build.bind("scatter", "ifdef_pooled_max",
-                         [_P, _P, _P, _I, _I, _I, _I, _P, _P])
+                         [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
         _build.launch("scatter", "pooled_max", fn, (
             feat.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
             num_cells, out.data_ptr(), ties.data_ptr()),
@@ -120,7 +120,7 @@ def pooled_max_backward_cuda(grad_out: torch.Tensor, feat: torch.Tensor,
     if grad.numel():
         grad_out, feat = grad_out.contiguous(), feat.contiguous()
         fn = _build.bind("scatter", "ifdef_pooled_max_backward",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P])
         _build.launch("scatter", "pooled_max_backward", fn, (
             grad_out.data_ptr(), feat.data_ptr(), out.data_ptr(),
             ties.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,

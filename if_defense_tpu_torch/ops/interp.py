@@ -12,12 +12,15 @@ for its p form (`ops/cuda_interp.plane_features_cuda`), and
 CUDA tensors and take the plain version for CPU tensors. The corner cache
 of the fast mode (`plane_corner_features` / `cached_bilinear_sample`) and
 `trilinear_grid_sample` (XLA, not Pallas, in the JAX package) are plain
-PyTorch.
+PyTorch; the volume's eight corner gathers go through `index_points`, whose
+backward on the card is the port's fixed-order kernel.
 """
 
 from __future__ import annotations
 
 import torch
+
+from if_defense_tpu_torch.ops.pointops import index_points
 
 PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
 
@@ -100,7 +103,9 @@ def trilinear_grid_sample(grid: torch.Tensor, uvw: torch.Tensor) -> torch.Tensor
     then y, then x: the order of the JAX package's three contractions.
     `F.grid_sample` is not used: its 5-D backward refuses deterministic
     algorithms and it rounds in its own order. The gradient to uvw is
-    elementwise; the volume's (a scatter-add) is taken only in training.
+    elementwise; the volume's, taken only in training, is each corner
+    gather's backward (`index_points`: on the card the fixed-order kernel
+    of `ops/cuda_gather.py`, not torch's sort-based deterministic form).
 
     Args:
         grid: [B, D, H, W, C] channel-last feature volume.
@@ -116,8 +121,7 @@ def trilinear_grid_sample(grid: torch.Tensor, uvw: torch.Tensor) -> torch.Tensor
     flat = grid.reshape(B, D * H * W, C)
 
     def at(zi, yi, xi):
-        return torch.gather(flat, 1,
-                            ((zi * H + yi) * W + xi)[..., None].expand(-1, -1, C))
+        return index_points(flat, (zi * H + yi) * W + xi)
 
     def along_z(yi, xi):
         return at(z0, yi, xi) * (1 - wz) + at(z1, yi, xi) * wz

@@ -8,6 +8,12 @@ tensors. The plain versions compute their distances elementwise in a fixed
 order (no `bmm`, whose summation order the library picks), the order the
 kernels use with no fused multiply-add, so kernel and plain version select
 the same indices bit for bit.
+
+The gather's backward on the card is a kernel of the port's own
+(`ops/cuda_gather.py`, no TPU kernel): `torch.gather`'s adds with atomics
+in an order that changes from run to run, so seeded victim training did
+not repeat, and under deterministic algorithms it sorts and runs torch's
+index backward, the largest cost of an attack iteration.
 """
 
 from __future__ import annotations
@@ -35,23 +41,94 @@ def pairwise_self_distance(xyz: torch.Tensor) -> torch.Tensor:
     return square_distance(xyz, xyz)
 
 
-def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched gather: out[b, ..., c] = points[b, idx[b, ...], c].
-
-    Args:
-        points: [B, N, C]; idx: [B, ...] integer indices into the N axis.
-    Returns:
-        [B, ..., C]
-    """
+def index_points_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The plain version of `index_points`, `torch.gather`: under autograd
+    on the CPU its backward (a `scatter_add_` into zeros) adds each point's
+    rows one after another in row order."""
     B, _, C = points.shape
     flat = idx.reshape(B, -1).long()
     out = torch.gather(points, 1, flat[..., None].expand(-1, -1, C))
     return out.reshape(*idx.shape, C)
 
 
+def _gather_backward(grad_out: torch.Tensor, flat: torch.Tensor,
+                     num_points: int) -> torch.Tensor:
+    """The kernel's gradient; bf16 and f16 gradients summed as their exact
+    f32 upcast (in the kernel's order) and rounded to their type once."""
+    from if_defense_tpu_torch.ops.cuda_gather import gather_backward_cuda
+
+    if grad_out.dtype in (torch.bfloat16, torch.float16):
+        return gather_backward_cuda(grad_out.float(), flat,
+                                    num_points).to(grad_out.dtype)
+    return gather_backward_cuda(grad_out, flat, num_points)
+
+
+class _GatherBackward(torch.autograd.Function):
+    """The gather's backward by the kernel, [B, M, C] -> [B, N, C]; its own
+    backward is the gather, so a second derivative goes through."""
+
+    @staticmethod
+    def forward(ctx, grad_out, flat, num_points):
+        ctx.save_for_backward(flat)
+        return _gather_backward(grad_out, flat, num_points)
+
+    @staticmethod
+    def backward(ctx, grad_grad):
+        (flat,) = ctx.saved_tensors
+        return index_points(grad_grad, flat), None, None
+
+
+class _IndexPoints(torch.autograd.Function):
+    """The gather on the card: `torch.gather` forward (deterministic), the
+    kernel backward."""
+
+    @staticmethod
+    def forward(ctx, points, flat):
+        ctx.save_for_backward(flat)
+        ctx.num_points = points.shape[1]
+        C = points.shape[2]
+        return torch.gather(points, 1,
+                            flat.long()[..., None].expand(-1, -1, C))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (flat,) = ctx.saved_tensors
+        return _GatherBackward.apply(grad_out, flat, ctx.num_points), None
+
+
+def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched gather: out[b, ..., c] = points[b, idx[b, ...], c], whose
+    gradient adds each point's rows in row order (for f32, the same bits on
+    the card and the CPU, run after run).
+
+    On CUDA points that need a gradient the backward is the kernel
+    (`ops/cuda_gather.py`; a kernel that fails to build or launch raises):
+    f32 gradients as they are, bf16 and f16 ones (a mixed-precision
+    victim's) summed as their exact f32 upcast in the same order and
+    rounded once to their type, so they repeat run to run on the card but
+    are not the CPU's bits in that type (the CPU's autograd rounds after
+    each add); any other type raises TypeError. On CPU tensors, and where
+    no gradient is taken, the plain version.
+
+    Args:
+        points: [B, N, C]; idx: [B, ...] integer indices into the N axis.
+    Returns:
+        [B, ..., C]
+    """
+    if not (points.is_cuda and points.requires_grad
+            and torch.is_grad_enabled()):
+        return index_points_plain(points, idx)
+    B, _, C = points.shape
+    flat = idx.reshape(B, -1)
+    if flat.dtype not in (torch.int32, torch.int64):
+        flat = flat.long()
+    return _IndexPoints.apply(points, flat).reshape(*idx.shape, C)
+
+
 def gather_neighbors(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Grouped neighbour gather (the JAX package's one-hot MXU form is a
-    TPU device choice; on the GPU a plain gather is exact and cheap)."""
+    """Grouped neighbour gather, `index_points` (the JAX package's one-hot
+    MXU form is a TPU device choice; on the GPU a gather is exact and
+    cheap, and its backward the same fixed-order kernel)."""
     return index_points(points, idx)
 
 

@@ -17,6 +17,11 @@ Inside the block:
   algorithms and pick by the clock.
 On exit the caller's flags (the warn-only setting included), benchmark
 setting and environment variable are put back.
+
+`setting(name)` runs a block in one of `SETTINGS`, to time what each part
+of that costs: `deterministic` is `deterministic()`, `no fill` the same
+without torch's NaN fill of each new tensor, `free` deterministic
+algorithms off.
 """
 
 from __future__ import annotations
@@ -48,3 +53,28 @@ def deterministic():
         torch.use_deterministic_algorithms(flag, warn_only=warn_only)
         if env is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+SETTINGS = ("deterministic", "no fill", "free")
+
+
+@contextlib.contextmanager
+def setting(name: str):
+    """Run the block in the setting `name` of `SETTINGS` (module
+    docstring); the caller's flags and fill setting are put back."""
+    if name not in SETTINGS:
+        raise ValueError(f"setting {name!r} is not one of {SETTINGS}")
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    flag = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.utils.deterministic.fill_uninitialized_memory = name != "no fill"
+    try:
+        if name == "free":
+            torch.use_deterministic_algorithms(False)
+            yield
+        else:
+            with deterministic():
+                yield
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        torch.use_deterministic_algorithms(flag, warn_only=warn_only)

@@ -41,7 +41,14 @@ the CPU's; the pooled-max kernels (the same file), forward and backward,
 bit-equal to the plain version's autograd on a CPU copy, with tied maxima,
 and launch to launch; both trap on a cell out of range. Two seeded
 `train_implicit --variant convonet` runs on the card, and two grid
-ConvONet training runs under deterministic algorithms, bit-equal.
+ConvONet training runs under deterministic algorithms, bit-equal. The
+gathers' backward kernel (`csrc/gather.cu`, no TPU kernel) through
+`index_points` bit-equal to the plain version's autograd on a CPU copy at
+the victims' gather shapes (DGCNN's kNN groups, PointNet++'s ball-query
+groups, indices in 8 points a cloud), int64 and int32, one launch a
+backward; bf16 gradients the f32 sum rounded once; the second derivative
+the CPU's; the wrapper refusing other types and trapping on an index out
+of range; a DGCNN train step twice on the card bit-equal.
 """
 
 import os
@@ -1298,5 +1305,204 @@ def test_cuda_kernels_launch_on_their_tensors_card(cuda):
         q = x[:, :s].contiguous()
         assert torch.equal(ballquery_cuda(radius, 32, x, q),
                            query_ball_point_plain(radius, 32, x, q))
+    from if_defense_tpu_torch.ops.pointops import (
+        index_points,
+        index_points_plain,
+    )
+
+    pg = torch.from_numpy(_points(23))
+    idx = torch.tensor([[0, 3, 3, 1, 255], [2, 2, 7, 0, 0]])
+    g = torch.arange(2 * 5 * 3, dtype=torch.float32).reshape(2, 5, 3)
+    grads = []
+    for d in ("cpu", last):
+        x = pg.to(d).requires_grad_(True)
+        (index_points if d == last else index_points_plain)(
+            x, idx.to(d)).backward(g.to(d))
+        grads.append(x.grad)
+    assert grads[1].device == last and torch.equal(grads[1].cpu(), grads[0])
     torch.cuda.synchronize(last)
     assert torch.cuda.current_device() == 0
+
+
+def _gather_set(cuda, name):
+    """(points [4, N, C] f32, idx on the card) at phase 2's shapes in a
+    smaller form (4 clouds): DGCNN's kNN groups (k = 20 of 1024 points, C
+    = 3, 64, 128), PointNet++'s level-2 ball-query groups of its level-1
+    features ([4, 128, 64] of 512, C = 128) and its level-1 groups of the
+    input ([4, 512, 32] of 1024, C = 3), and indices that fall in 8 points
+    a cloud."""
+    from if_defense_tpu_torch.ops import (
+        farthest_point_sample,
+        index_points,
+        knn_points,
+        query_ball_point,
+    )
+
+    pc = torch.from_numpy(_unit_sphere_clouds(40, 4, 1024)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    if name.startswith("knn"):
+        c = int(name.split()[-1])
+        pts = pc if c == 3 else torch.randn((4, 1024, c), generator=gen,
+                                            device=cuda)
+        return pts, knn_points(20, pc)
+    l1 = index_points(pc, farthest_point_sample(pc, 512))
+    if name == "ball xyz":
+        return pc, query_ball_point(0.2, 32, pc, l1)
+    if name == "ball features":
+        l2 = index_points(l1, farthest_point_sample(l1, 128))
+        return (torch.randn((4, 512, 128), generator=gen, device=cuda),
+                query_ball_point(0.4, 64, l1, l2))
+    eight = torch.stack([torch.randperm(1024, generator=gen,
+                                        device=cuda)[:8] for _ in range(4)])
+    idx = torch.gather(eight, 1, torch.randint(0, 8, (4, 1024 * 20),
+                                               generator=gen, device=cuda))
+    return torch.randn((4, 1024, 64), generator=gen, device=cuda), idx
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("name", ["knn 3", "knn 64", "knn 128", "ball xyz",
+                                  "ball features", "ties"])
+def test_cuda_gather_backward_matches_plain_cpu(cuda, name, dtype):
+    """`index_points`' gradient on the card (the kernel of
+    `csrc/gather.cu`) gives every bit of the plain version's autograd on a
+    CPU copy, launch after launch, one launch a backward and none for a
+    gather that takes no gradient."""
+    from if_defense_tpu_torch.ops import cuda_gather
+    from if_defense_tpu_torch.ops.pointops import (
+        index_points,
+        index_points_plain,
+    )
+
+    pts, idx = _gather_set(cuda, name)
+    idx = idx.to(dtype)
+    g = torch.randn((*idx.shape, pts.shape[2]),
+                    generator=torch.Generator(device=cuda).manual_seed(42),
+                    device=cuda)
+    x = pts.detach().cpu().clone().requires_grad_(True)
+    index_points_plain(x, idx.cpu()).backward(g.cpu())
+    before = cuda_gather.launches["gather_backward"]
+    got = []
+    for _ in range(2):
+        xd = pts.detach().clone().requires_grad_(True)
+        out = index_points(xd, idx)
+        out.backward(g)
+        got.append(_bits(xd.grad))
+    with torch.no_grad():
+        index_points(xd, idx)
+    torch.cuda.synchronize()
+    assert cuda_gather.launches["gather_backward"] == before + 2
+    assert torch.equal(out.detach().cpu(), index_points_plain(x, idx.cpu()))
+    assert got[0] == got[1] == _bits(x.grad)
+
+
+def test_cuda_gather_backward_bf16_and_second_derivative(cuda):
+    """A bf16 gather's gradient on the card is the kernel's f32 sum of its
+    exact upcast, rounded once (the plain version's f32 autograd on a CPU
+    copy, cast to bf16); the second derivative, a gather of the
+    gradient's gradient, the CPU's too."""
+    from if_defense_tpu_torch.ops.pointops import (
+        index_points,
+        index_points_plain,
+    )
+
+    pts, idx = _gather_set(cuda, "ties")
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    g = torch.randn((*idx.shape, 64), generator=gen, device=cuda)
+    xb = pts.to(torch.bfloat16).requires_grad_(True)
+    index_points(xb, idx).backward(g.to(torch.bfloat16))
+    x = pts.to(torch.bfloat16).float().cpu().requires_grad_(True)
+    index_points_plain(x, idx.cpu()).backward(
+        g.to(torch.bfloat16).float().cpu())
+    assert xb.grad.dtype == torch.bfloat16
+    assert _bits(xb.grad.view(torch.int16)) == _bits(
+        x.grad.to(torch.bfloat16).view(torch.int16))
+    v = torch.randn(pts.shape, generator=gen, device=cuda)
+    second = []
+    for d in ("cpu", cuda):
+        xd = pts.detach().to(d).requires_grad_(True)
+        w = g.detach().to(d).requires_grad_(True)
+        fn = index_points if d == cuda else index_points_plain
+        (gx,) = torch.autograd.grad(fn(xd, idx.to(d)), xd, w,
+                                    create_graph=True)
+        (gw,) = torch.autograd.grad((gx * v.to(d)).sum(), w)
+        second.append(_bits(gw))
+    assert second[0] == second[1]
+
+
+def test_cuda_gather_backward_refuses(cuda):
+    from if_defense_tpu_torch.ops.cuda_gather import gather_backward_cuda
+
+    g = torch.zeros(1, 8, 4, device=cuda)
+    i = torch.zeros(1, 8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        gather_backward_cuda(g.double(), i, 16)
+    with pytest.raises(TypeError, match="float32"):
+        gather_backward_cuda(g.bfloat16(), i, 16)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        gather_backward_cuda(g, i.to(torch.int16), 16)
+    with pytest.raises(ValueError, match="idx must be"):
+        gather_backward_cuda(g, i[:, :4], 16)
+    with pytest.raises(ValueError, match="idx must be"):
+        gather_backward_cuda(g, i.cpu(), 16)
+
+
+@pytest.mark.parametrize("value", ["16", "-1", "2**32 + 1"])
+def test_cuda_gather_backward_traps_out_of_range(cuda, value):
+    """An index outside [0, 16) stops the kernel on the card (no host sync
+    in the wrapper; an int64 index that int32 would wrap into range too),
+    and the next sync raises; in a process of its own."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from if_defense_tpu_torch.ops.cuda_gather import "
+            "gather_backward_cuda\n"
+            "g = torch.ones(1, 8, 4, device='cuda')\n"
+            "i = torch.zeros(1, 8, dtype=torch.int64, device='cuda')\n"
+            f"i[0, 5] = {value}\n"
+            "gather_backward_cuda(g, i, 16)\n"
+            "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0
+    assert "CUDA error" in out.stderr, out.stderr
+
+
+def test_cuda_dgcnn_train_step_repeats(cuda):
+    """A DGCNN train step at its published widths (B = 8, N = 1024) run
+    twice on the card from the same weights, batch and dropout masks gives
+    the same bits in every gradient, weight and batch statistic, with 3
+    gather-backward launches a step (blocks 2-4)."""
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.models.common import generator_draw
+    from if_defense_tpu_torch.ops import cuda_gather
+    from if_defense_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pc = torch.from_numpy(_unit_sphere_clouds(44, 8, 1024)).to(cuda)
+    label = torch.arange(8, device=cuda) * 5 % 40
+    weights = params_from_jax(flax_init_params(0, "dgcnn"),
+                              build_model("dgcnn"))
+    runs = []
+    for _ in range(2):
+        model = build_model("dgcnn")
+        model.load_state_dict(weights)
+        model.to(cuda)
+        state = create_train_state(model, total_epochs=1, steps_per_epoch=1)
+        draw = generator_draw(torch.Generator(device=cuda).manual_seed(45))
+        before = cuda_gather.launches["gather_backward"]
+        make_train_step(model)(state, pc, label, draw)
+        torch.cuda.synchronize()
+        assert cuda_gather.launches["gather_backward"] == before + 3
+        runs.append([_bits(p.grad) for p in model.parameters()]
+                    + [_bits(t) for t in model.state_dict().values()])
+    assert runs[0] == runs[1]

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """One CLI of the port in several checkouts on one card, one after another:
 ConvONet-Opt (`cli/opt_defense.py`) in its reference and fast modes,
-ConvONet-Mesh (`cli/remesh_defense.py --variant convonet`) or ConvONet
-training (`cli/train_implicit.py --variant convonet`).
+ConvONet-Mesh (`cli/remesh_defense.py --variant convonet`), ConvONet
+training (`cli/train_implicit.py --variant convonet`) or victim training
+(`cli/train.py`, PointNet++ and DGCNN).
 
     python3 tools/compare_trees.py --cli opt_defense|remesh_defense|
-        train_implicit TREE [TREE ...] [--runs 2]
+        train_implicit|train TREE [TREE ...] [--runs 2]
 
 The inputs are `chip_smoke.py`'s (this checkout's), made once in a process
 of their own:
@@ -19,12 +20,18 @@ of their own:
   the CLI's defaults (batch 32, a 129^3 lattice, 1024 output points).
 - train_implicit: phase 10's occupancy npz and flags (100 steps at its
   learning rate, --seed 0, batch 32).
+- train: `tools/synthetic_dataset.py`'s hard family as phase 14 makes it,
+  but 100 train clouds a class (800, 25 steps an epoch) and 10 test
+  clouds; the CLI's defaults (batch 32, 1024 points, --seed 1) for 3
+  epochs, each with its test pass (the last 20 epochs always evaluate).
 Then, for each TREE in the order given (the root of a checkout of the
 repo, e.g. a parent commit unpacked with `git archive`), one process that
 imports that tree's `if_defense_tpu_torch` runs the CLI `--runs` times in
-each mode and reads the rate (clouds/s, or steps/s for training) from each
-run's metrics sidecar; a digest of each run's output (the clouds, or every
-trained weight) says whether the runs of a tree repeat their bits. The
+each mode and reads the rate from each run's metrics: clouds/s, steps/s
+for `train_implicit`, and for `train` an epoch's steps over its
+`epoch_time` (its test pass included), over epochs 2-3; a digest of each
+run's output (the clouds, or every trained weight, with the victims' Adam
+moments) says whether the runs of a tree repeat their bits. The
 first run in each process builds that tree's kernels. Trees given as A B B
 A put a drift of the machine on both sides. Prints the card's name and
 power limit, then one JSON line: {"card": ..., "cli": ..., "runs":
@@ -49,6 +56,8 @@ MODES = {
                  "--rep_graph_cache"]},
     "remesh_defense": {"default": ["--variant", "convonet"]},
     "train_implicit": {"convonet": ["--variant", "convonet"]},
+    "train": {"pointnet2": ["--model", "pointnet2"],
+              "dgcnn": ["--model", "dgcnn"]},
 }
 
 # the CLI `runs` times a mode in one process of the tree given (its cwd and
@@ -64,6 +73,22 @@ out = {}
 for mode, extra in json.loads(modes).items():
     out[mode] = []
     for r in range(int(runs)):
+        if cli == "train":
+            out_dir = os.path.join(inputs["tmp"], f"{mode}{r}")
+            main(["--data", inputs["data"], "--output", out_dir,
+                  "--registry", os.path.join(out_dir, "registry.json"),
+                  "--device", "cuda", *inputs["flags"], *extra])
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                times = [x["epoch_time"] for x in map(json.loads, f)
+                         if "epoch" in x][1:]
+            digest = hashlib.sha256()
+            for name in ("final.npz", "final.npz.opt.npz"):
+                with np.load(os.path.join(out_dir, name)) as z:
+                    for key in sorted(z.files):
+                        digest.update(z[key].tobytes())
+            out[mode].append((inputs["steps"] * len(times) / sum(times),
+                              digest.hexdigest()))
+            continue
         if cli == "train_implicit":
             path = main(["--data", inputs["data"], "--steps",
                          str(inputs["steps"]), "--lr", str(inputs["lr"]),
@@ -101,6 +126,12 @@ def inputs(cli: str, tmp: str) -> dict:
     if cli == "train_implicit":
         return {"data": cs.build_occupancy_npz(tmp), "steps": cs.TRAIN_STEPS,
                 "lr": cs.TRAIN_LR, "tmp": tmp}
+    if cli == "train":
+        data = os.path.join(tmp, "synth.npz")
+        cs.tool("synthetic_dataset").make_classification_npz(
+            data, 100, 10, 1024, seed=0, family="hard")
+        return {"data": data, "steps": 800 // cs.TRAIN_B, "tmp": tmp,
+                "flags": ["--batch_size", str(cs.TRAIN_B), "--epochs", "3"]}
     os.makedirs(os.path.join(tmp, "clouds"))
     if cli == "opt_defense":
         from if_defense_tpu_torch.utils.params_io import (

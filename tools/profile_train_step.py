@@ -3,17 +3,21 @@
 
     python3 tools/profile_train_step.py [--victim pointnet2] [--batch 32]
         [--steps 5] [--devices cuda:0,cuda:0 | cuda]
+        [--setting deterministic | "no fill" | free]
 
 `training.make_train_step` of the PyTorch port (`if_defense_tpu_torch`) at
 `cli/train.py`'s defaults (Adam lr 1e-3, weight decay 1e-4, the cosine
 schedule, dropout from a seeded `torch.Generator`) on a victim at its
 published widths from `utils.params_io.flax_init_params(0)`, `--batch`
 clouds of 1024 points (ellipsoid surfaces, 8 outliers each, in the unit
-sphere) with labels i mod 40, f32 with TF32 off, deterministic algorithms
-off as the train CLI runs. `--devices` splits each step over a list of
-devices (repeats allowed; `cuda` is every visible card), as `cli/train.py`
-splits it over `best_data_mesh`; by default one shard on card 0. After 3
-warm steps, each figure is per step:
+sphere) with labels i mod 40, f32 with TF32 off, under deterministic
+algorithms as the train CLI runs (`utils.determinism.deterministic`,
+entered before any CUDA work); `--setting` takes another of
+`utils.determinism.setting`'s: `"no fill"` keeps them but not their NaN
+fill of each new tensor, `free` leaves them off. `--devices` splits each
+step over a list of devices (repeats allowed; `cuda` is every visible
+card), as `cli/train.py` splits it over `best_data_mesh`; by default one
+shard on card 0. After 3 warm steps, each figure is per step:
 - wall ms: host clock around one step, ending in a synchronise (median of
   `steps` steps, without the profiler);
 - event ms: CUDA events on the first device's stream around each of those
@@ -54,9 +58,21 @@ def clouds(n: int, seed: int = 0) -> np.ndarray:
 
 
 def profile(dev, victim: str = "pointnet2", batch: int = 32, steps: int = 5,
-            top: int = 8, devices=None) -> dict:
+            top: int = 8, devices=None,
+            setting: str = "deterministic") -> dict:
     """The per-step figures (see the module docstring); `devices` (the
-    first `dev`) splits the step."""
+    first `dev`) splits the step, run in `utils.determinism.setting`'s
+    `setting` (the train CLI's by default)."""
+    from if_defense_tpu_torch.utils import determinism
+
+    with determinism.setting(setting):
+        out = _profile(dev, victim, batch, steps, top, devices)
+    out["setting"] = setting
+    return out
+
+
+def _profile(dev, victim: str, batch: int, steps: int, top: int,
+             devices) -> dict:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from if_defense_tpu_torch.models import build_model
@@ -122,12 +138,18 @@ def profile(dev, victim: str = "pointnet2", batch: int = 32, steps: int = 5,
     out["busy_share"] = out["device_ms"] / (out["wall_ms"] * cards)
     out["b5_b6_ms"] = sum(v[0] for k, v in per.items()
                           if "fps_kernel" in k or "ballquery_kernel" in k)
+    out["gather_backward_ms"] = sum(v[0] for k, v in per.items()
+                                    if "gather_b" in k)
+    out["indexing_backward_ms"] = sum(v[0] for k, v in per.items()
+                                      if "indexing_backward" in k)
     print(f"  {victim}, a train step (batch {batch} in {out['shards']} "
           f"shard(s) on {cards} card(s), median of {steps}): wall "
           f"{out['wall_ms']:.4f} ms, events {out['event_ms']:.4f} ms, "
           f"device {out['device_ms']:.4f} ms, "
           f"busy share {out['busy_share']:.3f}, {out['ops']:.1f} device "
-          f"operations, B5 + B6 {out['b5_b6_ms']:.4f} ms")
+          f"operations, B5 + B6 {out['b5_b6_ms']:.4f} ms, the gather "
+          f"backward's kernels {out['gather_backward_ms']:.4f} ms, torch's "
+          f"indexing_backward_kernel {out['indexing_backward_ms']:.4f} ms")
     if not per:
         print("    device time not measured (the profiler saw no kernel)")
     for k, (ms, cnt) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
@@ -136,6 +158,8 @@ def profile(dev, victim: str = "pointnet2", batch: int = 32, steps: int = 5,
 
 
 def main(argv=None) -> int:
+    from if_defense_tpu_torch.utils.determinism import SETTINGS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--victim", default="pointnet2")
     ap.add_argument("--batch", type=int, default=32)
@@ -143,6 +167,9 @@ def main(argv=None) -> int:
     ap.add_argument("--devices", default=None,
                     help="split each step: 'cuda' (every visible card) or "
                          "a comma list, repeats allowed")
+    ap.add_argument("--setting", default="deterministic", choices=SETTINGS,
+                    help="deterministic algorithms as the train CLI runs, "
+                         "without their NaN fill, or off")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
@@ -152,7 +179,8 @@ def main(argv=None) -> int:
     devices = (None if args.devices is None else visible_devices(
         args.devices.split(",") if "," in args.devices else args.devices))
     print(json.dumps(profile(torch.device("cuda", 0), args.victim,
-                             args.batch, args.steps, devices=devices)))
+                             args.batch, args.steps, devices=devices,
+                             setting=args.setting)))
     return 0
 
 
