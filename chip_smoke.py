@@ -29,14 +29,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      on a CPU copy and launch to launch; timed at the xz plane and the grid
      beside the plain version on the card (`scatter_reduce` amax and
      `gather`, an atomic backward) and the same under deterministic
-     algorithms; then the gathers' backward kernel (`csrc/gather.cu`, a
+     algorithms, and four pooled maxes and the scatter-mean on one shared
+     CSR bit-equal with one build; then the CSR build that these kernels
+     read (`csrc/csr.cu`, a row of the kernels' table though it replaces
+     no TPU kernel): offsets and rows equal to a stable argsort's at the
+     gathers' and the encoder's shapes, under heavy ties, with most
+     targets empty, in its device-memory tier (40,000 and 100,000
+     targets) and at ragged sizes, timed at DGCNN's kNN indices beside one
+     stable `torch.sort`; then the gathers' backward kernel (`csrc/gather.cu`, a
      row of the kernels' table though it replaces no TPU kernel) at the
      victims' training shapes (B=32: DGCNN's four EdgeConv blocks at its
      [32, 1024, 20] kNN indices, C = 3, 64, 64, 128; PointNet++'s level-1
      features [32, 512, 128] at [32, 128, 64] and its xyz at [32, 512,
      32]; a set whose indices fall in 8 points a cloud), int64 and int32
      indices: `index_points`' gradient bit-equal to the plain version's
-     autograd on a CPU copy, two launches each; timed at DGCNN's second
+     autograd on a CPU copy, two launches each (and two CSR builds); timed at DGCNN's second
      and fourth blocks and PointNet++'s features beside the plain version
      (atomic) and the same under deterministic algorithms, and the two
      yardsticks alone (`scatter_add_`, atomic and deterministic);
@@ -326,12 +333,13 @@ three `F.grid_sample` calls' forward and backward and of their sum, the
 gradients' fills included), `library_call_ms` and `bound_whole_planes_ms`
 (the bound with every plane byte read, as the one-plane design's rows
 counted it). The gather backward's row (DGCNN's second block) times the
-wrapper alone, fed the output's gradient (`device_ms`: its sort, casts,
-fill and kernels), the forward and backward with the harness loss
+wrapper alone, fed the output's gradient (`device_ms`: its CSR build
+and its sums), the forward and backward with the harness loss
 (`call_ms`, `plain_ms`), and one `scatter_add_` into zeros (`library_ms`,
 torch's atomic backward), and adds `deterministic_plain_ms` (the plain
 version under deterministic algorithms).
-`bound_share` is `bound_ms / device_ms`.
+`bound_share` is `bound_ms / device_ms`; `launches_per_call` counts the
+device operations a call of the wrapper alone launches (profiler).
 
 Each kernel's `bound_ms` is the least time the card could take for its
 work on this run's inputs: the larger of its operations over 67 TFLOP/s
@@ -550,8 +558,9 @@ def device_ms(fn, names=None, reps: int = DEVICE_REPS):
     its self device time per launch times its launches per call, summed
     (the profiler has been seen to drop a kernel's first launch of the
     window, so a total over `reps` would undercount). -> (ms,
-    {kernel: its ms per call}, {kernel seen but not counted: launches}), or
-    None where the profiler saw no kernel of `names`."""
+    {kernel: its ms per call}, {kernel seen but not counted: launches},
+    device operations launched per call, every kind counted), or None
+    where the profiler saw no kernel of `names`."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -565,11 +574,12 @@ def device_ms(fn, names=None, reps: int = DEVICE_REPS):
     stats = prof.key_averages()
     host = {e.key for e in stats
             if e.device_type == torch.autograd.DeviceType.CPU}
-    total, ours, others = 0.0, {}, {}
+    total, ours, others, ops = 0.0, {}, {}, 0
     for e in stats:
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or e.self_device_time_total <= 0 or e.key in host):
             continue
+        ops += max(1, round(e.count / reps))
         label = _label(e.key, names)
         if label is None:
             label = _label(e.key, None)
@@ -581,7 +591,7 @@ def device_ms(fn, names=None, reps: int = DEVICE_REPS):
         ours[label] = ours.get(label, 0.0) + ms
     if not ours:
         return None
-    return total, ours, others
+    return total, ours, others, ops
 
 
 def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
@@ -646,15 +656,16 @@ def kernel_times(call, plain, bare, names, library=None) -> dict:
     if got is None:
         print(f"  the profiler saw no kernel of {names}: device_ms from "
               "graph replay")
-        got = (graph, {}, {})
-    dev_ms, ours, others = got
+        got = (graph, {}, {}, None)
+    dev_ms, ours, others, ops = got
     row = dict(call_ms=median_ms(call), plain_ms=median_ms(plain),
-               device_ms=dev_ms, graph_ms=graph,
+               device_ms=dev_ms, graph_ms=graph, launches_per_call=ops,
                library_call_ms=None, library_device_ms=None)
     split = ", ".join(f"{k} {v:.4f}" for k, v in ours.items())
     print(f"  device {dev_ms:.4f} ms per call (profiler, {DEVICE_REPS} calls:"
-          f" {split}{f'; not counted: {others}' if others else ''}), graph "
-          f"replay {graph:.4f} ms, whole call {row['call_ms']:.4f} ms")
+          f" {split}{f'; not counted: {others}' if others else ''}; "
+          f"{ops} device operations a call), graph replay {graph:.4f} ms, "
+          f"whole call {row['call_ms']:.4f} ms")
     if library is not None:
         lib = device_ms(library[1])
         row["library_call_ms"] = median_ms(library[0])
@@ -960,9 +971,13 @@ def check_pooled_max(dev) -> dict:
     and features, so cells hold ties; most cells are empty. Forward and
     backward bit-equal (every bit, signed zeros included) to the plain
     version's autograd on a CPU copy, and from one launch to the next.
-    Timed at the xz plane and the grid, forward and backward fed the
-    gradient: the wrapper's device time (sort, kernels) by the profiler
-    over 20 calls, its whole call with a harness loss, the plain version
+    On one CSR built for the index (`cell_csr`, as the encoder shares it),
+    four pooled maxes give the same bits, their backward too, and the
+    scatter-mean its plain version's, with one CSR build for all. Timed at
+    the xz plane and the grid, forward and backward fed the gradient: the
+    wrapper's device time (the CSR build and both kernels) by the
+    profiler over 20 calls with its device operations a call, its whole
+    call with a harness loss, the plain version
     on the card (`scatter_reduce` amax and `gather`, whose backward adds
     with atomics) and the same under deterministic algorithms (torch's
     sort-based backward); the bound counts the features, indices and the
@@ -974,11 +989,14 @@ def check_pooled_max(dev) -> dict:
         coordinate2index_3d,
         normalize_3d_coordinate,
     )
-    from if_defense_tpu_torch.ops import normalize_coordinate
+    from if_defense_tpu_torch.ops import cuda_csr, normalize_coordinate
     from if_defense_tpu_torch.ops.normalize import normalize_unit_cube
     from if_defense_tpu_torch.ops.scatter import (
+        cell_csr,
         pooled_max_by_cell,
         pooled_max_by_cell_plain,
+        scatter_mean_2d,
+        scatter_mean_2d_plain,
     )
     from if_defense_tpu_torch.utils.determinism import deterministic
 
@@ -1011,14 +1029,27 @@ def check_pooled_max(dev) -> dict:
         occupied = torch.zeros(B, k).scatter_add_(
             1, idx.long(), torch.ones(B, SCATTER_N))
         got = []
+        built = cuda_csr.launches["csr"]
         for _ in range(2):
             xd = fd.clone().requires_grad_(True)
             out = pooled_max_by_cell(xd, idx.to(dev), k)
             out.backward(gd)
             got.append((out.detach(), xd.grad))
+        # the encoder's way: one CSR for the index, which four pooled
+        # maxes (each way) and the scatter-mean share
+        shared = cell_csr(idx.to(dev), k)
+        xd = fd.clone().requires_grad_(True)
+        outs = [pooled_max_by_cell(xd, idx.to(dev), k, csr=shared)
+                for _ in range(4)]
+        sum(outs).backward(gd)
+        mean = scatter_mean_2d(fd, idx.to(dev), k, shared)
         torch.cuda.synchronize()
+        built = cuda_csr.launches["csr"] - built
+        shared_same = (all(same_bits(o, got[0][0]) for o in outs)
+                       and torch.equal(mean.cpu(),
+                                       scatter_mean_2d_plain(feat, idx, k)[0]))
         same = all(same_bits(o, want) and same_bits(gr, x.grad)
-                   for o, gr in got)
+                   for o, gr in got) and shared_same and built == 3
         repeat = (same_bits(got[0][0], got[1][0])
                   and same_bits(got[0][1], got[1][1]))
         err = max(err, float((got[0][0].cpu() - want).abs().max()),
@@ -1028,7 +1059,9 @@ def check_pooled_max(dev) -> dict:
               f"{int((occupied > 0).sum(1).max())} occupied a cloud, up to "
               f"{int(occupied.max())} points a cell, {tied} (cell, channel) "
               f"maxima tied; forward and backward bit-equal to the plain "
-              f"version on a CPU copy {same}, two launches {repeat}")
+              f"version on a CPU copy {same}, two launches {repeat}; on "
+              f"one shared CSR, four pooled maxes and the scatter-mean "
+              f"bit-equal {shared_same}, {built} CSR builds (want 3)")
         if not tied:
             fail(f"the pooled max's inputs ({name}) hold no ties")
         if not (same and repeat):
@@ -1117,22 +1150,109 @@ def gather_sets(dev) -> dict:
             "ties, 8 points a cloud (C 64)": (feats(1024, 64), ties)}
 
 
+def check_csr(dev) -> dict:
+    """Phase 2's CSR build (`csrc/csr.cu`; no TPU kernel), which the gather
+    backward and the encoder's kernels read: each cloud's rows grouped by
+    target, in row order. Bit-equal (offsets and rows) to its plain
+    version (`csr_plain`: numpy-order stable argsort and cumulative counts)
+    on a CPU copy, with int32 and int64 indices, at the gathers' shapes
+    (DGCNN's kNN, [TRAIN_B, 20480] rows into 1024 points, and PointNet++'s
+    level 1), under heavy ties (every row of a cloud on 8 of 1024 points,
+    and on one), with most targets empty (B clouds of SCATTER_N points in a
+    64^2 plane's cells and in the grid's 32^3, the shared-memory tier's
+    largest), in the device-memory tier (40,000 and 100,000 targets) and
+    at ragged sizes (M not a multiple of the block's 1024 rows; M = 0).
+    Timed at DGCNN's kNN shape: the device time of one build by the
+    profiler over 20 calls, its whole call, the plain version on the card
+    and, as the yardstick, one stable `torch.sort` of the same indices
+    (which gives the rows alone); the bound counts the indices read once
+    and the rows and offsets written once. -> the row."""
+    from if_defense_tpu_torch.ops import cuda_csr
+
+    sets = gather_sets(dev)
+    knn = sets["dgcnn block 2 (C 64)"][1].reshape(TRAIN_B, -1)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cases = {
+        "dgcnn kNN": (knn, 1024),
+        "pointnet2 level 1": (sets["pointnet2 xyz (C 3)"][1].reshape(
+            TRAIN_B, -1), 1024),
+        "ties, 8 points a cloud": (sets["ties, 8 points a cloud (C 64)"][1]
+                                   .reshape(TRAIN_B, -1), 1024),
+        "ties, one point": (torch.full((TRAIN_B, 20480), 517, device=dev),
+                            1024),
+        "64^2 plane, most cells empty": (torch.randint(
+            0, 4096, (B, SCATTER_N), generator=gen, device=dev), 4096),
+        "grid 32^3": (torch.randint(0, 32**3, (B, SCATTER_N), generator=gen,
+                                    device=dev), 32**3),
+        "device tier, 40000": (torch.randint(
+            0, 40000, (4, 20000), generator=gen, device=dev), 40000),
+        "device tier, one of 100000": (torch.full((2, 5000), 99999,
+                                                  device=dev), 100000),
+        "ragged, M = 1500": (torch.randint(0, 70, (3, 1500), generator=gen,
+                                           device=dev), 70),
+        "M = 0": (torch.zeros((2, 0), dtype=torch.int64, device=dev), 9),
+    }
+    before = cuda_csr.launches["csr"]
+    builds = 0
+    for name, (idx, k) in cases.items():
+        want = cuda_csr.csr_plain(idx.cpu(), k)
+        same = True
+        for dtype in (torch.int64, torch.int32):
+            got = cuda_csr.build_csr(idx.to(dtype), k)
+            builds += 1
+            torch.cuda.synchronize()
+            same &= (torch.equal(got.offsets.cpu(), want.offsets)
+                     and torch.equal(got.rows.cpu(), want.rows))
+        counts = want.offsets[:, 1:] - want.offsets[:, :-1]
+        print(f"  CSR {name}: {tuple(idx.shape)} rows into {k} targets "
+              f"({'shared' if k <= cuda_csr.SHARED_TARGETS else 'device'}"
+              f"-memory tier), up to {int(counts.max()) if counts.numel() else 0}"
+              f" rows a target, {int((counts == 0).sum())} targets empty; "
+              f"int64 and int32 bit-equal to the stable argsort {same}")
+        if not same:
+            fail(f"the CSR build ({name}) is not the stable argsort's order")
+    if cuda_csr.launches["csr"] - before != builds:
+        fail(f"{cuda_csr.launches['csr'] - before} CSR launches for "
+             f"{builds} builds")
+    print(f"  CSR build, dgcnn kNN {tuple(knn.shape)} int64 into 1024:")
+    m = knn.shape[1]
+    times = kernel_times(
+        lambda: cuda_csr.build_csr(knn, 1024),
+        lambda: cuda_csr.csr_plain(knn, 1024),
+        lambda: cuda_csr.build_csr(knn, 1024), None,
+        (lambda: torch.sort(knn, dim=1, stable=True),
+         lambda: torch.sort(knn, dim=1, stable=True)))
+    bnd = bound(0, 8 * TRAIN_B * m + 4 * TRAIN_B * m + 4 * TRAIN_B * 1025)
+    print(f"  plain (stable argsort, counts, cumsum) whole call "
+          f"{times['plain_ms']:.4f} ms; one stable torch.sort device "
+          f"{times['library_device_ms']:.4f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
+    row = dict(name="csr_build", id="csr.cu",
+               source="if_defense_tpu_torch/csrc/csr.cu",
+               replaces="none: the port's own, feeding gather.cu and "
+                        "scatter.cu (no TPU kernel groups rows)",
+               max_abs_err=0.0, bound=bnd, **times)
+    print_row(row)
+    return row
+
+
 def check_gather_backward(dev) -> dict:
     """Phase 2's gather-backward kernel (`csrc/gather.cu`; no TPU kernel)
     at the victims' training shapes (`gather_sets`), each with int64 and
     int32 indices: `index_points`' gradient on the card, twice, bit-equal
     (every bit) to the plain version's autograd on a CPU copy, each
-    backward one launch. Timed at DGCNN's second block (the row of the
-    kernels' line), PointNet++'s level-1 features and DGCNN's fourth
-    block: the wrapper's device time (sort, casts, fill, kernels) over 20
-    calls by the profiler, fed the gradient; its whole call with a harness
+    backward one CSR build and one launch of the sums. Timed at DGCNN's
+    second block (the row of the kernels' line), PointNet++'s level-1
+    features and DGCNN's fourth block: the wrapper's device time (the CSR
+    build and the sums) over 20 calls by the profiler, with its device
+    operations a call, fed the gradient; its whole call with a harness
     loss, forward and backward; the plain version's (`torch.gather`, an
     atomic `scatter_add_` backward) and the same under deterministic
     algorithms (torch's sort-based index backward); and the device time of
     the two yardsticks alone: `scatter_add_` into zeros, atomic and under
     deterministic algorithms. The bound counts the output's gradient and
     the indices read once and the gradient written once. -> the row."""
-    from if_defense_tpu_torch.ops import cuda_gather
+    from if_defense_tpu_torch.ops import cuda_csr, cuda_gather
     from if_defense_tpu_torch.ops.pointops import (
         index_points,
         index_points_plain,
@@ -1153,14 +1273,17 @@ def check_gather_backward(dev) -> dict:
         same = True
         for dtype in (torch.int64, torch.int32):
             before = cuda_gather.launches["gather_backward"]
+            built = cuda_csr.launches["csr"]
             got = []
             for _ in range(2):
                 xd = pts.detach().clone().requires_grad_(True)
                 index_points(xd, idx.to(dtype)).backward(g)
                 got.append(xd.grad)
             torch.cuda.synchronize()
-            launched = cuda_gather.launches["gather_backward"] - before
-            same &= launched == 2 and all(same_bits(gr, x.grad) for gr in got)
+            launched = (cuda_gather.launches["gather_backward"] - before,
+                        cuda_csr.launches["csr"] - built)
+            same &= launched == (2, 2) and all(same_bits(gr, x.grad)
+                                               for gr in got)
             err = max(err, float((got[0].cpu() - x.grad).abs().max()))
         print(f"  gather backward, {name}: [{TRAIN_B}, {n}, {c}] at "
               f"{tuple(idx.shape)}, up to {int(reads.max())} rows a point, "
@@ -1230,7 +1353,8 @@ def check_gather_backward(dev) -> dict:
                shapes={k: {f: v[f] for f in (
                    "device_ms", "call_ms", "plain_ms",
                    "deterministic_plain_ms", "library_device_ms",
-                   "deterministic_device_ms")} | {"bound_ms": v["bound"][0]}
+                   "deterministic_device_ms", "launches_per_call")}
+                   | {"bound_ms": v["bound"][0]}
                    for k, v in timed.items()})
     print_row(row)
     return row
@@ -1327,7 +1451,9 @@ def check_opt_cli() -> tuple[dict, dict]:
         # planes a launch); the fast mode bypasses B4 (corner cache) and
         # builds B2's mask once per 16-step window (13 of 201 steps)
         # the encoder's scatter-mean once a plane for the one batch of 48,
-        # its pooled max once a plane in each of 4 blocks, forward only
+        # its pooled max once a plane in each of 4 blocks, forward only,
+        # all of a plane's calls on one CSR build (and one more a gather's
+        # backward)
         ref, fast = launches["reference"], launches["fast"]
         if (ref["repulsion_loss"] != 402 or ref["plane_features"] != 201
                 or ref["plane_features_dp"] != 201
@@ -1336,11 +1462,13 @@ def check_opt_cli() -> tuple[dict, dict]:
                 or fast["repulsion_mask"] != 13
                 or ref["scatter_mean"] != 3 or fast["scatter_mean"] != 3
                 or any(m["pooled_max"] != 12 or m["pooled_max_backward"]
+                       or m["csr"] != 3 + m["gather_backward"]
                        for m in (ref, fast))):
             fail(f"launches {launches} in ConvONet-Opt: not B1 402, B4 "
                  "201 + 201 and the scatter-mean 3 in the reference mode, "
                  "B3 402, B2 13 and the scatter-mean 3 in the fast mode, "
-                 "and the pooled max 12 forward and no backward in each")
+                 "and the pooled max 12 forward and no backward and 3 CSR "
+                 "builds (one a plane, besides the gathers') in each")
         # a second, warm run of each mode for the rate, which repeats the
         # first's output bit for bit: the same --seed and data
         for name, extra in modes.items():
@@ -2733,14 +2861,19 @@ def check_small_attacks(dev) -> None:
 
 
 def attack_cli(argv: list[str]) -> dict:
-    """One `cli/attack.py` run on the card, the B5/B6 and gather-backward
-    launch counters set to 0 just before and read just after. -> {out,
+    """One `cli/attack.py` run on the card, the B5/B6, gather-backward and
+    CSR launch counters set to 0 just before and read just after. -> {out,
     rate, seconds, launches}."""
     from if_defense_tpu_torch.cli import attack
-    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather
+    from if_defense_tpu_torch.ops import (
+        cuda_ballquery,
+        cuda_csr,
+        cuda_fps,
+        cuda_gather,
+    )
 
     counters = (cuda_fps.launches, cuda_ballquery.launches,
-                cuda_gather.launches)
+                cuda_gather.launches, cuda_csr.launches)
     for counter in counters:
         for k in counter:
             counter[k] = 0
@@ -2846,17 +2979,19 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
         return ["--attack", attack, "--data", src, "--checkpoint",
                 ckpt[victim], "--output", os.path.join(tmp, out), *extra]
 
-    rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0}
+    rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0,
+                        "csr": 0}
     perturb = attack_cli(argv("perturb", "pointnet2", data, "perturb.npz",
                               []))
     check_attack_output("perturb 10 x 500, PointNet++", perturb, "perturb",
                         data, ATTACK_B)
     want = 2 * 10 * 500
     if perturb["launches"] != {"fps": want, "ballquery": want,
-                               "gather_backward": 5 * want // 2}:
+                               "gather_backward": 5 * want // 2,
+                               "csr": 5 * want // 2}:
         fail(f"launches {perturb['launches']} in perturb 10 x 500 on "
              f"PointNet++, not {want} B5/B6 each and {5 * want // 2} "
-             "gather backward")
+             "gather backward, each on a CSR of its own")
     runs = {"perturb": perturb}
     for attack, victim, extra in ATTACK_RUNS:
         tag = f"{attack} {' '.join(extra)} {victim}".replace("  ", " ")
@@ -2866,6 +3001,10 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
         check_attack_output(tag, runs[tag], attack, src, ATTACK_B)
         if runs[tag]["launches"]["gather_backward"] <= 0:
             fail(f"{tag}: the gather-backward kernel was not launched")
+        if runs[tag]["launches"]["csr"] != runs[tag]["launches"][
+                "gather_backward"]:
+            fail(f"{tag}: CSR builds {runs[tag]['launches']} are not one a "
+                 "gather backward")
     for tag, run in runs.items():
         rates[tag] = ATTACK_B / run["seconds"]
         for k in total:
@@ -3072,14 +3211,19 @@ def check_small_victim_training(dev) -> None:
 
 def train_cli(argv: list[str], hybrid: bool = False) -> dict:
     """One `cli/train.py` (or `cli/hybrid_train.py`) run on the card with
-    the B5/B6 and gather-backward launch counters set to 0 just before and
-    read just after. -> {seconds (host clock around main()), launches,
-    records}."""
+    the B5/B6, gather-backward and CSR launch counters set to 0 just
+    before and read just after. -> {seconds (host clock around main()),
+    launches, records}."""
     from if_defense_tpu_torch.cli import hybrid_train, train
-    from if_defense_tpu_torch.ops import cuda_ballquery, cuda_fps, cuda_gather
+    from if_defense_tpu_torch.ops import (
+        cuda_ballquery,
+        cuda_csr,
+        cuda_fps,
+        cuda_gather,
+    )
 
     counters = (cuda_fps.launches, cuda_ballquery.launches,
-                cuda_gather.launches)
+                cuda_gather.launches, cuda_csr.launches)
     for counter in counters:
         for k in counter:
             counter[k] = 0
@@ -3171,12 +3315,14 @@ def run_train_clis(dev, tmp: str) -> tuple[dict, dict]:
         n_train, n_test = len(d["train_label"]), len(d["test_label"])
     steps = n_train // TRAIN_B                     # drop_last
     evals = -(-n_test // TRAIN_B)                  # the last padded
-    rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0}
+    rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0,
+                        "csr": 0}
 
     def forwards_want(name: str, forwards: int, train_steps: int) -> dict:
         per = TRAIN_FORWARD_LAUNCHES[name]
+        gathers = train_steps * TRAIN_BACKWARD_LAUNCHES[name]
         return {"fps": forwards * per[0], "ballquery": forwards * per[1],
-                "gather_backward": train_steps * TRAIN_BACKWARD_LAUNCHES[name]}
+                "gather_backward": gathers, "csr": gathers}
 
     def check_run(tag: str, run: dict, want: dict) -> None:
         print(f"  {tag}: {run['seconds']:.1f} s, launches "
@@ -3869,7 +4015,7 @@ def grid_training(dev, occ_npz: str):
         init_occupancy_model,
         make_occupancy_train_step,
     )
-    from if_defense_tpu_torch.ops import cuda_gather, cuda_scatter
+    from if_defense_tpu_torch.ops import cuda_csr, cuda_gather, cuda_scatter
     from if_defense_tpu_torch.utils.determinism import deterministic
     from if_defense_tpu_torch.utils.params_io import params_from_jax
 
@@ -3934,7 +4080,8 @@ def grid_training(dev, occ_npz: str):
     sampler = OccupancyBatchSampler(*arrays, pointcloud_n=600,
                                     points_subsample=TQ, seed=0)
     batches = [sampler.sample(TB) for _ in range(TRAIN_STEPS)]
-    for counter in (cuda_scatter.launches, cuda_gather.launches):
+    for counter in (cuda_scatter.launches, cuda_gather.launches,
+                    cuda_csr.launches):
         for k in counter:
             counter[k] = 0
     rates, weights = [], []
@@ -3966,9 +4113,10 @@ def grid_training(dev, occ_npz: str):
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = dict(cuda_scatter.launches)
     gathers = cuda_gather.launches["gather_backward"]
+    csr = cuda_csr.launches["csr"]
     same = all(same_bits(weights[0][n], weights[1][n]) for n in weights[0])
     print(f"  the two runs' weights bit-equal {same}; encoder launches "
-          f"{launches}, gather backward {gathers}")
+          f"{launches}, gather backward {gathers}, CSR builds {csr}")
     if not same:
         fail("two seeded grid ConvONet training runs differ")
     want = 2 * TRAIN_STEPS
@@ -3979,8 +4127,12 @@ def grid_training(dev, occ_npz: str):
     if gathers != 8 * want:
         fail(f"gather-backward launches {gathers} in grid training, not "
              f"{8 * want} (the volume's eight corners a step)")
+    if csr != want + gathers:
+        fail(f"CSR builds {csr} in grid training, not {want} (the grid's "
+             f"one a step, which its 4 pooled maxes and its scatter-mean "
+             f"share) plus {gathers} (one a gather backward)")
     return (model.eval().requires_grad_(False), rates,
-            launches | {"gather_backward": gathers})
+            launches | {"gather_backward": gathers, "csr": csr})
 
 
 def grid_defense(dev, model) -> tuple[dict, dict]:
@@ -4222,6 +4374,7 @@ def counters() -> tuple:
     """Every kernel wrapper's launch counter."""
     from if_defense_tpu_torch.ops import (
         cuda_ballquery,
+        cuda_csr,
         cuda_fps,
         cuda_gather,
         cuda_interp,
@@ -4231,7 +4384,7 @@ def counters() -> tuple:
 
     return (cuda_repulsion.launches, cuda_interp.launches, cuda_fps.launches,
             cuda_ballquery.launches, cuda_scatter.launches,
-            cuda_gather.launches)
+            cuda_gather.launches, cuda_csr.launches)
 
 
 def all_launches() -> dict:
@@ -4830,13 +4983,17 @@ def check_split_training(dev) -> tuple[dict, dict]:
     full = check_split_full(dev, split)
     with tempfile.TemporaryDirectory() as tmp:
         cli = check_split_cli(dev, tmp, split)
-    from if_defense_tpu_torch.ops import cuda_gather
+    from if_defense_tpu_torch.ops import cuda_csr, cuda_gather
 
-    launches = train_counts() | dict(cuda_gather.launches)
+    launches = (train_counts() | dict(cuda_gather.launches)
+                | dict(cuda_csr.launches))
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s; B5/B6 and "
           f"gather-backward launches {launches}")
     if launches["gather_backward"] <= 0:
         fail("the gather-backward kernel was not launched in split training")
+    if launches["csr"] != launches["gather_backward"]:
+        fail(f"CSR builds {launches} in split training: not one a gather "
+             "backward")
     return {"small": {k: {f: v[f] for f in ("loss", "cos", "stats")}
                       for k, v in small.items()},
             "full": full, "cli": cli}, launches
@@ -4919,6 +5076,8 @@ def main() -> int:
     from if_defense_tpu_torch.data import save_npz
     from if_defense_tpu_torch.ops import (
         _build,
+        cuda_csr,
+        cuda_gather,
         cuda_interp,
         cuda_repulsion,
         cuda_scatter,
@@ -4957,6 +5116,9 @@ def main() -> int:
     print(f"the encoder's pooled-max kernels (no TPU kernel) at B={B}, "
           f"{SCATTER_N} points, {C} channels:")
     rows.append(check_pooled_max(dev))
+    print(f"the CSR build (no TPU kernel) that the gathers' backward and the "
+          f"encoder's kernels read, at their shapes:")
+    rows.append(check_csr(dev))
     print(f"the gathers' fixed-order backward kernel (no TPU kernel) at the "
           f"victims' training shapes, B={TRAIN_B}:")
     rows.append(check_gather_backward(dev))
@@ -4998,7 +5160,8 @@ def main() -> int:
 
         print(f"phase 10: train_implicit, full width, {TRAIN_STEPS} steps "
               f"at lr {TRAIN_LR:g}")
-        for counter in (cuda_interp.launches, cuda_scatter.launches):
+        for counter in (cuda_interp.launches, cuda_scatter.launches,
+                        cuda_csr.launches, cuda_gather.launches):
             for k in counter:
                 counter[k] = 0
         runs = {}
@@ -5008,8 +5171,11 @@ def main() -> int:
             if variant == "convonet":
                 launches["train"] = dict(cuda_interp.launches)
                 launches["train_scatter"] = dict(cuda_scatter.launches)
+                launches["train_csr"] = dict(cuda_csr.launches,
+                                             **cuda_gather.launches)
                 print(f"  convonet, both runs: launches {launches['train']}, "
-                      f"{launches['train_scatter']}")
+                      f"{launches['train_scatter']}, "
+                      f"{launches['train_csr']}")
                 want = 2 * TRAIN_STEPS         # one each a step, 2 runs
                 # the encoder: the scatter-mean once a plane, the pooled
                 # max once a plane in each of 4 blocks, each way
@@ -5019,6 +5185,14 @@ def main() -> int:
                     fail(f"encoder launches {launches['train_scatter']} in "
                          f"ConvONet training, not {3 * want} scatter-mean "
                          f"and {12 * want} pooled max each way")
+                # one CSR a plane a step, which its 4 pooled maxes (each
+                # way) and its scatter-mean share, and one a gather's
+                # backward
+                csr = launches["train_csr"]
+                if csr["csr"] != 3 * want + csr["gather_backward"]:
+                    fail(f"CSR builds {csr} in ConvONet training, not "
+                         f"{3 * want} (one a plane a step) plus one a "
+                         "gather backward")
                 if launches["train"] != {"plane_features": want,
                                          "plane_features_dp": 0,
                                          "plane_features_dplane": want,
@@ -5174,6 +5348,8 @@ def main() -> int:
                                                    "plane_features_dplane")),
                "pooled_max": ("reference fast train_scatter grid_train",
                               ("pooled_max", "pooled_max_backward")),
+               "csr_build": ("reference fast train_csr grid_train attack "
+                             "fit sharded", ("csr",)),
                "gather_backward": ("attack fit grid_train sharded",
                                    ("gather_backward",))}
     for row in rows:
@@ -5227,6 +5403,7 @@ def main() -> int:
         | ({"deterministic_plain_ms": r["deterministic_plain_ms"]}
            if "deterministic_plain_ms" in r else {})
         | {"route": "cuda", "ms": r["device_ms"], "bound_ms": r["bound"][0],
+           "launches_per_call": r.get("launches_per_call"),
            "bound_by": r["bound"][1],
            "bound_share": r["bound"][0] / r["device_ms"],
            "library_ms": r["library_device_ms"]}

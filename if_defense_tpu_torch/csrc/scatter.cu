@@ -31,26 +31,29 @@
 // points equal to the max, plus 1 where the max is -inf, the fill value
 // the plain version starts from) after `gather`'s backward.
 //
-// Input order: the wrapper sorts each cloud's cell indices with a stable
-// sort (`torch.sort(stable=True)`, deterministic), so `sorted_idx[b]` is
-// ascending and, within a run of equal cells, `perm[b]` holds the points'
-// positions in increasing order. The pooled max's forward and backward
-// share one sort.
+// Input order: each cloud's CSR (`csrc/csr.cu`, built on the card once for
+// a plane index and shared by the calls that read it): cell k's points are
+// rows[b, offsets[b, k] .. offsets[b, k + 1]], in increasing point order,
+// and the CSR build checks the cells against [0, K). The encoder builds
+// one CSR a plane and its four pooled maxes (forward and backward) and its
+// scatter-mean read it.
 //
 // Design: one thread per (cloud, sorted position, channel), channels
 // fastest, so a warp shares a position and reads a point's channels
-// contiguously. A thread whose position does not start a run of equal
-// cells returns; the thread at a run's start walks the run in order.
-// Scatter-mean: it adds its points' values from 0.0f (as the plain version
-// adds into zeros) and divides by the run's length (IEEE division, as
-// torch's on the CPU); its channel-0 thread writes the run's length to
-// each of the run's points (`counts`, f32), which the backward divides by.
-// Empty cells keep the zeros the wrapper's output was filled with. Pooled
-// max: the forward takes the run's max (NaN sticks, as in torch's CPU
-// max), writes it to each of the run's points and keeps the tie count at
-// the run's start (`ties`, by sorted position); the backward adds the
-// run's output gradients from 0.0f, divides by the tie count and writes
-// the quotient, times 1 or 0, to each of the run's points.
+// contiguously. The position's cell is the index of the point it holds,
+// and a thread whose position does not start its cell's range returns, so
+// the thread at a cell's first position walks the cell in order; only the
+// occupied cells are walked. Scatter-mean: that thread adds the cell's
+// points' values from 0.0f (as the plain version adds into zeros) and
+// divides by their count (IEEE division, as torch's on the CPU); its
+// channel-0 thread writes the count to each of the cell's points
+// (`counts`, f32), which the backward divides by. Empty cells keep the
+// zeros of a memset that the C entry issues before the kernel. Pooled max:
+// the forward takes the cell's max (NaN sticks, as in torch's CPU max),
+// writes it to each of the cell's points and keeps the tie count at the
+// cell's first position (`ties`); the backward adds the cell's output
+// gradients from 0.0f, divides by the tie count and writes the quotient,
+// times 1 or 0, to each of the cell's points.
 //
 // Bound: bytes. At the defense's shapes (B = 48, N = 600, C = 32, a 64x64
 // plane) the scatter-mean reads 3.7 MB of features and writes 25 MB of
@@ -68,18 +71,22 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Whether sorted position j starts a run of equal cells. A cell outside
-// [0, K) is a fault of the caller, as in scatter_add_'s device assert: it
-// stops the kernel without a host sync in the wrapper.
-__device__ __forceinline__ bool run_start(const int* row, int j, int K) {
-  const int cell = row[j];
-  if (cell < 0 || cell >= K) __trap();
-  return j == 0 || row[j - 1] != cell;
+// The cell range of sorted position j of cloud b when j starts it, else
+// false: the cell is the index of the point that j holds.
+template <typename I>
+__device__ __forceinline__ bool run_at(const I* idx, const int* offs,
+                                       const int* rows, int j, int* end) {
+  const int cell = static_cast<int>(idx[rows[j]]);
+  if (offs[cell] != j) return false;
+  *end = offs[cell + 1];
+  return true;
 }
 
+template <typename I>
 __global__ void scatter_mean_kernel(const float* __restrict__ feat,
-                                    const int* __restrict__ sorted_idx,
-                                    const int* __restrict__ perm, int B,
+                                    const I* __restrict__ idx,
+                                    const int* __restrict__ offsets,
+                                    const int* __restrict__ rows, int B,
                                     int N, int C, int K,
                                     float* __restrict__ out,
                                     float* __restrict__ counts) {
@@ -89,27 +96,30 @@ __global__ void scatter_mean_kernel(const float* __restrict__ feat,
   const long bj = t / C;
   const int j = static_cast<int>(bj % N);
   const int b = static_cast<int>(bj / N);
-  const int* row = sorted_idx + static_cast<long>(b) * N;
-  const int* prow = perm + static_cast<long>(b) * N;
-  if (!run_start(row, j, K)) return;
-  const int cell = row[j];
+  const int* rr = rows + static_cast<long>(b) * N;
+  const I* ib = idx + static_cast<long>(b) * N;
+  int end;
+  if (!run_at(ib, offsets + static_cast<long>(b) * (K + 1), rr, j, &end))
+    return;
   const float* fb = feat + static_cast<long>(b) * N * C + c;
   float s = 0.0f;
-  int k = j;
-  for (; k < N && row[k] == cell; ++k)
-    s = __fadd_rn(s, fb[static_cast<long>(prow[k]) * C]);
-  const int n = k - j;
+  for (int k = j; k < end; ++k)
+    s = __fadd_rn(s, fb[static_cast<long>(rr[k]) * C]);
+  const int n = end - j;
+  const long cell = static_cast<long>(ib[rr[j]]);
   out[(static_cast<long>(b) * K + cell) * C + c] =
       __fdiv_rn(s, static_cast<float>(n));
   if (c == 0) {
     float* cb = counts + static_cast<long>(b) * N;
-    for (int m = j; m < k; ++m) cb[prow[m]] = static_cast<float>(n);
+    for (int k = j; k < end; ++k) cb[rr[k]] = static_cast<float>(n);
   }
 }
 
+template <typename I>
 __global__ void pooled_max_kernel(const float* __restrict__ feat,
-                                  const int* __restrict__ sorted_idx,
-                                  const int* __restrict__ perm, int B, int N,
+                                  const I* __restrict__ idx,
+                                  const int* __restrict__ offsets,
+                                  const int* __restrict__ rows, int B, int N,
                                   int C, int K, float* __restrict__ out,
                                   float* __restrict__ ties) {
   const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -118,53 +128,59 @@ __global__ void pooled_max_kernel(const float* __restrict__ feat,
   const long bj = t / C;
   const int j = static_cast<int>(bj % N);
   const int b = static_cast<int>(bj / N);
-  const int* row = sorted_idx + static_cast<long>(b) * N;
-  const int* prow = perm + static_cast<long>(b) * N;
-  if (!run_start(row, j, K)) return;
-  const int cell = row[j];
+  const int* rr = rows + static_cast<long>(b) * N;
+  int end;
+  if (!run_at(idx + static_cast<long>(b) * N,
+              offsets + static_cast<long>(b) * (K + 1), rr, j, &end))
+    return;
   const long base = static_cast<long>(b) * N * C + c;
-  int end = j;
   float m = __int_as_float(0xff800000);      // -inf
-  for (; end < N && row[end] == cell; ++end) {
-    const float v = feat[base + static_cast<long>(prow[end]) * C];
+  for (int k = j; k < end; ++k) {
+    const float v = feat[base + static_cast<long>(rr[k]) * C];
     m = isnan(v) ? v : (m < v ? v : m);     // torch's CPU max, in order
   }
   // the plain version's fill, -inf, counts where it is the max
   float n = m == __int_as_float(0xff800000) ? 1.0f : 0.0f;
   for (int k = j; k < end; ++k) {
-    const long at = base + static_cast<long>(prow[k]) * C;
+    const long at = base + static_cast<long>(rr[k]) * C;
     n += feat[at] == m ? 1.0f : 0.0f;
     out[at] = m;
   }
-  ties[bj * C + c] = n;
+  ties[t] = n;
 }
 
+template <typename I>
 __global__ void pooled_max_backward_kernel(
     const float* __restrict__ grad_out, const float* __restrict__ feat,
     const float* __restrict__ out, const float* __restrict__ ties,
-    const int* __restrict__ sorted_idx, const int* __restrict__ perm, int B,
-    int N, int C, int K, float* __restrict__ grad) {
+    const I* __restrict__ idx, const int* __restrict__ offsets,
+    const int* __restrict__ rows, int B, int N, int C, int K,
+    float* __restrict__ grad) {
   const long t = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<long>(B) * N * C) return;
   const int c = static_cast<int>(t % C);
   const long bj = t / C;
   const int j = static_cast<int>(bj % N);
   const int b = static_cast<int>(bj / N);
-  const int* row = sorted_idx + static_cast<long>(b) * N;
-  const int* prow = perm + static_cast<long>(b) * N;
-  if (!run_start(row, j, K)) return;
-  const int cell = row[j];
+  const int* rr = rows + static_cast<long>(b) * N;
+  int end;
+  if (!run_at(idx + static_cast<long>(b) * N,
+              offsets + static_cast<long>(b) * (K + 1), rr, j, &end))
+    return;
   const long base = static_cast<long>(b) * N * C + c;
-  int end = j;
   float s = 0.0f;
-  for (; end < N && row[end] == cell; ++end)
-    s = __fadd_rn(s, grad_out[base + static_cast<long>(prow[end]) * C]);
-  const float q = __fdiv_rn(s, ties[bj * C + c]);
-  const float m = out[base + static_cast<long>(prow[j]) * C];
+  for (int k = j; k < end; ++k)
+    s = __fadd_rn(s, grad_out[base + static_cast<long>(rr[k]) * C]);
+  const float q = __fdiv_rn(s, ties[t]);
+  const float m = out[base + static_cast<long>(rr[j]) * C];
   for (int k = j; k < end; ++k) {
-    const long at = base + static_cast<long>(prow[k]) * C;
+    const long at = base + static_cast<long>(rr[k]) * C;
     grad[at] = __fmul_rn(feat[at] == m ? 1.0f : 0.0f, q);
   }
+}
+
+inline long blocks_for(long total) {
+  return (total + kThreads - 1) / kThreads;
 }
 
 }  // namespace
@@ -175,54 +191,80 @@ const char* ifdef_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// feat [B,N,C] f32; sorted_idx, perm [B,N] i32 (a stable sort of each
-// cloud's cells, each in [0, K), or the kernel traps); out [B,K,C] f32,
-// zero-filled by the caller; counts [B,N] f32: the points of each point's
-// cell.
-int ifdef_scatter_mean(const float* feat, const int* sorted_idx,
-                       const int* perm, int B, int N, int C, int K,
-                       float* out, float* counts, void* stream) {
+// feat [B,N,C] f32; idx [B,N] the cells the CSR was built from (int64
+// where idx64 is 1, int32 where 0); offsets [B,K+1], rows [B,N] i32 its
+// CSR (`ifdef_csr_build`); out [B,K,C] f32, every cell written (0 where
+// empty, by a memset); counts [B,N] f32: the points of each point's cell.
+int ifdef_scatter_mean(const float* feat, const void* idx, int idx64,
+                       const int* offsets, const int* rows, int B, int N,
+                       int C, int K, float* out, float* counts,
+                       void* stream) {
   const long total = static_cast<long>(B) * N * C;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(float) * static_cast<size_t>(B) * K * C, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (total == 0) return 0;
-  const long blocks = (total + kThreads - 1) / kThreads;
+  const long blocks = blocks_for(total);
   if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
-  scatter_mean_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      feat, sorted_idx, perm, B, N, C, K, out, counts);
+  if (idx64)
+    scatter_mean_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        feat, static_cast<const int64_t*>(idx), offsets, rows, B, N, C, K,
+        out, counts);
+  else
+    scatter_mean_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        feat, static_cast<const int*>(idx), offsets, rows, B, N, C, K, out,
+        counts);
   return ifdef::last_error();
 }
 
-// feat [B,N,C] f32; sorted_idx, perm [B,N] i32 (a stable sort of each
-// cloud's cells, each in [0, K), or the kernel traps); out [B,N,C] f32,
-// each point's cell max; ties [B,N,C] f32, at each run's first sorted
-// position the tie count the backward divides by (other entries unset).
-int ifdef_pooled_max(const float* feat, const int* sorted_idx,
-                     const int* perm, int B, int N, int C, int K, float* out,
-                     float* ties, void* stream) {
+// feat [B,N,C] f32; idx [B,N] the cells the CSR was built from (int64
+// where idx64 is 1, int32 where 0); offsets [B,K+1], rows [B,N] i32 its
+// CSR; out [B,N,C] f32, each point's cell max; ties [B,N,C] f32, at each
+// cell's first sorted position the tie count the backward divides by
+// (other entries unset).
+int ifdef_pooled_max(const float* feat, const void* idx, int idx64,
+                     const int* offsets, const int* rows, int B, int N, int C,
+                     int K, float* out, float* ties, void* stream) {
   const long total = static_cast<long>(B) * N * C;
   if (total == 0) return 0;
-  const long blocks = (total + kThreads - 1) / kThreads;
+  const long blocks = blocks_for(total);
   if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
-  pooled_max_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      feat, sorted_idx, perm, B, N, C, K, out, ties);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx64)
+    pooled_max_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        feat, static_cast<const int64_t*>(idx), offsets, rows, B, N, C, K,
+        out, ties);
+  else
+    pooled_max_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        feat, static_cast<const int*>(idx), offsets, rows, B, N, C, K, out,
+        ties);
   return ifdef::last_error();
 }
 
-// grad_out, feat, out [B,N,C] f32; ties, sorted_idx, perm as the forward
-// left them; grad [B,N,C] f32, every entry written.
+// grad_out, feat, out [B,N,C] f32; ties as the forward left it; idx,
+// offsets, rows as the forward took them; grad [B,N,C] f32, every entry
+// written.
 int ifdef_pooled_max_backward(const float* grad_out, const float* feat,
                               const float* out, const float* ties,
-                              const int* sorted_idx, const int* perm, int B,
-                              int N, int C, int K, float* grad,
-                              void* stream) {
+                              const void* idx, int idx64, const int* offsets,
+                              const int* rows, int B, int N, int C, int K,
+                              float* grad, void* stream) {
   const long total = static_cast<long>(B) * N * C;
   if (total == 0) return 0;
-  const long blocks = (total + kThreads - 1) / kThreads;
+  const long blocks = blocks_for(total);
   if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
-  pooled_max_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      grad_out, feat, out, ties, sorted_idx, perm, B, N, C, K, grad);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx64)
+    pooled_max_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 s>>>(grad_out, feat, out, ties,
+                                      static_cast<const int64_t*>(idx),
+                                      offsets, rows, B, N, C, K, grad);
+  else
+    pooled_max_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 s>>>(grad_out, feat, out, ties,
+                                      static_cast<const int*>(idx), offsets,
+                                      rows, B, N, C, K, grad);
   return ifdef::last_error();
 }
 

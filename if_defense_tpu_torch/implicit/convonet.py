@@ -26,6 +26,7 @@ from if_defense_tpu_torch.implicit.layers import ResnetBlockFC
 from if_defense_tpu_torch.implicit.unet2d import UNet2D
 from if_defense_tpu_torch.implicit.unet3d import UNet3D
 from if_defense_tpu_torch.ops import (
+    cell_csr,
     normalize_coordinate,
     plane_features,
     plane_sample,
@@ -89,24 +90,29 @@ class _PooledEncoder(nn.Module):
                        if unet and "grid" in plane_type else None)
 
     def project(self, pp, index, pool) -> dict[str, torch.Tensor]:
-        # pp: [B, T, in_dim]; index: {plane: [B, T] cell ids}
+        # pp: [B, T, in_dim]; index: {plane: [B, T] cell ids}. On the card
+        # each plane's pools and scatter-mean share one CSR of its cells.
+        cells = {pl: _cells(pl, self.reso, self.grid_reso)
+                 for pl in self.plane_type}
+        csr = {pl: cell_csr(index[pl], cells[pl]) for pl in self.plane_type}
         net = self.blocks_0(self.fc_pos(pp))
         for i in range(1, self.n_blocks):
             pooled = 0
             for pl in self.plane_type:
-                pooled = pooled + pool(net, index[pl],
-                                       _cells(pl, self.reso, self.grid_reso))
+                pooled = pooled + pool(net, index[pl], cells[pl],
+                                       csr=csr[pl])
             net = getattr(self, f"blocks_{i}")(torch.cat([net, pooled], -1))
         c = self.fc_c(net)                                   # [B, T, c_dim]
         R, Rg, cd = self.reso, self.grid_reso, c.shape[-1]
         fea = {}
         for pl in self.plane_type:
             if pl == "grid":
-                vol = scatter_mean_2d(c, index[pl], Rg**3)
+                vol = scatter_mean_2d(c, index[pl], cells[pl], csr[pl])
                 vol = vol.reshape(-1, Rg, Rg, Rg, cd)        # [B, z, y, x, c]
                 fea[pl] = vol if self.unet3d is None else self.unet3d(vol)
                 continue
-            plane = scatter_mean_2d(c, index[pl], R * R).reshape(-1, R, R, cd)
+            plane = scatter_mean_2d(c, index[pl], cells[pl],
+                                    csr[pl]).reshape(-1, R, R, cd)
             fea[pl] = plane if self.unet is None else self.unet(plane)
         return fea
 

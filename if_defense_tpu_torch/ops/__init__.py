@@ -36,6 +36,7 @@ from if_defense_tpu_torch.ops.pointops import (
     square_distance,
 )
 from if_defense_tpu_torch.ops.scatter import (
+    cell_csr,
     pooled_max_by_cell,
     pooled_mean_by_cell,
     scatter_max_2d,
@@ -65,6 +66,7 @@ __all__ = [
     "query_ball_point",
     "query_ball_point_plain",
     "square_distance",
+    "cell_csr",
     "pooled_max_by_cell",
     "pooled_mean_by_cell",
     "scatter_max_2d",

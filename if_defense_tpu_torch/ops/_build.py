@@ -147,7 +147,14 @@ def launch(lib: str, what: str, fn, args, t: torch.Tensor, launches: dict,
     error. The C side launches, and sets its kernels' shared-memory limits,
     on the thread's current device: `torch.cuda.device` makes that `t`'s
     card, and the stream is that card's current stream. The count is taken
-    under a lock, so it stays exact when threads launch at once."""
+    under a lock, so it stays exact when threads launch at once. `fn`'s
+    argument types, where set (`bind` sets them), must name the stream as
+    well: ctypes would pass an argument past them as a 32-bit C int and
+    cut the stream's handle."""
+    argtypes = getattr(fn, "argtypes", None)
+    if argtypes is not None and len(argtypes) != len(args) + 1:
+        raise TypeError(f"{what}: {len(argtypes)} argument types for "
+                        f"{len(args)} arguments and the stream")
     with torch.cuda.device(t.device):
         err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
     with _count_lock:

@@ -7,11 +7,12 @@ Replaces no TPU kernel: the JAX package's `ops/pointops.py:49-58`
 plain version, `ops.pointops.index_points_plain`, is `torch.gather`, whose
 backward on the card adds with atomics in an order that changes from run to
 run (and under deterministic algorithms sorts and runs torch's index
-backward). The kernel adds each point's rows in row order, the order of the
-plain version's autograd on the CPU, so it gives those bits on a CPU copy
-and the same bits launch after launch. It takes f32 tensors on a CUDA
-device only; `ops.pointops.index_points` runs it in its backward on the
-card.
+backward). The kernel adds each point's rows in row order, the order of
+the plain version's autograd on the CPU, so it gives those bits on a CPU
+copy and the same bits launch after launch. A call is two launches: each
+cloud's CSR (`ops/cuda_csr.py`), then the sums. It takes f32 tensors on a
+CUDA device only; `ops.pointops.index_points` runs it in its backward on
+the card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import ctypes
 import torch
 
 from if_defense_tpu_torch.ops import _build
+from if_defense_tpu_torch.ops.cuda_csr import build_csr
 
 # kernel launches, counted where they happen
 launches = {"gather_backward": 0}
@@ -47,7 +49,7 @@ def gather_backward_cuda(grad_out: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"idx must be [{B}, {M}] on grad_out's device")
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"idx must be int32 or int64, not {idx.dtype}")
-    if num_points < 1 or B * max(M, num_points) > 2**31 - 1:
+    if num_points < 1 or num_points > 2**31 - 2 or M > 2**31 - 1025:
         raise ValueError(f"num_points={num_points} out of range for "
                          f"{B} x {M} rows")
     if not grad_out.is_cuda:
@@ -56,21 +58,12 @@ def gather_backward_cuda(grad_out: torch.Tensor, idx: torch.Tensor,
                        device=grad_out.device)
     if grad.numel() == 0:
         return grad
-    idx = idx.contiguous()
-    # one stable sort of every cloud's keys b N + idx keeps each point's
-    # rows in row order (the kernel checks idx, so a wrapped key traps)
-    offsets = torch.arange(B, dtype=torch.int32, device=idx.device)
-    keys = (idx.to(torch.int32) + (offsets * num_points)[:, None]).reshape(-1)
-    sorted_key, perm = torch.sort(keys, stable=True)
-    perm = perm.to(torch.int32)
-    bounds = torch.zeros((B * num_points, 2), dtype=torch.int32,
-                         device=grad_out.device)
+    csr = build_csr(idx, num_points)
     grad_out = grad_out.contiguous()
     fn = _build.bind("gather", "ifdef_gather_backward",
-                     [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+                     [_P, _P, _P, _I, _I, _I, _I, _P, _P])
     _build.launch("gather", "gather_backward", fn, (
-        grad_out.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
-        sorted_key.data_ptr(), perm.data_ptr(), B, M, num_points, C,
-        bounds.data_ptr(), grad.data_ptr()),
+        grad_out.data_ptr(), csr.offsets.data_ptr(), csr.rows.data_ptr(),
+        B, M, num_points, C, grad.data_ptr()),
         grad_out, launches, "gather_backward")
     return grad

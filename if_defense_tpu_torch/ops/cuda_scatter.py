@@ -9,9 +9,11 @@ torch's scatters, whose atomics on the card add in an order that changes
 from run to run (the pooled max's in `gather`'s backward). The kernels take
 each cell's points in point order, the order the plain versions take them
 in on the CPU, so they give those versions' bits on a CPU copy and the same
-bits launch after launch. They take f32 tensors on a CUDA device only;
-`ops.scatter` chooses between kernel and plain version by the tensor's
-device.
+bits launch after launch. They read each cloud's cells as a CSR
+(`ops/cuda_csr.py`), which a caller builds once for a plane index and hands
+to every call on it (else each call builds its own). They take f32 tensors
+on a CUDA device only; `ops.scatter` chooses between kernel and plain
+version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 import torch
 
 from if_defense_tpu_torch.ops import _build
+from if_defense_tpu_torch.ops.cuda_csr import CSR, build_csr
 
 # kernel launches, counted where they happen
 launches = {"scatter_mean": 0, "pooled_max": 0, "pooled_max_backward": 0}
@@ -29,9 +32,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _check(what: str, feat: torch.Tensor, index: torch.Tensor,
-           num_cells: int) -> None:
-    """Raise unless `feat` is [B, N, C] f32 on a CUDA device and `index` an
-    integer [B, N] beside it (its range is checked by the kernels)."""
+           num_cells: int, csr: CSR | None) -> None:
+    """Raise unless `feat` is [B, N, C] f32 on a CUDA device, `index` an
+    integer [B, N] beside it and `csr`, where given, a CSR of `num_cells`
+    cells of an index of that shape. Where a CSR is given it is the one
+    source of the cells (the kernels and the scatter-mean's backward read
+    its `index`); the range is checked by the CSR's kernel."""
     if feat.dtype != torch.float32:
         raise TypeError(f"features must be float32, not {feat.dtype}")
     if feat.dim() != 3:
@@ -42,66 +48,72 @@ def _check(what: str, feat: torch.Tensor, index: torch.Tensor,
         raise ValueError(f"index must be [{B}, {N}] on the features' device")
     if index.dtype.is_floating_point or index.dtype == torch.bool:
         raise TypeError(f"index must be integer, not {index.dtype}")
-    if num_cells < 1 or num_cells > 2**31 - 1:
+    if num_cells < 1 or num_cells > 2**31 - 2:
         raise ValueError(f"num_cells={num_cells} out of range")
+    if csr is not None and (csr.num_targets != num_cells
+                            or csr.index.shape != index.shape):
+        raise ValueError(f"the CSR of {csr.num_targets} cells x "
+                         f"{tuple(csr.index.shape)} does not fit "
+                         f"num_cells={num_cells} x {tuple(index.shape)}")
     if not feat.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors")
 
 
-def _sorted(index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Each cloud's cells in ascending order and the points' positions in
-    that order, int32: a stable sort keeps each cell's points in point
-    order."""
-    sorted_idx, perm = torch.sort(index.to(torch.int32), dim=1, stable=True)
-    return sorted_idx.contiguous(), perm.to(torch.int32).contiguous()
-
-
 def scatter_mean_cuda(feat: torch.Tensor, index: torch.Tensor,
-                      num_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      num_cells: int, csr: CSR | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-cloud mean of `feat` [B, N, C] f32 over the points of each cell
-    of `index` [B, N] (integers in [0, num_cells)). -> (means
-    [B, num_cells, C], 0 in empty cells; each point's cell count [B, N]
-    f32). The range of `index` is checked on the card, with no host sync:
-    an index outside it stops the kernel, and the CUDA error it leaves
-    (as `scatter_add_`'s device assert does) raises at the next sync."""
-    _check("scatter_mean_cuda", feat, index, num_cells)
+    of `index` [B, N] (integers in [0, num_cells)), read from `csr` (its
+    CSR, built here when not given). -> (means [B, num_cells, C], 0 in
+    empty cells; each point's cell count [B, N] f32). The output's zeros
+    are a memset; the kernel writes only the occupied cells. The range of
+    `index` is checked on the card, with no host sync: an index outside
+    it stops the CSR's kernel, and the CUDA error it leaves (as
+    `scatter_add_`'s device assert does) raises at the next sync."""
+    _check("scatter_mean_cuda", feat, index, num_cells, csr)
+    csr = build_csr(index, num_cells) if csr is None else csr
     B, N, C = feat.shape
-    out = torch.zeros((B, num_cells, C), dtype=feat.dtype, device=feat.device)
+    out = torch.empty((B, num_cells, C), dtype=feat.dtype, device=feat.device)
     counts = torch.empty((B, N), dtype=feat.dtype, device=feat.device)
-    if out.numel() == 0 or N == 0:
+    if out.numel() == 0:
         return out, counts
-    sorted_idx, perm = _sorted(index)
     feat = feat.contiguous()
     fn = _build.bind("scatter", "ifdef_scatter_mean",
-                     [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+                     [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P])
     _build.launch("scatter", "scatter_mean", fn, (
-        feat.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
-        num_cells, out.data_ptr(), counts.data_ptr()),
+        feat.data_ptr(), csr.index.data_ptr(),
+        int(csr.index.dtype == torch.int64), csr.offsets.data_ptr(),
+        csr.rows.data_ptr(), B, N, C, num_cells, out.data_ptr(),
+        counts.data_ptr()),
         feat, launches, "scatter_mean")
     return out, counts
 
 
 def pooled_max_cuda(feat: torch.Tensor, index: torch.Tensor,
-                    num_cells: int) -> tuple[torch.Tensor, tuple]:
+                    num_cells: int, csr: CSR | None = None
+                    ) -> tuple[torch.Tensor, tuple]:
     """Each point of `feat` [B, N, C] f32 given the max, channel by
     channel, over the points of its cell of `index` [B, N] (integers in
-    [0, num_cells), checked on the card as in `scatter_mean_cuda`). ->
-    (out [B, N, C], the state `pooled_max_backward_cuda` takes: the sort
-    and each cell's tie count)."""
-    _check("pooled_max_cuda", feat, index, num_cells)
+    [0, num_cells), checked on the card as in `scatter_mean_cuda`), read
+    from `csr` (built here when not given). -> (out [B, N, C], the state
+    `pooled_max_backward_cuda` takes: the CSR and each cell's tie
+    count)."""
+    _check("pooled_max_cuda", feat, index, num_cells, csr)
+    csr = build_csr(index, num_cells) if csr is None else csr
     B, N, C = feat.shape
     out = torch.empty_like(feat, memory_format=torch.contiguous_format)
     ties = torch.empty_like(out)
-    sorted_idx, perm = _sorted(index)
     if out.numel():
         feat = feat.contiguous()
         fn = _build.bind("scatter", "ifdef_pooled_max",
-                         [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+                         [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P])
         _build.launch("scatter", "pooled_max", fn, (
-            feat.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
-            num_cells, out.data_ptr(), ties.data_ptr()),
+            feat.data_ptr(), csr.index.data_ptr(),
+            int(csr.index.dtype == torch.int64), csr.offsets.data_ptr(),
+            csr.rows.data_ptr(), B, N, C, num_cells, out.data_ptr(),
+            ties.data_ptr()),
             feat, launches, "pooled_max")
-    return out, (num_cells, ties, sorted_idx, perm)
+    return out, (csr, ties)
 
 
 def pooled_max_backward_cuda(grad_out: torch.Tensor, feat: torch.Tensor,
@@ -110,8 +122,9 @@ def pooled_max_backward_cuda(grad_out: torch.Tensor, feat: torch.Tensor,
     `grad_out` [B, N, C]: each cell's output gradients added in point order
     and shared evenly among the points equal to its max. `state` is what
     the forward returned beside `out`."""
-    num_cells, ties, sorted_idx, perm = state
-    _check("pooled_max_backward_cuda", grad_out, sorted_idx, num_cells)
+    csr, ties = state
+    _check("pooled_max_backward_cuda", grad_out, csr.index,
+           csr.num_targets, csr)
     if grad_out.shape != feat.shape:
         raise ValueError(f"grad_out {tuple(grad_out.shape)} is not the "
                          f"features' {tuple(feat.shape)}")
@@ -120,10 +133,12 @@ def pooled_max_backward_cuda(grad_out: torch.Tensor, feat: torch.Tensor,
     if grad.numel():
         grad_out, feat = grad_out.contiguous(), feat.contiguous()
         fn = _build.bind("scatter", "ifdef_pooled_max_backward",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P])
+                         [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                          _P, _P])
         _build.launch("scatter", "pooled_max_backward", fn, (
             grad_out.data_ptr(), feat.data_ptr(), out.data_ptr(),
-            ties.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), B, N, C,
-            num_cells, grad.data_ptr()),
+            ties.data_ptr(), csr.index.data_ptr(),
+            int(csr.index.dtype == torch.int64), csr.offsets.data_ptr(),
+            csr.rows.data_ptr(), B, N, C, csr.num_targets, grad.data_ptr()),
             grad_out, launches, "pooled_max_backward")
     return grad

@@ -48,7 +48,14 @@ the victims' gather shapes (DGCNN's kNN groups, PointNet++'s ball-query
 groups, indices in 8 points a cloud), int64 and int32, one launch a
 backward; bf16 gradients the f32 sum rounded once; the second derivative
 the CPU's; the wrapper refusing other types and trapping on an index out
-of range; a DGCNN train step twice on the card bit-equal.
+of range; a DGCNN train step twice on the card bit-equal. The CSR build
+that those kernels read (`csrc/csr.cu`) equal to a stable argsort and its
+cumulative counts at the gathers' and the encoder's shapes, under heavy
+ties, with empty targets, ragged sizes and in its device-memory tier
+(above 32,768 targets), trapping on an index out of range; four pooled
+maxes and the scatter-mean on one shared CSR bit-equal to their plain
+versions with one build; the CSR, gather-backward, scatter-mean and
+pooled-max wrappers on a side stream bit-equal to the default stream's.
 """
 
 import os
@@ -1365,9 +1372,9 @@ def _gather_set(cuda, name):
 def test_cuda_gather_backward_matches_plain_cpu(cuda, name, dtype):
     """`index_points`' gradient on the card (the kernel of
     `csrc/gather.cu`) gives every bit of the plain version's autograd on a
-    CPU copy, launch after launch, one launch a backward and none for a
-    gather that takes no gradient."""
-    from if_defense_tpu_torch.ops import cuda_gather
+    CPU copy, launch after launch, one launch a backward (on one CSR
+    build) and none for a gather that takes no gradient."""
+    from if_defense_tpu_torch.ops import cuda_csr, cuda_gather
     from if_defense_tpu_torch.ops.pointops import (
         index_points,
         index_points_plain,
@@ -1381,6 +1388,7 @@ def test_cuda_gather_backward_matches_plain_cpu(cuda, name, dtype):
     x = pts.detach().cpu().clone().requires_grad_(True)
     index_points_plain(x, idx.cpu()).backward(g.cpu())
     before = cuda_gather.launches["gather_backward"]
+    built = cuda_csr.launches["csr"]
     got = []
     for _ in range(2):
         xd = pts.detach().clone().requires_grad_(True)
@@ -1391,6 +1399,7 @@ def test_cuda_gather_backward_matches_plain_cpu(cuda, name, dtype):
         index_points(xd, idx)
     torch.cuda.synchronize()
     assert cuda_gather.launches["gather_backward"] == before + 2
+    assert cuda_csr.launches["csr"] == built + 2
     assert torch.equal(out.detach().cpu(), index_points_plain(x, idx.cpu()))
     assert got[0] == got[1] == _bits(x.grad)
 
@@ -1467,6 +1476,156 @@ def test_cuda_gather_backward_traps_out_of_range(cuda, value):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode != 0
     assert "CUDA error" in out.stderr, out.stderr
+
+
+def _csr_case(cuda, name):
+    """(index [B, M] on the card, targets) of a CSR test: the gathers' and
+    the encoder's shapes, ties, mostly empty targets, both memory tiers
+    and ragged sizes."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    if name == "knn":
+        return _gather_set(cuda, "knn 64")[1].reshape(4, -1), 1024
+    if name == "ball xyz":
+        return _gather_set(cuda, "ball xyz")[1].reshape(4, -1), 1024
+    if name == "ties, 8 points":
+        return _gather_set(cuda, "ties")[1], 1024
+    if name == "ties, one point":
+        return torch.full((3, 5000), 7, device=cuda), 1024
+    if name == "plane, mostly empty":
+        return torch.randint(0, 4096, (48, 600), generator=gen,
+                             device=cuda), 4096
+    if name == "grid 32^3":
+        return torch.randint(0, 32**3, (16, 3000), generator=gen,
+                             device=cuda), 32**3
+    if name == "device tier":
+        return torch.randint(0, 40000, (3, 20000), generator=gen,
+                             device=cuda), 40000
+    if name == "device tier, ties":
+        return torch.randint(0, 3, (2, 9000), generator=gen,
+                             device=cuda) * 33333, 100000
+    if name == "ragged":
+        return torch.randint(0, 70, (5, 1500), generator=gen,
+                             device=cuda), 70
+    return torch.zeros((2, 0), dtype=torch.int64, device=cuda), 9
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("name", [
+    "knn", "ball xyz", "ties, 8 points", "ties, one point",
+    "plane, mostly empty", "grid 32^3", "device tier", "device tier, ties",
+    "ragged", "empty rows"])
+def test_cuda_csr_matches_stable_argsort(cuda, name, dtype):
+    """The CSR built on the card (`csrc/csr.cu`) is its plain version's,
+    a stable argsort of each cloud's indices and their cumulative counts:
+    offsets and rows equal, one launch a build, the same from one launch
+    to the next."""
+    from if_defense_tpu_torch.ops import cuda_csr
+
+    idx, k = _csr_case(cuda, name)
+    idx = idx.to(dtype)
+    want = cuda_csr.csr_plain(idx.cpu(), k)
+    rows = np.argsort(idx.cpu().numpy(), axis=1, kind="stable")
+    assert np.array_equal(want.rows.numpy(), rows)
+    before = cuda_csr.launches["csr"]
+    got = [cuda_csr.build_csr(idx, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert cuda_csr.launches["csr"] == before + 2
+    for g in got:
+        assert g.offsets.dtype == g.rows.dtype == torch.int32
+        assert torch.equal(g.offsets.cpu(), want.offsets)
+        assert torch.equal(g.rows.cpu(), want.rows)
+
+
+@pytest.mark.parametrize("value,targets", [
+    ("16", 16), ("-1", 16), ("2**32 + 1", 16), ("40000", 40000)])
+def test_cuda_csr_traps_out_of_range(cuda, value, targets):
+    """An index outside [0, targets) stops the CSR's kernel (no host sync
+    in the wrapper; an int64 index that int32 would wrap into range too;
+    the device-memory tier too), and the next sync raises; in a process
+    of its own."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from if_defense_tpu_torch.ops.cuda_csr import build_csr\n"
+            "i = torch.zeros(2, 3000, dtype=torch.int64, device='cuda')\n"
+            f"i[1, 2100] = {value}\n"
+            f"build_csr(i, {targets})\n"
+            "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0
+    assert "CUDA error" in out.stderr, out.stderr
+
+
+@pytest.mark.parametrize("cells", [64 * 64, 32**3])
+def test_cuda_encoder_calls_share_one_csr(cuda, cells):
+    """On one CSR of the index (`cell_csr`), four pooled maxes and their
+    backward, and the scatter-mean, give the bits of their plain versions
+    on a CPU copy with one CSR build for all, as the encoder calls them."""
+    from if_defense_tpu_torch.ops import cuda_csr
+    from if_defense_tpu_torch.ops.scatter import (
+        cell_csr,
+        pooled_max_by_cell,
+        pooled_max_by_cell_plain,
+        scatter_mean_2d,
+        scatter_mean_2d_plain,
+    )
+
+    f, idx = _tied_cells(cells, 45)
+    g = torch.randn(f.shape, generator=torch.Generator().manual_seed(46))
+    x = f.clone().requires_grad_(True)
+    want = pooled_max_by_cell_plain(x, idx, cells)
+    want.backward(g)
+    before = cuda_csr.launches["csr"]
+    csr = cell_csr(idx.to(cuda), cells)
+    xd = f.to(cuda).requires_grad_(True)
+    got = [pooled_max_by_cell(xd, idx.to(cuda), cells, csr=csr)
+           for _ in range(4)]
+    got[-1].backward(g.to(cuda))
+    mean = scatter_mean_2d(f.to(cuda), idx.to(cuda), cells, csr)
+    torch.cuda.synchronize()
+    assert cuda_csr.launches["csr"] == before + 1
+    assert all(_bits(o) == _bits(want) for o in got)
+    assert _bits(xd.grad) == _bits(x.grad)
+    assert torch.equal(mean.cpu(), scatter_mean_2d_plain(f, idx, cells)[0])
+
+
+@pytest.mark.parametrize("wrapper", ["csr", "gather backward",
+                                     "scatter-mean", "pooled max"])
+def test_cuda_wrappers_run_on_a_side_stream(cuda, wrapper):
+    """Each wrapper of the CSR and of the kernels that read it, called on a
+    stream of its own (`torch.cuda.stream`), launches there and gives the
+    default stream's bits: the stream's handle reaches the C entry whole."""
+    from if_defense_tpu_torch.ops import cuda_csr, cuda_gather, cuda_scatter
+
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    f = torch.randn((8, 600, 32), generator=gen, device=cuda)
+    g = torch.randn((8, 2048, 64), generator=gen, device=cuda)
+    cells = torch.randint(0, 4096, (8, 600), generator=gen, device=cuda)
+    rows = torch.randint(0, 512, (8, 2048), generator=gen, device=cuda)
+
+    def run():
+        if wrapper == "csr":
+            c = cuda_csr.build_csr(rows, 512)
+            return (c.offsets, c.rows)
+        if wrapper == "gather backward":
+            return (cuda_gather.gather_backward_cuda(g, rows, 512),)
+        if wrapper == "scatter-mean":
+            return cuda_scatter.scatter_mean_cuda(f, cells, 4096)
+        out, state = cuda_scatter.pooled_max_cuda(f, cells, 4096)
+        return (out, cuda_scatter.pooled_max_backward_cuda(f * 0.5, f, out,
+                                                           state))
+
+    want = [_bits(t) for t in run()]
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = run()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert [_bits(t) for t in got] == want
 
 
 def test_cuda_dgcnn_train_step_repeats(cuda):
