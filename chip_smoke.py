@@ -100,7 +100,7 @@ Phases, in order; any failure exits non-zero and prints no result:
  10. writes a synthetic occupancy npz (64 union-of-spheres shapes, 3000
      surface points and 10000 labelled queries each, by
      `tools/build_occupancy_dataset.py --synthetic`) and runs
-     `if_defense_tpu_torch.cli.train_implicit` at full width for 100 steps
+     `if_defense_tpu_torch.cli.train_implicit` at full width for 50 steps
      at lr 1e-3, ConvONet at the CLI's defaults (batch 32, 600 input points,
      2048 queries, 64x64 planes, c_dim 32) and ONet at c_dim 512, hidden
      512, decoder 256, each twice (first and warm run), with B4's and the
@@ -122,10 +122,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      statistics calibrated on the clouds and perturbed: (a) each on a small
      batch (B=4, N=1024), CUDA against the port's CPU path, unmasked and
      masked, logits within rtol and atol 1e-3 (of the largest magnitude);
-     (b) `if_defense_tpu_torch.cli.inference` for each on 320 of phase 7's
+     (b) `if_defense_tpu_torch.cli.inference` for each on 64 of phase 7's
      clouds in the unit sphere (40 classes, a target label), batch 32,
      normal mode (B5/B6 launch counters set to 0 just before and read just
-     after: PointNet++ and RS-CNN 20 each, PointConv 20 and 0, PointNet
+     after: PointNet++ and RS-CNN 4 each, PointConv 4 and 0, PointNet
      and DGCNN none) then target mode, clouds/s by the host clock around
      main(); the target run held against the port's CPU path on the same
      npz and checkpoint: every cloud's logits at batch 32 within (a)'s
@@ -148,9 +148,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      families but the two that start at clean points, Drop's mask) >= 99.9
      % of coordinates within 1e-4 and success masks equal but at near ties;
      (b) `cli/attack.py` at batch 32 and 1024 points on seeded PointNet++
-     and DGCNN: perturb at its defaults (10 x 500; B5/B6 and
-     gather-backward launch counters set to 0 just before and read just
-     after, 10,000 each and 25,000: five gathers a backward), then add,
+     and DGCNN: perturb at 5 x 100 (half the defaults' binary steps, a
+     fifth of their 500 iterations; B5/B6 and gather-backward launch
+     counters set to 0 just before and read just after, 1,000 each and
+     2,500: five gathers a backward), then add,
      add_cluster, add_object (1 x 50), kNN on DGCNN with the ellipsoids'
      normals (50), FGM, I-FGM, MI-FGM, PGD (50), Drop (200 points) and a
      mixed perturb (1 x 50), each checked for its shape and budget and
@@ -205,10 +206,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      equal but at quantum-boundary entries (counted); (b)
      `cli/remesh_defense.py` at its defaults (batch 32, resolution0 32 x
      upsample 4: a 129^3 lattice, 1024 points, bf16 wire) on phase 12's
-     320 clouds, ConvONet then ONet, each twice (first and warm run);
+     64 clouds, ConvONet then ONet, each twice (first and warm run);
      ConvONet with `--wire int8` and `--wire sparse` on 64 of the clouds,
      bit-identical; `--host_workers 1` against one thread a core on 32,
-     bit-identical; ONet with `--sample_mode mesh --save_mesh` on 32; ONet
+     bit-identical; ONet with `--sample_mode mesh --save_mesh` on 8; ONet
      on phase 13's perturb output, scored by `cli/inference.py` with the
      PointNet++ checkpoint phase 13 attacked; each run's output [n, 1024,
      3], finite, each cloud's largest radius 1 within 1e-5, fewer fallbacks
@@ -398,13 +399,18 @@ VICTIM_B = 32
 VICTIM_LEVELS = (("PointNet++", ((512, 0.2, 32), (128, 0.4, 64))),
                  ("RS-CNN", ((512, 0.23, 48), (128, 0.32, 64))))
 VICTIMS = ("pointnet", "pointnet2", "dgcnn", "pointconv", "rscnn")
-VICTIM_CLOUDS, VICTIM_TOL = 320, 1e-3
+VICTIM_CLOUDS, VICTIM_TOL = 64, 1e-3
 KNN_TIE = 1e-5        # a near tie of kNN, of |q|^2 + max |x|^2 in the row
-# B5 and B6 launches of one 320-cloud pass at batch 32: two sampled levels
-# a batch (models/pointnet2.py, pointconv.py, rscnn.py; PointConv groups
-# by kNN, PointNet and DGCNN sample nothing)
-VICTIM_LAUNCHES = {"pointnet": (0, 0), "pointnet2": (20, 20),
-                   "dgcnn": (0, 0), "pointconv": (20, 0), "rscnn": (20, 20)}
+# B5 and B6 launches of one VICTIM_CLOUDS pass at batch 32: two sampled
+# levels a batch (models/pointnet2.py, pointconv.py, rscnn.py; PointConv
+# groups by kNN, PointNet and DGCNN sample nothing)
+VICTIM_LAUNCHES = {name: (fps * VICTIM_CLOUDS // VICTIM_B,
+                          bq * VICTIM_CLOUDS // VICTIM_B)
+                   for name, (fps, bq) in {
+                       "pointnet": (0, 0), "pointnet2": (2, 2),
+                       "dgcnn": (0, 0), "pointconv": (2, 0),
+                       "rscnn": (2, 2)}.items()}
+MESH_SAVE_CLOUDS = 8          # ONet-Mesh with --sample_mode mesh (phase 15)
 REPULSION_KS = (9, 16, 33)               # above the register top-k's 8
 # phase 13: (a) small attacks, B clouds of 1024 points, a few iterations,
 # held to phase 3's bound (a share of coordinates within ATTACK_TOL);
@@ -419,6 +425,7 @@ ATTACK_BOUND = {("pointnet", f) for f in (
     "perturb", "add_object", "knn", "fgm", "ifgm", "mifgm", "pgd")} | {
     ("pointnet2", "drop (masked)")}
 ATTACK_B = 32
+PERTURB_DEPTH = (5, 100)       # binary steps x iterations (the CLI's 10 x 500)
 ATTACK_RUNS = (
     ("add", "pointnet2", ["--binary_step", "1", "--num_iter", "50"]),
     ("add_cluster", "pointnet2", ["--binary_step", "1", "--num_iter", "50"]),
@@ -439,7 +446,7 @@ ATTACK_POINTS = {"add": 1536, "add_cluster": 1120, "add_object": 1216,
 NEAR_FACTOR = 1.5
 PEAK_F32, HBM = 67e12, 3.35e12           # FLOP/s, bytes/s (H100 SXM)
 TB, TQ = 32, 2048                        # train_implicit's batch and queries
-TRAIN_STEPS, TRAIN_LR = 100, 1e-3
+TRAIN_STEPS, TRAIN_LR = 50, 1e-3
 DEVICE_REPS, GRAPH_REPS = 20, 50          # calls per device-time reading
 PLANE_NAMES = ("xz", "xy", "yz")
 # phase 14: victim training. (a) small steps, CUDA vs CPU; (b) the train
@@ -2398,7 +2405,7 @@ def check_small_victims(dev) -> None:
 
 
 def run_inference(dev, tmp: str) -> tuple[dict, dict]:
-    """`cli/inference.py` at full width for each victim: 320 clouds of 1024
+    """`cli/inference.py` at full width for each victim: 64 clouds of 1024
     points (phase 7's ellipsoids in the unit sphere, 40 classes, a target
     label), batch 32, weights from `seeded_victim` saved through
     `params_to_jax` as the flat npz the CLI reads. Normal mode first, with
@@ -2932,11 +2939,11 @@ def check_attack_output(tag: str, run: dict, attack: str, data: str,
 
 def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
     """`cli/attack.py` on the card at batch 32 and 1024 points (phase 13
-    (b)): perturb at its defaults (10 x 500) on PointNet++, then each other
-    family at reduced iterations (ATTACK_RUNS; kNN on DGCNN, with normals),
-    each checked by `check_attack_output`; B5 and B6 exactly 2 x 10 x 500
-    launches each in the perturb run, and the gather-backward kernel 5 x
-    10 x 500 (a backward of PointNet++ to its input: level 1's centre and
+    (b)): perturb at PERTURB_DEPTH (5 x 100) on PointNet++, then each
+    other family at reduced iterations (ATTACK_RUNS; kNN on DGCNN, with
+    normals), each checked by `check_attack_output`; B5 and B6 exactly 2 x
+    5 x 100 launches each in the perturb run, and the gather-backward
+    kernel 5 x 5 x 100 (a backward of PointNet++ to its input: level 1's centre and
     group gathers of the input, level 2's of the level-1 centres and
     features); every other run launches it too. A --resume run stopped after one of
     two batches and completed, bit-identical to an uninterrupted one.
@@ -2981,15 +2988,17 @@ def run_attacks(dev, tmp: str, keep: str | None = None) -> tuple[dict, dict]:
 
     rates, total = {}, {"fps": 0, "ballquery": 0, "gather_backward": 0,
                         "csr": 0}
+    steps, iters = PERTURB_DEPTH
     perturb = attack_cli(argv("perturb", "pointnet2", data, "perturb.npz",
-                              []))
-    check_attack_output("perturb 10 x 500, PointNet++", perturb, "perturb",
-                        data, ATTACK_B)
-    want = 2 * 10 * 500
+                              ["--binary_step", str(steps), "--num_iter",
+                               str(iters)]))
+    check_attack_output(f"perturb {steps} x {iters}, PointNet++", perturb,
+                        "perturb", data, ATTACK_B)
+    want = 2 * steps * iters
     if perturb["launches"] != {"fps": want, "ballquery": want,
                                "gather_backward": 5 * want // 2,
                                "csr": 5 * want // 2}:
-        fail(f"launches {perturb['launches']} in perturb 10 x 500 on "
+        fail(f"launches {perturb['launches']} in perturb {steps} x {iters} on "
              f"PointNet++, not {want} B5/B6 each and {5 * want // 2} "
              "gather backward, each on a CSR of its own")
     runs = {"perturb": perturb}
@@ -3601,7 +3610,7 @@ def run_remesh(weights: dict, keep: str, tmp: str) -> dict:
 
     d = load_npz(os.path.join(keep, "victims.npz"))
     files = {}
-    for n in (VICTIM_CLOUDS, 2 * MESH_B, MESH_B):
+    for n in (VICTIM_CLOUDS, 2 * MESH_B, MESH_B, MESH_SAVE_CLOUDS):
         os.makedirs(os.path.join(tmp, str(n)), exist_ok=True)
         files[n] = save_npz(os.path.join(tmp, str(n), "victims.npz"), {
             "test_pc": d.test_pc[:n], "test_label": d.test_label[:n],
@@ -3629,13 +3638,15 @@ def run_remesh(weights: dict, keep: str, tmp: str) -> dict:
         fail("the host thread count changed the samples")
     rates["convonet host_workers 1"] = one["rate"]
     mesh_dir = os.path.join(tmp, "meshes")
-    rates["onet mesh"] = remesh_cli(files[MESH_B], weights["onet"], "onet",
-                                    "--sample_mode", "mesh", "--save_mesh",
-                                    mesh_dir)["rate"]
+    rates["onet mesh"] = remesh_cli(files[MESH_SAVE_CLOUDS], weights["onet"],
+                                    "onet", "--sample_mode", "mesh",
+                                    "--save_mesh", mesh_dir)["rate"]
     exported = sorted(os.listdir(os.path.join(mesh_dir, "victims", "test")))
-    print(f"  --save_mesh: {len(exported)} mesh files for {MESH_B} clouds")
-    if not 0 < len(exported) <= MESH_B:
-        fail(f"--save_mesh wrote {len(exported)} files for {MESH_B} clouds")
+    print(f"  --save_mesh: {len(exported)} mesh files for {MESH_SAVE_CLOUDS} "
+          "clouds")
+    if not 0 < len(exported) <= MESH_SAVE_CLOUDS:
+        fail(f"--save_mesh wrote {len(exported)} files for "
+             f"{MESH_SAVE_CLOUDS} clouds")
     defended = remesh_cli(os.path.join(keep, "perturb.npz"), weights["onet"],
                           "onet")
     rates["onet perturb"] = defended["rate"]
@@ -5085,6 +5096,21 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    seconds = {}                     # a phase's seconds, by its number
+    current = []
+
+    def phase(n, text=None):
+        """Close the running phase (its seconds on a line of their own),
+        then open phase `n` and print its title."""
+        now = time.perf_counter()
+        if current:
+            m, t = current.pop()
+            seconds[m] = round(now - t, 1)
+            print(f"phase {m} took {seconds[m]} s; the script "
+                  f"{now - t_start:.1f} s so far", flush=True)
+        if n is not None:
+            current.append((n, now))
+            print(f"phase {n}: {text}", flush=True)
     # files that phase 15 takes from earlier phases: the implicit weights
     # of phase 10, the victims' clouds of phase 12, the perturb output and
     # its PointNet++ checkpoint of phase 13
@@ -5096,7 +5122,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; card: {card}")
 
-    print("phase 1: build")
+    phase(1, "build")
     t0 = time.perf_counter()
     _build.libraries()
     print(f"  built {sorted(_build.libraries())} in "
@@ -5108,7 +5134,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line:
                 print(f"  [{lib}] {line.strip()}")
 
-    print("phase 2: kernels vs plain versions at the slice's shapes")
+    phase(2, "kernels vs plain versions at the slice's shapes")
     rows = check_kernels(dev)
     print(f"the encoder's scatter-mean kernel (no TPU kernel) at B={B}, "
           f"{SCATTER_N} points, {C} channels:")
@@ -5123,10 +5149,10 @@ def main() -> int:
           f"victims' training shapes, B={TRAIN_B}:")
     rows.append(check_gather_backward(dev))
 
-    print("phase 3: small whole path, CUDA vs CPU, same draws")
+    phase(3, "small whole path, CUDA vs CPU, same draws")
     check_small_path(dev)
 
-    print("phase 4: ConvONet-Opt through the CLI, full width, 201 steps")
+    phase(4, "ConvONet-Opt through the CLI, full width, 201 steps")
     rates, launches = check_opt_cli()
     print("  a step of the reference mode, profiled "
           "(tools/profile_defense_step.py):")
@@ -5134,20 +5160,20 @@ def main() -> int:
                      for v in ("convonet", "onet")]
 
     dup_clouds = ellipsoids(np.random.default_rng(7), DUP_CLOUDS)
-    print("phase 5: B5/B6 vs plain versions at PU-Net's SA levels, batch "
+    phase(5, "B5/B6 vs plain versions at PU-Net's SA levels, batch "
           f"{DUP_B}")
     rows += check_pointops(dev, dup_clouds[:DUP_B])
 
-    print("phase 6: small DUP-Net, CUDA vs CPU, same draws")
+    phase(6, "small DUP-Net, CUDA vs CPU, same draws")
     check_small_dupnet(dev)
 
-    print(f"phase 7: DUP-Net through defend_npz, full width, {DUP_CLOUDS} "
+    phase(7, f"DUP-Net through defend_npz, full width, {DUP_CLOUDS} "
           f"clouds, batch {DUP_B}")
     with tempfile.TemporaryDirectory() as tmp:
         launches["dup"], dup_rates = run_defend_npz(dev, tmp, dup_clouds)
     profile_dupnet(dev, dup_clouds[:DUP_B])
 
-    print(f"phase 8: B4 with the plane gradient at the training shapes "
+    phase(8, f"B4 with the plane gradient at the training shapes "
           f"(B={TB}, Q={TQ}, {R}x{R}x{C})")
     rows.append(check_plane_features(dev, np.random.default_rng(8), TB, TQ,
                                      train=True))
@@ -5155,10 +5181,10 @@ def main() -> int:
     train_rates, onet_rates = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         occ_npz = build_occupancy_npz(tmp)
-        print("phase 9: small training, CUDA vs CPU, same init and batches")
+        phase(9, "small training, CUDA vs CPU, same init and batches")
         check_small_training(dev, occ_npz)
 
-        print(f"phase 10: train_implicit, full width, {TRAIN_STEPS} steps "
+        phase(10, f"train_implicit, full width, {TRAIN_STEPS} steps "
               f"at lr {TRAIN_LR:g}")
         for counter in (cuda_interp.launches, cuda_scatter.launches,
                         cuda_csr.launches, cuda_gather.launches):
@@ -5224,7 +5250,7 @@ def main() -> int:
         shutil.copy(occ_npz, os.path.join(keep, "occ.npz"))
         profile_training(dev, occ_npz)
 
-        print("phase 11: ONet-Opt, small CUDA vs CPU, then opt_defense "
+        phase(11, "ONet-Opt, small CUDA vs CPU, then opt_defense "
               "--variant onet at full width, 201 steps")
         check_small_onet_opt(dev)
         save_npz(os.path.join(tmp, "onet.npz"),
@@ -5243,12 +5269,11 @@ def main() -> int:
         onet_rates["warm"] = run_cli(tmp, "onet", ["--variant", "onet"],
                                      weights)["clouds_per_sec"]
 
-    print(f"phase 12: the victims, small CUDA vs CPU, then cli/inference.py "
+    phase(12, f"the victims, small CUDA vs CPU, then cli/inference.py "
           f"at full width ({VICTIM_CLOUDS} clouds, batch {VICTIM_B}), a "
           "profile, and B1-B3 at k > 8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t12 = time.perf_counter()
     check_small_victims(dev)
     with tempfile.TemporaryDirectory() as tmp:
         victim_rates, per_victim = run_inference(dev, tmp)
@@ -5257,43 +5282,32 @@ def main() -> int:
                            for k in ("fps", "ballquery")}
     victim_profiles = profile_victims(dev)
     check_repulsion_any_k(dev)
-    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s so far")
 
-    print(f"phase 13: the attacks, small CUDA vs CPU, then cli/attack.py at "
+    phase(13, f"the attacks, small CUDA vs CPU, then cli/attack.py at "
           f"full width (batch {ATTACK_B}), a resumed run, rescoring and a "
           "CW iteration's profile")
-    t13 = time.perf_counter()
     attack_rates, launches["attack"], cw_profile = check_attacks(dev, keep)
     print(f"  B5/B6 and gather-backward launches on the attack path: "
           f"{launches['attack']}")
-    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s so far")
 
-    print(f"phase 14: victim training, small CUDA vs CPU, then cli/train.py "
+    phase(14, f"victim training, small CUDA vs CPU, then cli/train.py "
           f"and cli/hybrid_train.py at full width (batch {TRAIN_B}), a "
           "resumed run, scoring and a train step's profile")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t14 = time.perf_counter()
     fit_rates, launches["fit"], fit_profiles = check_victim_training(dev)
     print(f"  B5/B6 and gather-backward launches on the training path: "
           f"{launches['fit']}")
-    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s so far")
 
-    print(f"phase 15: the mesh restoration, small CUDA vs CPU, then "
+    phase(15, f"the mesh restoration, small CUDA vs CPU, then "
           f"cli/remesh_defense.py at its defaults (batch {MESH_B}, a "
           f"{32 * 4 + 1}^3 lattice), B4 in estimate_normals and a batch's "
           "profile")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t15 = time.perf_counter()
     mesh_rates, launches["mesh"], mesh_profiles = check_mesh_path(dev, keep)
-    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s so far")
 
-    print("phase 16: the grid ConvONet and the rest of the implicit library: "
+    phase(16, "the grid ConvONet and the rest of the implicit library: "
           "B4's uv form, small CUDA vs CPU, training, ConvONet-Opt and the "
           "mesh path on the grid model, PointConvONet")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5303,27 +5317,23 @@ def main() -> int:
     launches.update(grid_launches)
     rows.append(uv_row)
     keep_dir.cleanup()
-    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
 
-    print("phase 17: the support layer: reference .pth converters, "
+    phase(17, "the support layer: reference .pth converters, "
           "sharding over [cuda:0, cuda:0], PhaseTimer and trace, configs")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     support, launches["support"] = check_support(dev)
-    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
 
-    print("phase 18: sharded victim training over [cuda:0, cuda:0]: small "
+    phase(18, "sharded victim training over [cuda:0, cuda:0]: small "
           f"steps split against one shard, PointNet++ at batch {TRAIN_B} "
           "split, deterministic reruns and step times, cli/train.py split")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sharded, launches["sharded"] = check_split_training(dev)
-    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
 
-    print("phase 19: the accuracy protocol's tool "
+    phase(19, "the accuracy protocol's tool "
           "(tools/accuracy_benchmark_torch.py) end to end at tiny sizes")
     accuracy = check_accuracy_tool(dev)
-    print(f"  the script {time.perf_counter() - t_start:.1f} s so far")
     scatter["launches"] = {k: launches[k]["scatter_mean"]
                            for k in ("reference", "fast")}
     scatter["launches"]["accuracy tool"] = accuracy["launches"][
@@ -5358,6 +5368,8 @@ def main() -> int:
                               for n in names)
         if row["launches"] <= 0:
             fail(f"{row['name']} was not launched in the {mode} mode")
+    phase(None)
+    print("phase seconds: " + json.dumps(seconds))
     print("clouds/s: " + json.dumps(rates))
     print("defense step profiles: " + json.dumps(step_profiles))
     print("ONet-Opt clouds/s: " + json.dumps(onet_rates) + f" on {card}")

@@ -32,6 +32,7 @@ Usage (the discriminative benchmark of RESULTS_DISCRIM_TORCH.md):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -149,7 +150,10 @@ class Legs:
     """Every CLI call of a seed: its seconds, device and the TF32 settings
     it ran with (read when it returns: each CLI sets them at its start and
     none restores them), written to `path` after each call, after the
-    rows of an earlier, interrupted run of the seed."""
+    rows of an earlier, interrupted run of the seed. Each call runs inside
+    `context(leg)` (`tools/tpu_precision.py --mode_legs` sets it)."""
+
+    context = staticmethod(lambda leg: contextlib.nullcontext())
 
     def __init__(self, path: str, device: str):
         self.path, self.device, self.rows = path, device, []
@@ -161,7 +165,8 @@ class Legs:
         import torch
 
         t0 = time.time()
-        out = fn([*argv, "--device", self.device])
+        with self.context(leg):
+            out = fn([*argv, "--device", self.device])
         self.rows.append({
             "leg": leg, "seconds": time.time() - t0, "device": self.device,
             "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,

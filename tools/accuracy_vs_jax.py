@@ -12,6 +12,12 @@ the protocol: the kNN row's order none < SRS < SOR <= ConvONet-Opt (each
 mode), bf16_r16 within 2 points of f32 on the kNN and clean rows; then
 each seed's legs (`legs.json`): seconds by kind of CLI call, and the
 TF32 settings they ran with. Needs no card.
+
+    python3 tools/accuracy_vs_jax.py ARM_C --paired ARM_A
+
+prints instead, for each seed and cell that both runs hold, this run
+minus ARM_A's in points beside each run's band verdict (a seed's value
+against JAX's band), as `tools/c3_arms.py` runs it.
 """
 
 from __future__ import annotations
@@ -26,14 +32,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BAND_POINTS = 2.0
 ORDER = ("none", "srs", "sor")
 OPT = ("convonet_opt:f32", "convonet_opt:bf16_r16")
+BARE_OPT_MODE = "f32"       # tools/c3_arms.py runs --opt_modes f32 alone
 
 
 def aggregate(all_results: list[dict]) -> dict:
-    """The port tool's `aggregate` (mean/std of every cell over seeds)."""
+    """The port tool's `aggregate` (mean/std of every cell over seeds). A
+    run with one `--opt_modes` keys its ConvONet-Opt cells `convonet_opt`
+    alone; they are read as that mode's, `BARE_OPT_MODE` (f32)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from accuracy_benchmark_torch import aggregate as agg
 
-    return agg(all_results)
+    return {(f"{k}:{BARE_OPT_MODE}" if k.endswith("/convonet_opt") else k): v
+            for k, v in agg(all_results).items()}
 
 
 def in_band(port: float, jax: dict) -> tuple[bool, float]:
@@ -82,11 +92,12 @@ def table(port: dict, jax: dict, victim: str) -> tuple[list[str], list]:
 
 def checks(port: dict, victim: str) -> list[str]:
     lines = []
-    knn = {d: port.get(f"{victim}/knn/{d}") for d in (*ORDER, *OPT)}
-    if all(v is not None for v in knn.values()):
+    opts = [o for o in OPT if f"{victim}/knn/{o}" in port]
+    knn = {d: port.get(f"{victim}/knn/{d}") for d in (*ORDER, *opts)}
+    if opts and all(v is not None for v in knn.values()):
         m = {d: v["mean"] for d, v in knn.items()}
         order = (m["none"] < m["srs"] < m["sor"]
-                 and all(m["sor"] <= m[o] for o in OPT))
+                 and all(m["sor"] <= m[o] for o in opts))
         lines.append(f"- kNN order none < SRS < SOR <= ConvONet-Opt: "
                      f"{'holds' if order else '**broken**'} ("
                      + ", ".join(f"{d} {100 * v:.2f}" for d, v in m.items())
@@ -135,12 +146,51 @@ def legs(out_dir: str) -> list[str]:
                     f"{ {s: len(rows) for s, rows in seeds.items()} }."]
 
 
+def seed_cells(out_dir: str) -> dict:
+    """seed -> {cell: accuracy} of every `seed<k>/results.json` there."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(out_dir, "seed*",
+                                              "results.json"))):
+        with open(path) as f:
+            res = json.load(f)
+        out[res["seed"]] = {k: v["mean"] for k, v in aggregate([res]).items()}
+    return out
+
+
+def paired(out_c: str, out_a: str, jax: dict) -> list[str]:
+    """A row a seed and defended-accuracy cell held by both runs: each
+    run's accuracy and band verdict, and C - A in points."""
+    runs_c, runs_a = seed_cells(out_c), seed_cells(out_a)
+    lines = [f"Paired: {out_c} (C) minus {out_a} (A), accuracy %, each "
+             f"seed's value against JAX's band.", "",
+             "| seed | cell | A | A band | C | C band | C - A |",
+             "|---|---|---|---|---|---|---|"]
+    for seed in sorted(set(runs_c) & set(runs_a)):
+        c, a = runs_c[seed], runs_a[seed]
+        for key in sorted(set(c) & set(a)):
+            if key.count("/") < 2 or key.endswith("/success_rate") \
+                    or key not in jax:
+                continue
+            verdicts = ["in" if in_band(v, jax[key])[0] else "**OUT**"
+                        for v in (a[key], c[key])]
+            lines.append(f"| {seed} | {key} | {100 * a[key]:.2f} | "
+                         f"{verdicts[0]} | {100 * c[key]:.2f} | "
+                         f"{verdicts[1]} | {100 * (c[key] - a[key]):+.2f} |")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out_dir")
     ap.add_argument("--jax", default=os.path.join(
         ROOT, "RESULTS_DISCRIM.summary.json"))
+    ap.add_argument("--paired", metavar="ARM_A", default=None,
+                    help="print out_dir minus ARM_A a seed and cell")
     args = ap.parse_args(argv)
+    if args.paired:
+        with open(args.jax) as f:
+            print("\n".join(paired(args.out_dir, args.paired, json.load(f))))
+        return 0
     runs = []
     for path in sorted(glob.glob(os.path.join(args.out_dir, "seed*",
                                               "results.json"))):
