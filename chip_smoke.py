@@ -307,12 +307,27 @@ Phases, in order; any failure exits non-zero and prints no result:
      read just after: its results.json with every cell a share of the 32
      clouds, every leg on cuda:0 with TF32 off, and B1, B4, the
      scatter-mean, the pooled max, B5 and B6 launched. The full protocol is a separate
-     run of the tool (RESULTS_DISCRIM_TORCH.md).
+     run of the tool (RESULTS_DISCRIM_TORCH.md);
+ 20. the port's one optimiser (`optim.OptaxAdam`, optax's Adam in the
+     arithmetic of the JAX package's jitted steps) in each of its three
+     forms, 12 steps on the card and on a CPU copy from the same start and
+     the same gradients (entries over eight decades): the defense's points
+     (48 x 1024, lr 1e-3), a CW attack's variables through `attack.cw.adam`
+     (32 x 1024, lr 1e-3) and full-width PointNet's weights through
+     `training.create_train_state` (L2 decay 1e-4, the cosine schedule
+     over 10 steps, so it ends inside the 12); first each elementwise
+     operation it runs alone on 2^20 entries: every one the CPU's bits but
+     torch's CUDA division of a list by a scalar, which multiplies by the
+     scalar's float32 reciprocal (one rounding more than the CPU's IEEE
+     division) and must be that product's bits; then each form bit-equal
+     (weights, moments and rates) to a CPU copy that divides so
+     (`reciprocal_division`), its gap from the plain CPU copy printed as a
+     share of the rate times the steps.
 The last lines are the rates, the defense step, victim batch, CW
 iteration, train step and remesh batch profiles, phase 16's rates, phase
-17's, 18's and 19's numbers, the scatter-mean kernel's line (its times and
-launches), the pooled max's times at the grid, the card's name and power
-limit, one JSON line of the kernels,
+17's, 18's, 19's and 20's numbers, the scatter-mean kernel's line (its
+times and launches), the pooled max's times at the grid, the card's name
+and power limit, one JSON line of the kernels,
 and `{"ok": true, "device": {...}}`.
 
 Each kernel row carries three times, all in f32 at the path's shapes
@@ -369,6 +384,7 @@ f32 phases run with TF32 off for matmuls and cuDNN convolutions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -5068,6 +5084,177 @@ def check_accuracy_tool(dev) -> dict:
             "cells": {k: v["mean"] for k, v in summary.items()}}
 
 
+# phase 20: the optimiser's three forms, card against a CPU copy
+OPT_STEPS = 12
+
+
+def optimizer_forms(device, grads: dict):
+    """Each form of `OptaxAdam` its user builds, on `device`, stepped
+    OPT_STEPS times with `grads` (name -> per-step lists of numpy arrays):
+    -> name -> (weights, first moments, second moments, rates), numpy."""
+    from if_defense_tpu_torch.attack import cw
+    from if_defense_tpu_torch.models import build_model
+    from if_defense_tpu_torch.optim import OptaxAdam
+    from if_defense_tpu_torch.training import create_train_state
+    from if_defense_tpu_torch.utils.params_io import (
+        flax_init_params,
+        params_from_jax,
+    )
+
+    rng = np.random.default_rng(20)
+    pts = torch.from_numpy(rng.uniform(-.45, .45, (B, N, 3)).astype(
+        np.float32)).to(device)
+    adv = torch.from_numpy(rng.normal(size=(ATTACK_B, N, 3)).astype(
+        np.float32)).to(device).requires_grad_(True)
+    model = build_model("pointnet")
+    model.load_state_dict(params_from_jax(flax_init_params(0, "pointnet"),
+                                          model))
+    model.to(device)
+    state = create_train_state(model, total_epochs=1, steps_per_epoch=10)
+    forms = {"defense": ([pts], OptaxAdam([pts], lr=1e-3), None),
+             "cw_adam": ([adv], cw.adam([adv], 1e-3), None),
+             "create_train_state": (list(model.parameters()),
+                                    state.optimizer, state.scheduler)}
+    out = {}
+    for name, (params, opt, sched) in forms.items():
+        rates = []
+        for g in grads[name]:
+            for p, a in zip(params, g):
+                p.grad = torch.from_numpy(a).to(device)
+            rates.append(opt.param_groups[0]["lr"])
+            opt.step()
+            if sched is not None:
+                sched.step()
+        out[name] = tuple(
+            [t.detach().cpu().numpy() for t in ts] for ts in (
+                params, [opt.state[p]["exp_avg"] for p in params],
+                [opt.state[p]["exp_avg_sq"] for p in params])) + (rates,)
+    return out
+
+
+@contextlib.contextmanager
+def reciprocal_division():
+    """`torch._foreach_div_(tensors, scalar)` as torch's CUDA kernel
+    computes it: a product with the scalar's float32 reciprocal (one
+    rounding more than IEEE division, which the CPU's kernel does)."""
+    div = torch._foreach_div_
+
+    def by_reciprocal(tensors, other):
+        if isinstance(other, float):
+            return torch._foreach_mul_(
+                tensors, float(np.float32(1) / np.float32(other)))
+        return div(tensors, other)
+
+    torch._foreach_div_ = by_reciprocal
+    try:
+        yield
+    finally:
+        torch._foreach_div_ = div
+
+
+def optimizer_operations(dev) -> dict:
+    """Each elementwise operation `OptaxAdam` runs, in its form (one
+    `torch._foreach_*` call on a list), on the card and on a CPU copy of
+    the same float32 inputs (entries over ten decades): -> name -> the
+    entries whose bits differ, of 2^20; the division by a scalar also
+    against the CPU's product with the float32 reciprocal."""
+    rng = np.random.default_rng(22)
+    n = 1 << 20
+    a = (rng.normal(size=n) * 10.0 ** rng.uniform(-10, 0, n)).astype(
+        np.float32)
+    b = (np.abs(rng.normal(size=n)) * 10.0 ** rng.uniform(-5, 0, n)
+         + 1e-8).astype(np.float32)
+
+    def wide(op):
+        def run(t, u):
+            w = [t[0].double()]
+            op(w, u)
+            torch._foreach_copy_(t, w)
+        return run
+
+    def by_scalar(t, u):
+        torch._foreach_div_(t, 0.0009999871253967285)
+
+    ops = {
+        "mul by a scalar": lambda t, u: torch._foreach_mul_(t, 0.9),
+        "div by a scalar": by_scalar,
+        "mul by a tensor": lambda t, u: torch._foreach_mul_(t, u),
+        "div by a tensor": lambda t, u: torch._foreach_div_(t, u),
+        "add a scalar": lambda t, u: torch._foreach_add_(t, 1e-8),
+        "float64 sqrt, rounded": wide(lambda w, u: torch._foreach_sqrt_(w)),
+        "float64 fma, rounded": wide(lambda w, u: (
+            torch._foreach_mul_(w, float(np.float32(0.1))),
+            torch._foreach_add_(w, [x.double() for x in u]))),
+    }
+
+    def run(op, device, name):
+        t = [torch.from_numpy(np.abs(a) if "sqrt" in name else a).to(
+            device).clone()]
+        op(t, [torch.from_numpy(b).to(device)])
+        return t[0].cpu().numpy()
+
+    out = {}
+    for name, op in ops.items():
+        out[name] = int((run(op, dev, name) != run(op, torch.device("cpu"),
+                                                  name)).sum())
+    with reciprocal_division():
+        want = run(by_scalar, torch.device("cpu"), "")
+    out["div by a scalar, against the reciprocal product"] = int(
+        (run(by_scalar, dev, "") != want).sum())
+    return out
+
+
+def check_optimizer(dev) -> dict:
+    """Phase 20: each form of the one optimiser on the card against a CPU
+    copy (`optimizer_forms`), and each of its elementwise operations alone
+    (`optimizer_operations`). Every operation is the CPU's bits but torch's
+    CUDA division of a list by a scalar, a product with the reciprocal
+    (`reciprocal_division`): so each form must be bit-equal to a CPU copy
+    that divides so, and its gap from the plain CPU copy (IEEE division)
+    is printed as a share of the rate times the steps. -> {"operations":
+    name -> entries that differ, "gaps": name -> that share}."""
+    rng = np.random.default_rng(21)
+    from if_defense_tpu_torch.models import build_model
+
+    shapes = {"defense": [(B, N, 3)], "cw_adam": [(ATTACK_B, N, 3)],
+              "create_train_state": [tuple(p.shape) for p in
+                                     build_model("pointnet").parameters()]}
+    grads = {k: [[(rng.normal(size=s) * 10.0 ** rng.uniform(-8, 0, s))
+                  .astype(np.float32) for s in v] for _ in range(OPT_STEPS)]
+             for k, v in shapes.items()}
+    t0 = time.perf_counter()
+    operations = optimizer_operations(dev)
+    print(f"  each operation, entries of 2^20 whose bits differ from the "
+          f"CPU's: {operations}")
+    if any(v for k, v in operations.items() if k != "div by a scalar"):
+        fail(f"an operation of the optimiser on the card is not the CPU's "
+             f"(or the reciprocal product's) bits: {operations}")
+    card = optimizer_forms(dev, grads)
+    cpu = optimizer_forms(torch.device("cpu"), grads)
+    with reciprocal_division():
+        emulated = optimizer_forms(torch.device("cpu"), grads)
+    gaps = {}
+    for name in grads:
+        (w, m, v, r), (ew, em, ev, er) = card[name], emulated[name]
+        same = r == er and all(
+            np.array_equal(a, b) for x, y in ((w, ew), (m, em), (v, ev))
+            for a, b in zip(x, y))
+        gap = max(float(np.abs(a - b).max()) for a, b in zip(w, cpu[name][0]))
+        gaps[name] = gap / (max(r) * OPT_STEPS)
+        share = sum(int((a != b).sum()) for a, b in zip(w, cpu[name][0]))
+        print(f"  {name}: {len(w)} tensors, {OPT_STEPS} steps; weights, "
+              f"moments and rates bit-equal to the CPU copy with the card's "
+              f"division {same}; against the plain CPU copy {share} of "
+              f"{sum(a.size for a in w)} weights differ, the largest by "
+              f"{gap:.3e} ({gaps[name]:.2e} of the rate times the steps); "
+              f"last rate {r[-1]!r}")
+        if not same:
+            fail(f"the optimiser's {name} form on the card is not the bits "
+                 "of a CPU copy with the card's division")
+    print(f"  phase 20's steps took {time.perf_counter() - t0:.1f} s")
+    return {"operations": operations, "gaps": gaps}
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -5334,6 +5521,9 @@ def main() -> int:
     phase(19, "the accuracy protocol's tool "
           "(tools/accuracy_benchmark_torch.py) end to end at tiny sizes")
     accuracy = check_accuracy_tool(dev)
+    phase(20, "the one optimiser's three forms, 12 steps on the card "
+          "against a CPU copy")
+    optimizer_gaps = check_optimizer(dev)
     scatter["launches"] = {k: launches[k]["scatter_mean"]
                            for k in ("reference", "fast")}
     scatter["launches"]["accuracy tool"] = accuracy["launches"][
@@ -5395,6 +5585,10 @@ def main() -> int:
     print("sharded victim training (phase 18): " + json.dumps(sharded)
           + f" on {card}")
     print("accuracy tool (phase 19): " + json.dumps(accuracy) + f" on {card}")
+    print("the optimiser on the card against the CPU (phase 20: each "
+          "operation's entries that differ, each form's largest weight gap "
+          "from the plain CPU copy over the rate times the steps): "
+          + json.dumps(optimizer_gaps) + f" on {card}")
     print("encoder scatter-mean kernel (csrc/scatter.cu, replaces no TPU "
           "kernel; ms and launches): " + json.dumps(scatter) + f" on {card}")
     pooled = next(r for r in rows if r["name"] == "pooled_max")

@@ -11,12 +11,12 @@ one jitted scan of scans; here each iteration launches eagerly, and the
 bookkeeping stays on the device (`torch.where`), so the loop never waits
 for the card.
 
-The optimiser is `torch.optim.Adam` at optax's defaults (betas 0.9 /
-0.999, eps 1e-8), a fresh one at each binary step as JAX re-inits its
-state. `device_chunk_iters` keeps the JAX package's meaning and check (an
-int R runs the loop in R-iteration segments; it must be >= 1): eager
-PyTorch launches every iteration either way, so the results do not depend
-on it.
+The optimiser is optax's Adam in optax's arithmetic (`optim.OptaxAdam`:
+b1 0.9, b2 0.999, eps 1e-8, the bias corrections in float32), a fresh one
+at each binary step as JAX re-inits its state. `device_chunk_iters` keeps
+the JAX package's meaning and check (an int R runs the loop in R-iteration
+segments; it must be >= 1): eager PyTorch launches every iteration either
+way, so the results do not depend on it.
 
 Random draws come from `generator`; the `draws` seam takes them from the
 caller instead (the tests hand over JAX's): the standard normals of the
@@ -38,6 +38,7 @@ from if_defense_tpu_torch.attack.losses import (
     logits_adv_loss,
 )
 from if_defense_tpu_torch.ops import index_points
+from if_defense_tpu_torch.optim import OptaxAdam
 
 BIG = 1e10
 
@@ -58,9 +59,9 @@ def cw_chunk_sizes(num_iter: int, chunk: int | None) -> list[int]:
     return sizes
 
 
-def adam(params: Sequence[torch.Tensor], lr: float) -> torch.optim.Adam:
-    """Adam at optax's defaults."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+def adam(params: Sequence[torch.Tensor], lr: float) -> OptaxAdam:
+    """`optax.adam(lr)` at its defaults."""
+    return OptaxAdam(params, lr=lr)
 
 
 def normal_like(x: torch.Tensor, generator: torch.Generator | None,

@@ -102,7 +102,15 @@ def chamfer_knn_dist(adv: torch.Tensor, ori: torch.Tensor,
 
 def farthest_dist(clusters: torch.Tensor) -> torch.Tensor:
     """Sum over clusters of the largest pairwise distance within each,
-    [B], of added clusters [B, num_add, P, 3]."""
+    [B], of added clusters [B, num_add, P, 3]. The squared distance is
+    summed as XLA's CPU code sums it, fma(z, z, fma(y, y, x x)) (each fused
+    multiply-add a float64 product and sum rounded once): a cluster's
+    points often lie at equal distances from its farthest point, and the
+    maximum's gradient then splits between them as JAX's does."""
     delta = clusters[:, :, None, :, :] - clusters[:, :, :, None, :] + 1e-7
-    norm = (delta * delta).sum(dim=-1).sqrt()                # [B, na, P, P]
+    wide = delta.double()
+    sq = (wide[..., 0] * wide[..., 0]).to(delta.dtype)
+    for i in (1, 2):
+        sq = (wide[..., i] * wide[..., i] + sq).to(delta.dtype)
+    norm = sq.sqrt()                                         # [B, na, P, P]
     return norm.amax(dim=2).amax(dim=2).sum(dim=1)

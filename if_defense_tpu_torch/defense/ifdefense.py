@@ -49,6 +49,7 @@ from if_defense_tpu_torch.ops import (
     normalize_unit_sphere,
     plane_corner_features,
 )
+from if_defense_tpu_torch.optim import OptaxAdam
 
 
 def sample_valid(pc: torch.Tensor, mask: torch.Tensor, n: int,
@@ -89,26 +90,6 @@ class _ShardBCE(torch.autograd.Function):
     def backward(ctx, g):
         logits, target = ctx.saved_tensors
         return (logits.sigmoid() - target) * g / ctx.count, None, None
-
-
-class Adam:
-    """optax.adam: scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
-    bias-corrected) then scale by -lr, state in the points' type (f32)."""
-
-    def __init__(self, p: torch.Tensor, lr: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.mu = torch.zeros_like(p)
-        self.nu = torch.zeros_like(p)
-        self.count = 0
-
-    def step(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        self.count += 1
-        self.mu = (1 - self.b1) * g + self.b1 * self.mu
-        self.nu = (1 - self.b2) * (g * g) + self.b2 * self.nu
-        mu_hat = self.mu / (1 - self.b1**self.count)
-        nu_hat = self.nu / (1 - self.b2**self.count)
-        return p + (-self.lr) * (mu_hat / (nu_hat.sqrt() + self.eps))
 
 
 def _cast(tree, dtype):
@@ -229,29 +210,30 @@ def make_opt_defense(
             rep = rep_each.float().sum() / total * rep_weight
             return occ_loss + rep, occ_loss
 
-        adam = Adam(pts, lr)
+        # the points, stepped in place by optax's Adam (f32 state)
+        p = pts.clone()
+        adam = OptaxAdam([p], lr)
 
-        def step(p, i, idx, cache=None, rep_mask=None):
-            p = p.detach().requires_grad_(True)
-            loss, occ_loss = loss_fn(p, idx, cache, rep_mask)
-            (grad,) = torch.autograd.grad(loss, p)
+        def step(i, idx, cache=None, rep_mask=None):
+            q = p.detach().requires_grad_(True)
+            loss, occ_loss = loss_fn(q, idx, cache, rep_mask)
+            (p.grad,) = torch.autograd.grad(loss, q)
             if stats is not None and i in (0, iterations):
                 key = "occ_loss_first" if i == 0 else "occ_loss_last"
                 stats[key] = occ_loss.detach()
-            return adam.step(p.detach(), grad)
+            adam.step()
 
-        def refresh(p, i, idx):
+        def refresh(i, idx):
             if use_fused or i % knn_refresh:
                 return idx
             return repulsion_knn(p)
 
-        p = pts
         idx = None if use_fused else repulsion_knn(pts)
         if not use_cache:
             # the reference runs range(iterations + 1): 201 steps
             for i in range(iterations + 1):
-                idx = refresh(p, i, idx)
-                p = step(p, i, idx)
+                idx = refresh(i, idx)
+                step(i, idx)
             return normalize_unit_sphere(p)
 
         n_blocks, tail = divmod(iterations + 1, interp_refresh)
@@ -267,8 +249,8 @@ def make_opt_defense(
                 rep_mask = repulsion_mask_auto(p) if rep_graph_cache else None
             for i in range(start, start + length):
                 if not rep_graph_cache:
-                    idx = refresh(p, i, idx)
-                p = step(p, i, idx, cache, rep_mask)
+                    idx = refresh(i, idx)
+                step(i, idx, cache, rep_mask)
         return normalize_unit_sphere(p)
 
     defend.draw = draw

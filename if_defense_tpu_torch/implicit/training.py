@@ -31,6 +31,7 @@ from torch.nn import functional as F
 
 from if_defense_tpu_torch.implicit.convonet import ConvOccupancyNetwork
 from if_defense_tpu_torch.implicit.onet import OccupancyNetwork
+from if_defense_tpu_torch.optim import OptaxAdam
 from if_defense_tpu_torch.utils.params_io import (
     flax_init_params,
     params_from_jax,
@@ -74,74 +75,6 @@ class OccupancyBatchSampler:
             queries.astype(np.float32),
             occ.astype(np.float32),
         )
-
-
-class OptaxAdam(torch.optim.Optimizer):
-    """`optax.adam(lr)` as the JAX package's training step takes it, in its
-    own arithmetic and in the parameters' type: mu = (1 - b1) g + b1 mu,
-    nu = (1 - b2) g^2 + b2 nu, each divided by its bias correction
-    1 - b^t computed in that type, then p + (-lr) mu_hat / (sqrt(nu_hat) +
-    eps). `torch.optim.Adam` takes the corrections in float64, which in
-    float32 moves the first steps' second-moment correction by 1.3e-5 of
-    itself (1 - 0.999 is 0.00099998713 in float32) and every update by
-    half that. State per parameter: `step`, `exp_avg`, `exp_avg_sq`, as
-    torch's Adam names them, and two scratch tensors: every operation is
-    in place, so a step allocates nothing (under deterministic algorithms
-    each new tensor would cost a NaN fill). The parameters of a group
-    share one device and dtype (one `torch._foreach_*` call an
-    operation)."""
-
-    def __init__(self, params, lr: float = 1e-4, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            for p in params:
-                if not self.state[p]:
-                    self.state[p].update(
-                        step=0, exp_avg=torch.zeros_like(p),
-                        exp_avg_sq=torch.zeros_like(p),
-                        scratch=(torch.empty_like(p), torch.empty_like(p)))
-                self.state[p]["step"] += 1
-            t = self.state[params[0]]["step"]
-            b1, b2 = group["b1"], group["b2"]
-            grads = [p.grad for p in params]
-            mu = [self.state[p]["exp_avg"] for p in params]
-            nu = [self.state[p]["exp_avg_sq"] for p in params]
-            x = [self.state[p]["scratch"][0] for p in params]
-            y = [self.state[p]["scratch"][1] for p in params]
-            torch._foreach_copy_(x, grads)           # (1 - b1) g + b1 mu
-            torch._foreach_mul_(x, 1 - b1)
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, x)
-            torch._foreach_copy_(x, grads)           # (1 - b2) g^2 + b2 nu
-            torch._foreach_mul_(x, grads)
-            torch._foreach_mul_(x, 1 - b2)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_add_(nu, x)
-            # 1 - b^t in the parameters' type, as optax's bias_correction
-            one = np.dtype(str(params[0].dtype).removeprefix("torch."))
-            bc1, bc2 = (float(one.type(1) - one.type(b) ** one.type(t))
-                        for b in (b1, b2))
-            torch._foreach_copy_(x, nu)              # sqrt(nu_hat) + eps
-            torch._foreach_div_(x, bc2)
-            if params[0].is_cuda:
-                torch._foreach_sqrt_(x)
-            else:       # torch's vectorised float32 sqrt on the CPU is not
-                #         always the correctly rounded one, optax's is
-                for v in x:
-                    v.copy_(v.double().sqrt_())
-            torch._foreach_add_(x, group["eps"])
-            torch._foreach_copy_(y, mu)              # p + (-lr) mu_hat / x
-            torch._foreach_div_(y, bc1)
-            torch._foreach_div_(y, x)
-            torch._foreach_mul_(y, -group["lr"])
-            torch._foreach_add_(params, y)
 
 
 def make_occupancy_train_step(model: torch.nn.Module,

@@ -2,9 +2,10 @@
 `if_defense_tpu/training.py`).
 
 The recipe is the JAX package's: Adam(lr 1e-3) with L2 weight decay 1e-4
-added to the gradient (torch's `Adam(weight_decay=)`, which is optax's
-`add_decayed_weights` before `scale_by_adam`), a per-step cosine decay to
-`eta_min` over the epoch budget (`optax.cosine_decay_schedule`), cross
+added to the gradient (optax's `add_decayed_weights` before
+`scale_by_adam`), a per-step cosine decay to `eta_min` over the epoch
+budget (`optax.cosine_decay_schedule`), all in optax's float32 arithmetic
+(`optim.OptaxAdam`, `optim.cosine_decay_schedule`), cross
 entropy with optional eps-0.2 label smoothing, and PointNet's optional
 feature-transform regulariser. The step is eager; the batch-norm
 statistics move inside the train-mode forward (the port's `BatchNorm` has
@@ -26,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import math
 from typing import Callable
 
 import torch
@@ -35,6 +35,11 @@ from torch.nn import functional as F
 
 from if_defense_tpu_torch.models import feature_transform_regularizer
 from if_defense_tpu_torch.models.common import Draw, split_draw
+from if_defense_tpu_torch.optim import (
+    OptaxAdam,
+    ScheduledRate,
+    cosine_decay_schedule,
+)
 from if_defense_tpu_torch.parallel import (
     StatsExchange,
     batch_mean,
@@ -55,8 +60,8 @@ class TrainState:
     learning-rate schedule, and the count of applied updates."""
 
     model: nn.Module
-    optimizer: torch.optim.Adam
-    scheduler: torch.optim.lr_scheduler.LambdaLR
+    optimizer: OptaxAdam
+    scheduler: ScheduledRate
     step: int = 0
 
     def set_step(self, step: int) -> None:
@@ -64,9 +69,8 @@ class TrainState:
         (after the optimiser's state is restored): the next step takes the
         rate at count `step`."""
         self.step = step
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, self.scheduler.lr_lambdas[0],
-            last_epoch=step - 1)
+        self.scheduler = ScheduledRate(
+            self.optimizer, self.scheduler.schedule, last_epoch=step - 1)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -84,20 +88,6 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return batch_mean(-logp.gather(-1, labels.long()[:, None])[:, 0])
 
 
-def cosine_decay(learning_rate: float, decay_steps: int,
-                 eta_min: float) -> Callable[[int], float]:
-    """`optax.cosine_decay_schedule(learning_rate, decay_steps, alpha =
-    eta_min / learning_rate)` as a multiplier of `learning_rate`: count ->
-    (1 - alpha) (1 + cos(pi min(count, T) / T)) / 2 + alpha."""
-    alpha = eta_min / learning_rate
-
-    def factor(count: int) -> float:
-        t = min(count, decay_steps) / decay_steps
-        return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t)) + alpha
-
-    return factor
-
-
 def create_train_state(model: nn.Module, learning_rate: float = 1e-3,
                        weight_decay: float = 1e-4, total_epochs: int = 200,
                        steps_per_epoch: int = 1,
@@ -107,11 +97,11 @@ def create_train_state(model: nn.Module, learning_rate: float = 1e-3,
     JAX package initialises them here; the port's caller loads them, e.g.
     from `utils.params_io.flax_init_params`). Step k (1-based) takes the
     rate at count k - 1, as optax's `scale_by_learning_rate` does."""
-    optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, cosine_decay(
-        learning_rate, max(1, total_epochs * steps_per_epoch), eta_min))
+    optimizer = OptaxAdam(model.parameters(), lr=learning_rate,
+                          weight_decay=weight_decay)
+    scheduler = ScheduledRate(optimizer, cosine_decay_schedule(
+        learning_rate, max(1, total_epochs * steps_per_epoch),
+        eta_min / learning_rate, next(model.parameters()).dtype))
     return TrainState(model, optimizer, scheduler)
 
 

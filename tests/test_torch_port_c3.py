@@ -20,22 +20,23 @@ selection that the TPU ran and that the port computes on the CPU
 (ROADMAP's deliberate differences).
 
 Tolerances. chip_smoke's restoration gate, >= 99.9 % of coordinates
-within 1e-4, holds over the first 4 Adam steps. Over all 201 it holds for
-no pair of f32 runs: Adam steps each coordinate by about lr sign(g), and
-a gradient that rounding moves across a ReLU's kink, or near 0, sends the
-coordinate another way, which later steps carry on. The JAX package
-itself, given the same clouds with half their coordinates moved by one
-unit in the last place, keeps 57.6 % of the coordinates within 1e-4 of
-its own result at 201 steps (largest gap 4.2e-2), where the port keeps
-51.6 % (6.9e-2). So at 201 steps the test holds the port's gap from JAX
-to that yardstick, run beside it: the share within 1e-4 no more than 0.1
-below the yardstick's, the mean coordinate gap and the symmetric Chamfer
-distance no more than 1.5 times the yardstick's, and the Chamfer distance
-under 5 % of the restored clouds' point spacing (the surfaces agree).
-The largest gaps are printed. A control shows that these bounds see a
-fault of the size a port could make: the port with its repulsion weight
-halved, run beside the others, must miss the share, mean-gap and Chamfer
-bounds.
+within 1e-4, holds over the first 4 Adam steps, and over 16. Over all
+201 it holds for no pair of f32 runs: Adam steps each coordinate by
+about lr sign(g), and a gradient that rounding moves across a ReLU's
+kink, or near 0, sends the coordinate another way, which later steps
+carry on. The JAX package itself, given the same clouds with half their
+coordinates moved by one unit in the last place, keeps 57.6 % of the
+coordinates within 1e-4 of its own result at 201 steps (largest gap
+4.2e-2), where the port keeps 54.1 % (5.3e-2; 51.6 % with torch's Adam,
+45.6 % with optax's operations one at a time, not jitted). So at 201
+steps the test holds the port's gap from JAX to that yardstick, run
+beside it: the share within 1e-4 no more than 0.1 below the yardstick's,
+the mean coordinate gap and the symmetric Chamfer distance no more than
+1.5 times the yardstick's, and the Chamfer distance under 5 % of the
+restored clouds' point spacing (the surfaces agree). The largest gaps
+are printed. A control shows that these bounds see a fault of the size a
+port could make: the port with its repulsion weight halved, run beside
+the others, must miss the share, mean-gap and Chamfer bounds.
 """
 
 import os
@@ -118,16 +119,34 @@ def perturbed_weights(seed: int) -> dict:
     return unflatten_params(flat)
 
 
+def first_steps(iterations: int) -> tuple[np.ndarray, dict]:
+    """The protocol's ConvONet-Opt, B = 4 x 1024 points, over its first
+    `iterations` + 1 Adam steps: (the port's restoration, its gaps from
+    JAX's)."""
+    pc, variables = hard_clouds(0, B), perturbed_weights(0)
+    key, flags = jax.random.key(0), dict(FLAGS, iterations=iterations)
+    want = in_thread(restore_jax, pc, variables, key, flags)
+    got = restore_port(pc, variables, jax_draws(pc, key, flags), flags)
+    g = gaps(got, want())
+    print(f"{iterations + 1} steps: {g}")
+    return got, g
+
+
 def test_protocol_defense_first_steps_within_gate():
     """The protocol's ConvONet-Opt, B = 4 x 1024 points, over its first 4
     Adam steps (iterations = 3): the port within chip_smoke's gate of
     JAX."""
-    pc, variables = hard_clouds(0, B), perturbed_weights(0)
-    key, flags = jax.random.key(0), dict(FLAGS, iterations=3)
-    want = in_thread(restore_jax, pc, variables, key, flags)
-    got = restore_port(pc, variables, jax_draws(pc, key, flags), flags)
-    g = gaps(got, want())
-    print(f"4 steps: {g}")
+    got, g = first_steps(3)
+    assert np.isfinite(got).all() and got.shape == (B, N, 3)
+    assert g["within_1e-4"] >= SHARE, g
+
+
+def test_protocol_defense_16_steps_within_gate():
+    """The same over its first 16 Adam steps (iterations = 15): with the
+    port's Adam in the arithmetic of the JAX package's jitted steps the
+    gate holds four times as long as the 4 steps it held with torch's
+    Adam."""
+    got, g = first_steps(15)
     assert np.isfinite(got).all() and got.shape == (B, N, 3)
     assert g["within_1e-4"] >= SHARE, g
 

@@ -120,14 +120,15 @@ def test_full_width_train_step_matches_jax(tmp_path):
 
 def test_occupancy_adam_updates_are_optax_adam():
     """The implicit training's optimiser (the one
-    `make_occupancy_train_step` returns) against optax.adam over 12 steps on
-    gradients over eight decades: each step's update (read on weights
-    reset to 0 before it, Adam's update not depending on them) within
-    1e-6 of optax's, relative, and the moments bit-equal; steps 1-2
-    bit-equal. Beyond step 2 optax's 0.999^t comes from XLA's pow, a unit
-    in the last place from the C library's now and then. `torch.optim.Adam`
-    takes the bias corrections in float64, 6.4e-6 of each update away from
-    optax's float32 ones in the first steps, and misses at every step."""
+    `make_occupancy_train_step` returns) against optax.adam as the JAX
+    package's jitted train step runs it (under `jit`: XLA's fused
+    multiply-adds) over 12 steps on gradients over eight decades: each
+    step's update (read on weights reset to 0 before it, Adam's update not
+    depending on them) within 1e-6 of optax's, relative, and the moments
+    bit-equal; steps 1-2 bit-equal. `torch.optim.Adam` takes the bias
+    corrections in float64, 6.4e-6 of each update away from optax's
+    float32 ones in the first steps, and misses at every step."""
+    import jax
     import jax.numpy as jnp
     import optax
 
@@ -137,14 +138,14 @@ def test_occupancy_adam_updates_are_optax_adam():
         np.float32) for s in shapes] for _ in range(12)]
     tx = optax.adam(1e-4)
     zeros = [jnp.zeros(s, jnp.float32) for s in shapes]
-    state = tx.init(zeros)
+    state, update = tx.init(zeros), jax.jit(tx.update)
     ours = torch.nn.ParameterList(torch.zeros(s) for s in shapes)
     theirs = [torch.zeros(s, requires_grad=True) for s in shapes]
     opts = (make_occupancy_train_step(ours, 1e-4)[0], torch.optim.Adam(
         theirs, lr=1e-4, betas=(0.9, 0.999), eps=1e-8))
     torch_gaps = []
     for t, g in enumerate(grads, 1):
-        updates, state = tx.update([jnp.asarray(a) for a in g], state, zeros)
+        updates, state = update([jnp.asarray(a) for a in g], state, zeros)
         for ws, opt in zip((ours, theirs), opts):
             with torch.no_grad():
                 for w, a in zip(ws, g):

@@ -39,14 +39,12 @@
   `feature_transform_regularizer` (`jnp.linalg.norm`) has a NaN gradient
   and every parameter turns NaN after one step (shown below); torch's
   `matrix_norm` takes 0 there.
-- `cross_entropy_loss` in both modes (rtol 1e-6), the LambdaLR schedule
-  over T + 3 steps against `optax.cosine_decay_schedule` (rtol 1e-6: optax
-  computes in float32), and the Adam + L2 update of a toy tree over 5
-  steps against JAX's optax chain (weights and moments rtol 1e-5, weights
-  atol 1e-9: optax forms its bias correction 1 - 0.999^count in float32,
-  1.3e-5 off at count 1, which moves a step by up to 6.5e-6 of itself,
-  and the moments take it on through the weight decay; torch forms it in
-  double).
+- `cross_entropy_loss` in both modes (rtol 1e-6), the schedule
+  (`optim.ScheduledRate`) over T + 3 steps against
+  `optax.cosine_decay_schedule` (rtol 1e-6), and the Adam + L2 update of a
+  toy tree over 5 steps against JAX's optax chain (weights and moments
+  rtol 1e-5, weights atol 1e-9; `tests/test_torch_port_optim.py` holds
+  the optimiser to the bit).
 - `flax_init_params` for the victims: JAX's `model.init` keys and shapes,
   zero biases, STN's last kernel 0, unit batch-norm scales and variances,
   each kernel's std within 10 % of 1/sqrt(fan_in) (>= 4096 entries).
@@ -385,8 +383,8 @@ class _Toy(fnn.Module):
 
 
 def test_adam_weight_decay_matches_optax():
-    """torch's Adam(weight_decay) under the cosine schedule against the JAX
-    package's optax chain (add_decayed_weights -> scale_by_adam ->
+    """The victims' optimiser (L2 decay, the cosine schedule) against the
+    JAX package's optax chain (add_decayed_weights -> scale_by_adam ->
     scale_by_learning_rate), the same gradients fed to both, 5 steps."""
     js = jax_create(_Toy(), jax.random.key(0), np.zeros((1, 4), np.float32),
                     total_epochs=1, steps_per_epoch=4)

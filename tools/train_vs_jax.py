@@ -322,8 +322,9 @@ def _stages(variables: dict, batch, seed: int):
 
 
 def adam_stage(variables: dict, batch, steps: int, seed: int):
-    """Adam alone: `steps` updates of both optimisers (optax's and the
-    port's `OptaxAdam`, lr 1e-4) from JAX's initial weights on the same
+    """Adam alone: `steps` updates of both optimisers (optax's, jitted as
+    the train step runs it, and the port's `OptaxAdam`, lr 1e-4) from
+    JAX's initial weights on the same
     gradients
     (JAX's full gradient on `batch`, scaled by 1 + 0.1 N(0, 1) each step);
     -> (jax_fn(grads) -> flat weights, port_fn(dtype, grads) -> flat
@@ -343,18 +344,22 @@ def adam_stage(variables: dict, batch, steps: int, seed: int):
         np.float32) for k, v in g.items()} for _ in range(steps)]
     flat0 = _flat(params)
 
+    @jax.jit
+    def apply(g, state, p):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+
     def jax_fn(gs):
         from if_defense_tpu_torch.utils.params_io import unflatten_params
 
         p = params
         state = tx.init(p)
         for gi in gs:
-            updates, state = tx.update(unflatten_params(gi), state, p)
-            p = optax.apply_updates(p, updates)
+            p, state = apply(unflatten_params(gi), state, p)
         return _flat(p)
 
     def port_fn(dtype, gs):
-        from if_defense_tpu_torch.implicit.training import OptaxAdam
+        from if_defense_tpu_torch.optim import OptaxAdam
 
         ws = {k: torch.tensor(v, dtype=dtype, requires_grad=True)
               for k, v in flat0.items()}
