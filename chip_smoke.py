@@ -322,10 +322,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      division) and must be that product's bits; then each form bit-equal
      (weights, moments and rates) to a CPU copy that divides so
      (`reciprocal_division`), its gap from the plain CPU copy printed as a
-     share of the rate times the steps.
+     share of the rate times the steps;
+ 21. the reproduction runbook, `tools/reproduce_baseline_torch.py --fast`,
+     on cuda:0 from reference-layout `.pth` files of phase 17 (a)'s seeded
+     trees (PointNet++'s with `module.` prefixes) and 40 clouds of 1024
+     points in 40 classes with no targets: PointNet through every
+     BASELINE.md column (clean, perturb, add, add_hd, knn, drop100, drop)
+     and every runbook defense (none, SRS, SOR, DUP-Net, ONet-Opt,
+     ConvONet-Opt, ONet-Mesh, ConvONet-Mesh), then PointNet++, DGCNN and
+     PointConv through clean and drop100 x none and SOR, then PointNet's
+     clean row through ConvONet-Opt f32 and bf16_r16_repc (`--opt_modes`:
+     the default bf16_r16 reaches neither B4 nor B2 and B3), each call with
+     every launch counter set to 0 just before it and read just after:
+     inventory 6/6, every converted tree its seeded tree leaf for leaf,
+     parity PASS or SKIP (reference absent), the data stage's targets
+     unlike the labels, each clean accuracy `cli/inference.py`'s on the
+     same checkpoint, results.json with every cell a share of the 40
+     clouds, every leg on cuda:0 with TF32 off, B1-B6, the scatter-mean,
+     the pooled max and the gather backward launched; then the diff stage
+     alone, REPRODUCE.md with a row a scored cell (its out-of-tolerance
+     count printed: seeded weights are not the published ones).
 The last lines are the rates, the defense step, victim batch, CW
 iteration, train step and remesh batch profiles, phase 16's rates, phase
-17's, 18's, 19's and 20's numbers, the scatter-mean kernel's line (its
+17's, 18's, 19's, 20's and 21's numbers, the scatter-mean kernel's line (its
 times and launches), the pooled max's times at the grid, the card's name
 and power limit, one JSON line of the kernels,
 and `{"ok": true, "device": {...}}`.
@@ -4433,26 +4452,19 @@ def same_tree(what: str, got: dict, want: dict) -> None:
         fail(f"{what}: the converted tree is not its source, leaf for leaf")
 
 
-def converted_weights(dev, tmp: str) -> tuple[dict, dict, dict]:
-    """Phase 17 (a)'s weights: each seeded tree written as the reference's
-    `.pth` and converted back from the file. -> (seeded files, converted
-    files, seconds a conversion took)."""
+def seeded_trees(dev) -> dict:
+    """Seeded flax-layout trees of phases 17 (a) and 21: ConvONet and ONet
+    from the port's seeded inits, PU-Net the repository's weights, the four
+    victims at their published widths with batch norms calibrated on
+    clouds (`seeded_victim`)."""
     from if_defense_tpu_torch.cli.defend_npz import DEFAULT_PUNET_WEIGHTS
-    from if_defense_tpu_torch.convert import (
-        implicit_weights,
-        punet_weights,
-        victim_weights,
-    )
-    from if_defense_tpu_torch.utils.checkpoint import save_eval_checkpoint
     from if_defense_tpu_torch.utils.params_io import (
         flax_init_params,
         init_params,
         load_params_npz,
         params_to_jax,
-        save_params_npz,
     )
 
-    ref = tool("reference_pth")
     trees = {"convonet": init_params(0), "onet": flax_init_params(0, "onet"),
              "punet": load_params_npz(DEFAULT_PUNET_WEIGHTS)}
     clouds = victim_clouds(np.random.default_rng(17), VICTIM_B)
@@ -4460,6 +4472,23 @@ def converted_weights(dev, tmp: str) -> tuple[dict, dict, dict]:
         model = seeded_victim(name, dev, clouds)
         trees[name] = params_to_jax(model.state_dict(), model)
         del model
+    return trees
+
+
+def converted_weights(dev, tmp: str) -> tuple[dict, dict, dict]:
+    """Phase 17 (a)'s weights: each seeded tree written as the reference's
+    `.pth` and converted back from the file. -> (seeded files, converted
+    files, seconds a conversion took)."""
+    from if_defense_tpu_torch.convert import (
+        implicit_weights,
+        punet_weights,
+        victim_weights,
+    )
+    from if_defense_tpu_torch.utils.checkpoint import save_eval_checkpoint
+    from if_defense_tpu_torch.utils.params_io import save_params_npz
+
+    ref = tool("reference_pth")
+    trees = seeded_trees(dev)
     convert = {"convonet": implicit_weights.convert_convonet_pth,
                "onet": implicit_weights.convert_onet_pth,
                "punet": punet_weights.convert_punet_pth,
@@ -5255,6 +5284,202 @@ def check_optimizer(dev) -> dict:
     return {"operations": operations, "gaps": gaps}
 
 
+# phase 21: the reproduction runbook, `tools/reproduce_baseline_torch.py
+# --fast`, on reference-layout `.pth` files of phase 17 (a)'s seeded trees
+# and RUNBOOK_CLOUDS clouds of 1024 points in 40 classes (test_pc and
+# test_label only, so the data stage draws the targets): three calls, one
+# out_dir each, (victims, attacks, defenses, ConvONet-Opt modes), which
+# run every BASELINE.md column, every defense of the runbook at its
+# defaults and every victim, then ConvONet-Opt in the two modes that reach
+# B2, B3 and B4 (the default bf16_r16 decodes from cached corners and
+# repels through B1)
+RUNBOOK_CLOUDS = 40
+RUNBOOK_IMPLICITS = ("onet", "convonet")
+RUNBOOK_CALLS = (
+    (["pointnet"],
+     ["clean", "perturb", "add", "add_hd", "knn", "drop100", "drop"],
+     ["none", "srs", "sor", "dup", "onet_opt", "convonet_opt", "onet_mesh",
+      "convonet_mesh"], ["bf16_r16"]),
+    (["pointnet2", "dgcnn", "pointconv"], ["clean", "drop100"],
+     ["none", "sor"], ["bf16_r16"]),
+    (["pointnet"], ["clean"], ["convonet_opt"], ["f32", "bf16_r16_repc"]),
+)
+# the kernels of the runbook's path: B1 (ONet-Opt; ConvONet-Opt f32 and
+# bf16_r16), B2 and B3 (ConvONet-Opt bf16_r16_repc), B4 (the ConvONet
+# decoder in ConvONet-Opt f32), B5 and B6 (the sampled victims, DUP-Net's
+# PU-Net), the encoder's and the gathers'
+RUNBOOK_KERNELS = ("repulsion_loss", "repulsion_mask",
+                   "repulsion_loss_masked", "plane_features", "fps",
+                   "ballquery", "scatter_mean", "pooled_max",
+                   "gather_backward")
+
+
+def runbook_inputs(dev, tmp: str) -> tuple[str, str, dict]:
+    """The six reference `.pth` files (PointNet++'s with `module.`) and the
+    40-class npz. -> (weights dir, npz, seeded tree by kind)."""
+    from if_defense_tpu_torch.data import save_npz
+
+    ref = tool("reference_pth")
+    trees = seeded_trees(dev)
+    del trees["punet"]
+    wdir = os.path.join(tmp, "pth")
+    os.makedirs(wdir)
+    for kind, tree in trees.items():
+        torch.save(ref.reference_state_dict(
+            kind, tree, module_prefix=kind == "pointnet2"),
+            os.path.join(wdir, f"{kind}.pth"))
+    data = os.path.join(tmp, "mn40.npz")
+    save_npz(data, {"test_pc": victim_clouds(np.random.default_rng(21),
+                                             RUNBOOK_CLOUDS).numpy(),
+                    "test_label": np.arange(RUNBOOK_CLOUDS) % 40})
+    return wdir, data, trees
+
+
+def scored_rows(results: dict, baseline: dict) -> int:
+    """The (victim, defense, attack) cells of `results` that BASELINE.md
+    scores: the rows REPRODUCE.md must hold."""
+    n = 0
+    for victim, vres in results["victims"].items():
+        for defense, cells in baseline.get(victim, {}).items():
+            for attack in cells:
+                ares = vres["attacks"].get(attack)
+                n += ((defense, attack) == ("none", "clean")
+                      or (ares is not None and (
+                          defense == "none" or defense in ares["defended"])))
+    return n
+
+
+def check_runbook_call(dev, tmp: str, wdir: str, data: str, trees: dict,
+                       call: tuple) -> dict:
+    """One runbook call (inventory to tables) and its gates, then the diff
+    stage alone. -> its numbers."""
+    from if_defense_tpu_torch.cli import inference
+    from if_defense_tpu_torch.data import load_npz
+    from if_defense_tpu_torch.utils.checkpoint import restore_checkpoint_raw
+    from if_defense_tpu_torch.utils.params_io import load_params_npz
+
+    book = tool("reproduce_baseline_torch")
+    victims, attacks, defenses, modes = call
+    out = os.path.join(tmp, "+".join(victims + attacks))
+    base = ["--weights_dir", wdir, "--data", data, "--out_dir", out,
+            "--victims", *victims, "--attacks", *attacks,
+            "--defenses", *defenses, "--opt_modes", *modes, "--fast",
+            "--device", str(dev)]
+    # results.json's defense keys: one a ConvONet-Opt mode where several
+    keys = {k for d in defenses for k in (
+        [f"{d}:{m}" for m in modes] if d == "convonet_opt" and len(modes) > 1
+        else [d])}
+    t0 = time.perf_counter()
+    zero_launches()
+    rc = book.main([*base, "--stages", "inventory", "convert", "parity",
+                    "data", "clean", "tables"])
+    launches = all_launches()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    stages = report["stages"]
+    status = {k: v["status"] for k, v in stages.items()}
+    stage_seconds = {k: round(v, 1)
+                     for k, v in report["stage_seconds"].items()}
+    print(f"  {'+'.join(victims)} x {'+'.join(attacks)} x "
+          f"{'+'.join(sorted(keys))}: rc {rc} in {seconds:.1f} s, {status}; "
+          f"stage seconds {stage_seconds}")
+    if rc != 0 or not stages["inventory"]["detail"].startswith("6/6 "):
+        fail(f"the runbook's inventory or run failed: rc {rc}, {stages}")
+    with open(os.path.join(out, "converted.json")) as f:
+        converted = json.load(f)
+    if sorted(converted) != sorted(trees):
+        fail(f"the runbook converted {sorted(converted)}")
+    for kind, path in converted.items():
+        got = (restore_checkpoint_raw(path) if kind not in RUNBOOK_IMPLICITS
+               else load_params_npz(path))
+        got.pop("metadata", None)
+        same_tree(f"the runbook's {kind}", got, trees[kind])
+    parity = stages["parity"]
+    if not (parity["status"] == "PASS" or (
+            parity["status"] == "SKIP"
+            and parity["detail"].startswith("reference absent"))):
+        fail(f"the runbook's parity stage: {parity}")
+    d = load_npz(os.path.join(out, "data_with_targets.npz"))
+    if stages["data"]["status"] != "PASS" or (
+            d.target_label == d.test_label).any():
+        fail(f"the runbook's data stage: {stages['data']}")
+    if stages["clean"]["status"] != "PASS":
+        fail(f"the runbook's clean stage: {stages['clean']}")
+    for v in victims:
+        direct = inference.main([
+            "--data", os.path.join(out, "data_with_targets.npz"),
+            "--checkpoint", converted[v], "--num_points", "1024",
+            "--batch_size", "40", "--device", str(dev)])["accuracy"]
+        if direct != report["clean"][v]:
+            fail(f"{v}: the clean stage's accuracy {report['clean'][v]} is "
+                 f"not cli/inference.py's {direct}")
+    if stages["tables"]["status"] != "PASS":
+        fail(f"the runbook's tables stage: {stages['tables']}")
+    with open(os.path.join(out, "seed0", "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(out, "seed0", "legs.json")) as f:
+        legs = json.load(f)
+    for v in victims:
+        vres = results["victims"].get(v, {})
+        if set(vres.get("attacks", {})) != set(attacks) or any(
+                set(a["defended"]) != keys
+                for a in vres["attacks"].values()):
+            fail(f"{v}: results.json lacks cells: {vres.get('attacks')}")
+        records = [r for a in vres["attacks"].values()
+                   for r in (a["attacked"], *a["defended"].values())]
+        if not 0 <= vres["clean_accuracy"] <= 1 or any(
+                r["n"] != RUNBOOK_CLOUDS or not 0 <= r["accuracy"] <= 1
+                for r in records):
+            fail(f"{v}: a cell of results.json is not a share of the "
+                 f"{RUNBOOK_CLOUDS} clouds")
+    if any(leg["device"] != str(dev) or leg["tf32_matmul"]
+           or leg["tf32_cudnn"] for leg in legs):
+        fail(f"a runbook leg ran off {dev} or with TF32 on")
+    # the diff stage alone on those results (seeded weights score as random
+    # nets: its count is printed, not held)
+    book.main([*base, "--stages", "diff"])
+    with open(os.path.join(out, "report.json")) as f:
+        diff = json.load(f)["stages"]["diff"]
+    with open(os.path.join(out, "REPRODUCE.md")) as f:
+        rows = sum(line.startswith("| ") and not line.startswith("| defense")
+                   for line in f)
+    want = scored_rows(results, book.parse_baseline_tables(
+        os.path.join(ROOT, "BASELINE.md")))
+    if rows != want:
+        fail(f"REPRODUCE.md holds {rows} rows, not the {want} scored cells")
+    print(f"  diff alone: {diff['status']}: {diff['detail']} ({rows} rows)")
+    return {"call": "+".join(victims + attacks + sorted(keys)),
+            "seconds": seconds, "stage_seconds": report["stage_seconds"],
+            "legs": len(legs), "clean": report["clean"], "rows": rows,
+            "diff": diff["detail"]}, launches
+
+
+def check_runbook(dev) -> tuple[dict, dict]:
+    """Phase 21: the runbook's RUNBOOK_CALLS on the card from `.pth` files,
+    every launch counter set to 0 just before each call and read just
+    after it (before the checks' own CLI runs); every kernel of
+    RUNBOOK_KERNELS launched. -> (numbers, launches summed over the
+    calls)."""
+    t0 = time.perf_counter()
+    calls, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wdir, data, trees = runbook_inputs(dev, tmp)
+        for call in RUNBOOK_CALLS:
+            numbers, counts = check_runbook_call(dev, tmp, wdir, data, trees,
+                                                 call)
+            calls.append(numbers)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t0
+    print(f"  phase 21 took {seconds:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in RUNBOOK_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"the runbook's path did not launch {missing}: {launches}")
+    return {"seconds": seconds, "calls": calls}, launches
+
+
 def tool(name: str):
     """The module `tools/<name>.py` (a script, not a package)."""
     import importlib.util
@@ -5524,33 +5749,42 @@ def main() -> int:
     phase(20, "the one optimiser's three forms, 12 steps on the card "
           "against a CPU copy")
     optimizer_gaps = check_optimizer(dev)
+    phase(21, "the reproduction runbook (tools/reproduce_baseline_torch.py "
+          "--fast) from reference .pth files: every BASELINE.md column, "
+          "every runbook defense, the four victims")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runbook, launches["runbook"] = check_runbook(dev)
     scatter["launches"] = {k: launches[k]["scatter_mean"]
                            for k in ("reference", "fast")}
     scatter["launches"]["accuracy tool"] = accuracy["launches"][
         "scatter_mean"]
+    scatter["launches"]["runbook"] = launches["runbook"]["scatter_mean"]
 
     # a row's launches: the counters of its wrapper's launches in its form,
     # summed over the paths that launch it
-    used_in = {"repulsion_loss": ("reference grid support",
+    used_in = {"repulsion_loss": ("reference grid support runbook",
                                   ("repulsion_loss",)),
-               "plane_features": ("reference mesh support",
+               "plane_features": ("reference mesh support runbook",
                                   ("plane_features", "plane_features_dp")),
-               "repulsion_mask": ("fast", ("repulsion_mask",)),
-               "repulsion_mask_bf16": ("fast", ("repulsion_mask",)),
-               "repulsion_loss_masked": ("fast", ("repulsion_loss_masked",)),
-               "fps": ("dup victims attack fit pointconv support sharded",
-                       ("fps",)),
+               "repulsion_mask": ("fast runbook", ("repulsion_mask",)),
+               "repulsion_mask_bf16": ("fast runbook", ("repulsion_mask",)),
+               "repulsion_loss_masked": ("fast runbook",
+                                         ("repulsion_loss_masked",)),
+               "fps": ("dup victims attack fit pointconv support sharded "
+                       "runbook", ("fps",)),
                "ballquery": ("dup victims attack fit pointconv support "
-                             "sharded", ("ballquery",)),
+                             "sharded runbook", ("ballquery",)),
                "plane_sample": ("uv", ("plane_sample", "plane_sample_duv",
                                        "plane_sample_dplane")),
                "plane_features_dplane": ("train", ("plane_features",
                                                    "plane_features_dplane")),
-               "pooled_max": ("reference fast train_scatter grid_train",
+               "pooled_max": ("reference fast train_scatter grid_train "
+                              "runbook",
                               ("pooled_max", "pooled_max_backward")),
                "csr_build": ("reference fast train_csr grid_train attack "
-                             "fit sharded", ("csr",)),
-               "gather_backward": ("attack fit grid_train sharded",
+                             "fit sharded runbook", ("csr",)),
+               "gather_backward": ("attack fit grid_train sharded runbook",
                                    ("gather_backward",))}
     for row in rows:
         mode, names = used_in[row["name"]]
@@ -5585,6 +5819,10 @@ def main() -> int:
     print("sharded victim training (phase 18): " + json.dumps(sharded)
           + f" on {card}")
     print("accuracy tool (phase 19): " + json.dumps(accuracy) + f" on {card}")
+    print("reproduction runbook (phase 21): " + json.dumps(runbook)
+          + "; launches " + json.dumps(
+              {k: v for k, v in launches["runbook"].items() if v})
+          + f" on {card}")
     print("the optimiser on the card against the CPU (phase 20: each "
           "operation's entries that differ, each form's largest weight gap "
           "from the plain CPU copy over the rate times the steps): "
